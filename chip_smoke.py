@@ -1,0 +1,378 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port (faster_qwen3_tts_tpu_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py                       # from the repository root, on a machine with a card
+    python3 chip_smoke.py --report out.json     # also write every measurement to out.json
+
+Phases, each of which fails the run:
+1. device: a CUDA card must be visible; prints its name and power limit;
+2. build: compiles the port's CUDA kernels (K1 decode attention, K2 int8
+   GEMV) from faster_qwen3_tts_tpu_torch/csrc with nvcc for sm_90a;
+3. kernels: each kernel against its plain PyTorch version on the same inputs
+   at the shapes of the 0.6B slice, with the error, the median device time
+   per call (CUDA-graph replay over operands larger than L2) and the median
+   eager call time (host work included);
+4. reference: the port on the card against the port on the CPU (plain
+   versions) at a tiny geometry in float32, greedy: equal tokens;
+5. slice Q8_0: `from_pretrained("Qwen/Qwen3-TTS-12Hz-0.6B-Base", quant="Q8_0")`
+   at full width (random weights from a seed), `warmup()`, then three
+   streaming x-vector voice-clone requests (chunk 8, first chunk 4); checks
+   the audio, that K1 and K2 carried the run, and greedy determinism; prints
+   TTFA and stream RTF per request;
+6. slice BF16: one request of the same kind in BF16 (K1 only).
+
+The second-to-last line is the kernels' JSON record, the last line
+`{"ok": true, "device": {...}}`. Any failure exits non-zero before them.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parent
+MODEL = "Qwen/Qwen3-TTS-12Hz-0.6B-Base"
+TEXT = "The quick brown fox jumps over the lazy dog today."
+CHUNK, FIRST_CHUNK, FRAMES = 8, 4, 96
+# bf16 kernel output against the f32 plain result from the same bf16 inputs:
+# the final rounding to bf16 alone is up to 2^-9 relative (|out| <= ~4 here),
+# plus f32 sums in another order.
+ATOL = RTOL = 2e-2
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def eager_ms(fn, reps: int = 50, warm: int = 5) -> float:
+    """Median wall time of one eager call, host work included (CUDA events)."""
+    import torch
+
+    for _ in range(warm):
+        fn(0)
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn(0)
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def device_ms(fn, copies: int, reps: int = 11) -> float:
+    """Median device time of one call: `copies` calls on distinct operand sets
+    (together larger than the 50 MB L2, so weights and caches arrive cold, as
+    in a decode step) are captured in a CUDA graph and replayed; host work is
+    out of the measurement."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for i in range(copies):
+            fn(i)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(copies):
+            fn(i)
+    graph.replay()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / copies)
+    return statistics.median(times)
+
+
+def _copies(nbytes: int) -> int:
+    return max(2, min(64, -(-96_000_000 // nbytes)))
+
+
+def _recording(stream, sink):
+    """Relay a (frames, audio, timing) stream, keeping the frames."""
+    for item in stream:
+        sink.append(item[0])
+        yield item
+
+
+def check_close(name, out, ref, details):
+    import torch
+
+    err = (out.float() - ref.float()).abs()
+    bad = (err > ATOL + RTOL * ref.float().abs()).sum().item()
+    max_err = err.max().item()
+    details.append({"case": name, "max_abs_err": max_err, "atol": ATOL, "rtol": RTOL})
+    if bad or not torch.isfinite(out).all():
+        fail(f"{name}: {bad} elements outside atol {ATOL} / rtol {RTOL} (max abs err {max_err})")
+    return max_err
+
+
+def kernel_phase(report):
+    import numpy as np
+    import torch
+
+    from faster_qwen3_tts_tpu_torch.ops import attention, quant
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(0)
+    k1_cases, k2_cases = [], []
+    # K1: the talker (S_max 2048) and predictor (S_max 17) caches of the 0.6B slice
+    for S, lo, hi in [(2048, 0, 33), (2048, 5, 133), (2048, 0, 2048), (17, 0, 3), (17, 0, 17)]:
+        q = torch.randn(1, 1, 16, 128, generator=g).to(dev, torch.bfloat16)
+        k = torch.randn(1, S, 8, 128, generator=g).to(dev, torch.bfloat16)
+        v = torch.randn(1, S, 8, 128, generator=g).to(dev, torch.bfloat16)
+        s = torch.arange(S)
+        mask = ((s >= lo) & (s < hi)).to(torch.int32)[None].to(dev)
+        out = attention.decode_attention(q, k, v, mask)
+        torch.cuda.synchronize()
+        ref = attention.decode_attention_plain(q.float(), k.float(), v.float(), mask)
+        name = f"K1 S_max={S} live=[{lo},{hi})"
+        err = check_close(name, out, ref, k1_cases)
+        n = _copies(2 * k.numel() * k.element_size())
+        ks, vs = [k] + [k.clone() for _ in range(n - 1)], [v] + [v.clone() for _ in range(n - 1)]
+        timed = {
+            "ms": device_ms(lambda i: attention.decode_attention(q, ks[i], vs[i], mask), n),
+            "plain_ms": device_ms(lambda i: attention.decode_attention_plain(q, ks[i], vs[i], mask), n),
+            "eager_ms": eager_ms(lambda i: attention.decode_attention(q, k, v, mask)),
+            "plain_eager_ms": eager_ms(lambda i: attention.decode_attention_plain(q, k, v, mask)),
+        }
+        k1_cases[-1].update(timed)
+        del ks, vs
+        log(f"{name}: max_abs_err {err:.3e} (atol {ATOL}, rtol {RTOL}); device ms per call: kernel "
+            f"{timed['ms']:.5f}, plain {timed['plain_ms']:.5f}; eager call ms: kernel "
+            f"{timed['eager_ms']:.4f}, plain {timed['plain_eager_ms']:.4f}")
+    # K2: every Q8_0 projection shape of the 0.6B talker and predictor, M = 1, 2
+    shapes = {(1024, 2048): "wq/lm_heads", (1024, 1024): "wk/wv/mtp_proj/text_proj",
+              (2048, 1024): "wo", (1024, 3072): "gate/up/codec_head", (3072, 1024): "down"}
+    rng = np.random.default_rng(0)
+    for (I, O), what in shapes.items():
+        ql = quant.quantize_linear(rng.standard_normal((I, O)).astype("float32") * I**-0.5)
+        qw, sc = torch.from_numpy(ql.q).to(dev), torch.from_numpy(ql.scale).to(dev)
+        n = _copies(qw.numel())
+        qs = [qw] + [qw.clone() for _ in range(n - 1)]
+        for M in (1, 2):
+            x = torch.randn(M, I, generator=g).to(dev, torch.bfloat16)
+            out = quant.int8_gemv(x, qw, sc)
+            torch.cuda.synchronize()
+            ref = quant.int8_gemv_plain(x.float(), qw, sc)
+            name = f"K2 M={M} I={I} O={O} ({what})"
+            err = check_close(name, out, ref, k2_cases)
+            timed = {
+                "ms": device_ms(lambda i: quant.int8_gemv(x, qs[i], sc), n),
+                "plain_ms": device_ms(lambda i: quant.int8_gemv_plain(x, qs[i], sc), n),
+                "eager_ms": eager_ms(lambda i: quant.int8_gemv(x, qw, sc)),
+                "plain_eager_ms": eager_ms(lambda i: quant.int8_gemv_plain(x, qw, sc)),
+            }
+            k2_cases[-1].update(timed)
+            log(f"{name}: max_abs_err {err:.3e} (atol {ATOL}, rtol {RTOL}); device ms per call: "
+                f"kernel {timed['ms']:.5f}, plain {timed['plain_ms']:.5f}; eager call ms: kernel "
+                f"{timed['eager_ms']:.4f}, plain {timed['plain_eager_ms']:.4f}")
+        del qs
+    report["kernel_cases"] = {"K1": k1_cases, "K2": k2_cases}
+    return k1_cases, k2_cases
+
+
+# A tiny geometry of the Base model (the widths of the JAX package's
+# `config.tiny_test_config`), as a config.json that `from_pretrained` reads;
+# the text vocabulary is cut to 512, so the tts control ids move below it.
+TINY_CONFIG = {
+    "model_type": "base", "tts_bos_token_id": 300, "tts_eos_token_id": 301, "tts_pad_token_id": 302,
+    "talker_config": {"num_hidden_layers": 2, "hidden_size": 128, "num_attention_heads": 4,
+                      "num_key_value_heads": 2, "head_dim": 32, "intermediate_size": 256,
+                      "text_hidden_size": 64, "text_vocab_size": 512},
+    "predictor_config": {"num_hidden_layers": 2, "hidden_size": 64, "num_attention_heads": 2,
+                         "num_key_value_heads": 1, "head_dim": 32, "intermediate_size": 128},
+    "codec_config": {"hidden_size": 64, "num_hidden_layers": 1, "intermediate_size": 128,
+                     "num_attention_heads": 2, "num_key_value_heads": 2, "head_dim": 32},
+}
+
+
+def reference_phase(report, devices=("cpu", "cuda")):
+    """Port on the card vs port on the CPU (the kernels' plain versions) at a
+    tiny geometry in float32, greedy, through `from_pretrained`."""
+    import numpy as np
+
+    from faster_qwen3_tts_tpu_torch.model import FasterQwen3TTS
+
+    tiny_dir = REPO / "build" / "chip_smoke_tiny"
+    tiny_dir.mkdir(parents=True, exist_ok=True)
+    (tiny_dir / "config.json").write_text(json.dumps(TINY_CONFIG))
+    prompt = {"ref_spk_embedding": [np.random.default_rng(0).standard_normal(2048).astype(np.float32)]}
+    for quant in ("none", "Q8_0"):  # float32 weights, or their int8 quantization
+        runs = []
+        for device in devices:
+            model = FasterQwen3TTS.from_pretrained(str(tiny_dir), device=device, dtype="float32",
+                                                   quant=quant, max_seq_len=256, seed=0)
+            frames = []
+            relay = model._stream_decode
+            model._stream_decode = lambda stream: relay(_recording(stream, frames))
+            audio = [a for a, _, _ in model.generate_voice_clone_streaming(
+                "Hello from the reference phase.", "English", voice_clone_prompt=prompt,
+                max_new_tokens=30, chunk_size=CHUNK, first_chunk_size=FIRST_CHUNK,
+                do_sample=False, subtalker_dosample=False, seed=0)]
+            runs.append((np.concatenate(frames), np.concatenate(audio)))
+        (f_cpu, a_cpu), (f_gpu, a_gpu) = runs
+        same = f_cpu.shape == f_gpu.shape and (f_cpu == f_gpu).all()
+        # float32 throughout (TF32 off); only the order of the sums differs
+        err = float(np.abs(a_cpu - a_gpu).max()) if a_cpu.shape == a_gpu.shape else float("inf")
+        log(f"reference ({quant}, tiny f32, greedy): {f_gpu.shape[0]} frames equal to CPU: {bool(same)}; "
+            f"audio max abs diff {err:.3e} (tolerance 1e-3)")
+        report.setdefault("reference", []).append({"quant": quant, "frames": int(f_gpu.shape[0]),
+                                                   "tokens_equal": bool(same), "audio_max_abs_diff": err})
+        if not same or not err <= 1e-3:
+            fail(f"reference phase ({quant}): the card disagrees with the CPU plain path")
+
+
+def run_request(model, seed, greedy=False, frames=FRAMES):
+    import numpy as np
+    import torch
+
+    from faster_qwen3_tts_tpu_torch.engine.fused_stream import codec_deficit
+
+    prompt = {"ref_spk_embedding": [np.random.default_rng(0).standard_normal(2048).astype(np.float32)]}
+    extra = dict(do_sample=False, subtalker_dosample=False) if greedy else {}
+    tokens = []
+    relay = model._stream_decode
+    model._stream_decode = lambda stream: relay(_recording(stream, tokens))
+    t0 = time.perf_counter()
+    ttfa, chunks, sr, n_frames = None, [], None, 0
+    for audio, sr, timing in model.generate_voice_clone_streaming(
+        TEXT, "English", voice_clone_prompt=prompt, max_new_tokens=frames, chunk_size=CHUNK,
+        first_chunk_size=FIRST_CHUNK, seed=seed, **extra,
+    ):
+        if ttfa is None:
+            ttfa = (time.perf_counter() - t0) * 1000.0
+        chunks.append(audio)
+        n_frames = timing["total_steps_so_far"]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    model._stream_decode = relay
+    audio = np.concatenate(chunks) if chunks else np.zeros(0, np.float32)
+    expect = n_frames * model.config.codec.total_upsample - codec_deficit(model.config.codec)
+    if sr != 24000 or audio.dtype != np.float32 or audio.size == 0:
+        fail(f"request seed {seed}: bad audio (sr {sr}, dtype {audio.dtype}, {audio.size} samples)")
+    if not np.isfinite(audio).all() or audio.size != expect:
+        fail(f"request seed {seed}: {audio.size} samples for {n_frames} frames, expected {expect}, "
+             f"finite {bool(np.isfinite(audio).all())}")
+    rtf = (audio.size / sr) / wall
+    return {"seed": seed, "frames": int(n_frames), "samples": int(audio.size), "ttfa_ms": ttfa,
+            "stream_rtf": rtf, "wall_s": wall}, np.concatenate(tokens)
+
+
+def slice_phase(quant, n_requests, report):
+    import torch
+
+    from faster_qwen3_tts_tpu_torch.model import FasterQwen3TTS
+    from faster_qwen3_tts_tpu_torch.ops import attention
+    from faster_qwen3_tts_tpu_torch.ops import quant as quant_ops
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = FasterQwen3TTS.from_pretrained(MODEL, device="cuda", quant=quant, seed=0)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model.warmup(chunk_size=CHUNK, first_chunk_size=FIRST_CHUNK)
+    warmup_s = time.perf_counter() - t0
+    log(f"slice {quant}: loaded in {load_s:.1f} s, warmup {warmup_s:.1f} s")
+    attention.decode_attention.launches = 0
+    quant_ops.int8_gemv.launches = 0
+    requests = []
+    for i in range(n_requests):
+        req, _ = run_request(model, seed=i + 1)
+        requests.append(req)
+        log(f"slice {quant} request {i}: {req['frames']} frames, TTFA {req['ttfa_ms']:.1f} ms, "
+            f"stream RTF {req['stream_rtf']:.3f}")
+    launches = {"K1": attention.decode_attention.launches, "K2": quant_ops.int8_gemv.launches}
+    log(f"slice {quant}: launches during the requests {launches}")
+    _, tok_a = run_request(model, seed=7, greedy=True, frames=24)
+    _, tok_b = run_request(model, seed=8, greedy=True, frames=24)
+    if tok_a.shape != tok_b.shape or not (tok_a == tok_b).all():
+        fail(f"slice {quant}: two greedy runs gave different tokens")
+    log(f"slice {quant}: two greedy runs gave equal tokens ({tok_a.shape[0]} frames)")
+    report[f"slice_{quant}"] = {"load_s": load_s, "warmup_s": warmup_s, "requests": requests,
+                                "launches": launches,
+                                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    del model
+    torch.cuda.empty_cache()
+    return launches
+
+
+def main() -> None:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--report", type=Path, help="write every measurement to this JSON file")
+    args = parser.parse_args()
+    if not (REPO / "faster_qwen3_tts_tpu_torch" / "csrc").is_dir():
+        fail("faster_qwen3_tts_tpu_torch/ is not beside chip_smoke.py: run it from the repository")
+    sys.path.insert(0, str(REPO))
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this smoke run needs an NVIDIA GPU")
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
+    if not smi:
+        fail("nvidia-smi printed no name and power limit")
+    card = smi[0]
+    log(f"device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
+    log(card)  # name, power limit: as nvidia-smi prints them
+    report = {"device": kind, "nvidia_smi": card, "torch": torch.__version__}
+
+    from faster_qwen3_tts_tpu_torch.ops import kernels
+
+    lib = kernels.library()
+    ptxas = [ln.strip() for ln in lib.build_log.splitlines() if "registers" in ln or "spill" in ln]
+    log(f"build: nvcc sm_90a {lib.build_seconds:.1f} s -> {lib.path.name}")
+    for ln in ptxas:
+        log(f"  ptxas {ln}")
+    report["build_s"] = lib.build_seconds
+
+    k1_cases, k2_cases = kernel_phase(report)
+    reference_phase(report)
+    q8 = slice_phase("Q8_0", 3, report)
+    bf16 = slice_phase("BF16", 1, report)
+    if q8["K1"] == 0 or q8["K2"] == 0:
+        fail(f"the Q8_0 slice did not go through both kernels: {q8}")
+    if bf16["K1"] == 0:
+        fail(f"the BF16 slice did not go through K1: {bf16}")
+    if "jax" in sys.modules:
+        fail("jax was imported")
+
+    def entry(name, source, replaces, cases, launches, pick):
+        return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": launches, "max_abs_err": max(c["max_abs_err"] for c in cases),
+                "ms": cases[pick]["ms"], "plain_ms": cases[pick]["plain_ms"]}
+
+    record = {"kernels": [
+        entry("decode_attention", "faster_qwen3_tts_tpu_torch/csrc/decode_attention.cu",
+              "faster_qwen3_tts_tpu/ops/decode_attn_pallas.py:84 (git ce388ee^)", k1_cases,
+              q8["K1"], 1),
+        entry("int8_gemv", "faster_qwen3_tts_tpu_torch/csrc/int8_gemv.cu",
+              "faster_qwen3_tts_tpu/ops/matvec_pallas.py:86 (git f94c020^)", k2_cases, q8["K2"], 6),
+    ]}
+    report["record"] = record
+    if args.report:
+        args.report.parent.mkdir(parents=True, exist_ok=True)
+        args.report.write_text(json.dumps(report, indent=1))
+    log(json.dumps(record))
+    log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                            "count": torch.cuda.device_count()}}))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,138 @@
+"""Build and load the port's hand-written Hopper kernels.
+
+The CUDA sources under ``faster_qwen3_tts_tpu_torch/csrc/`` have a plain C
+interface. At first use they are compiled with ``nvcc`` for ``sm_90a`` into
+one shared library under ``build/fq3t_torch/`` in the checkout (the file name
+carries a hash of the sources, so an edit rebuilds) and loaded with
+``ctypes``. Nothing here runs at import time: this module is imported on
+machines without ``nvcc`` or a card, where only the kernels' plain PyTorch
+versions run.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "fq3t_torch"
+SOURCES = ("decode_attention.cu", "int8_gemv.cu")
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+)
+
+# dtype codes of csrc/common.cuh
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+_vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_SIGNATURES = {
+    "fq3t_decode_attention": (
+        [_int, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _float, _vp],
+        _int,
+    ),
+    "fq3t_decode_attention_tile": ([], _int),
+    "fq3t_int8_gemv": ([_int, _vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _vp], _int),
+    "fq3t_int8_gemv_block_cols": ([], _int),
+    "fq3t_int8_gemv_rows_per_block": ([], _int),
+}
+
+
+class KernelLibrary:
+    """The loaded shared library plus what its build printed."""
+
+    def __init__(self, path: Path, build_seconds: float, build_log: str):
+        self.path = path
+        self.build_seconds = build_seconds
+        self.build_log = build_log
+        self.cdll = ctypes.CDLL(str(path))
+        for name, (argtypes, restype) in _SIGNATURES.items():
+            fn = getattr(self.cdll, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+        self.attn_tile = self.cdll.fq3t_decode_attention_tile()
+        self.gemv_block_cols = self.cdll.fq3t_int8_gemv_block_cols()
+        self.gemv_rows_per_block = self.cdll.fq3t_int8_gemv_rows_per_block()
+        self._gemv_counters = {}
+
+    def gemv_counters(self, device: torch.device, n: int) -> torch.Tensor:
+        """Zeroed completion counters for K2's split-K, one buffer per device;
+        the kernel leaves every counter at 0 when it returns."""
+        buf = self._gemv_counters.get(device)
+        if buf is None or buf.numel() < n:
+            buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
+            self._gemv_counters[device] = buf
+        return buf
+
+    def call(self, name: str, *args) -> None:
+        """Call a launching entry point and raise on a CUDA error."""
+        err = getattr(self.cdll, name)(*args)
+        if err != 0:
+            raise RuntimeError(f"{name} failed: CUDA error {err}")
+
+
+_LIB: Optional[KernelLibrary] = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found: the port's CUDA kernels cannot be built")
+
+
+def _source_hash() -> str:
+    h = hashlib.sha256()
+    for name in sorted(os.listdir(CSRC)):
+        h.update(name.encode())
+        h.update((CSRC / name).read_bytes())
+    return h.hexdigest()[:12]
+
+
+def library() -> KernelLibrary:
+    """Build (once per source version) and load the kernel library."""
+    global _LIB
+    if _LIB is not None:
+        return _LIB
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    target = BUILD_DIR / f"libfq3t_kernels-{_source_hash()}.so"
+    t0 = time.perf_counter()
+    log = ""
+    if not target.exists():
+        tmp = target.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+        os.replace(tmp, target)
+    _LIB = KernelLibrary(target, time.perf_counter() - t0, log)
+    return _LIB
+
+
+def stream_handle(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def dtype_code(t: torch.Tensor) -> int:
+    if t.dtype not in DTYPE_CODES:
+        raise TypeError(f"kernel takes float32 or bfloat16, got {t.dtype}")
+    return DTYPE_CODES[t.dtype]
+
+
+def require_cuda(*tensors: torch.Tensor) -> None:
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise ValueError(f"kernel argument on {t.device}, expected a CUDA tensor")
+        if not t.is_contiguous():
+            raise ValueError("kernel argument must be contiguous")

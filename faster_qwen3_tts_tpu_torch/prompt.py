@@ -1,0 +1,166 @@
+"""Talker prompt assembly (host path): text, codec and speaker streams ->
+prefill embeddings.
+
+Port of `PromptBuilder.build` of faster_qwen3_tts_tpu/prompt.py for the
+x-vector layout. Per batch item, with text-lane and
+codec-lane vectors summed position-wise:
+
+    [role hiddens (3)]
+    [tts_pad x (k-2), tts_bos] + [codec think/language prefix, speaker, codec_pad]
+    then  streaming: [first text token + codec_bos]  (trailing = text[1:] + eos)
+          non-streaming: [(text + eos) + codec_pad ..., tts_pad + codec_bos]
+                                                      (trailing = tts_pad)
+
+Embedding lookups run on the model's device at bucketed lengths; the
+composition happens in host numpy and the finished prompt goes to the device
+once per request. Constant pieces (codec control-id embeds, projected
+x-vectors) are cached per builder. ICL prompts (reference codes) and preset
+speakers are not ported yet.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from faster_qwen3_tts_tpu.config import Qwen3TTSConfig
+
+from .models import talker as talker_lib
+
+
+def _bucket(n: int, lo: int = 16) -> int:
+    b = lo
+    while b < n:
+        b *= 2
+    return b
+
+
+class PromptBuilder:
+    """Builds (talker_input_embeds, attention_mask, trailing_text_hiddens,
+    tts_pad_embed) for a batch of requests."""
+
+    def __init__(self, params: Dict[str, Any], cfg: Qwen3TTSConfig):
+        self.params = params
+        self.cfg = cfg
+        self.device = params["talker"]["codec_embed"].device
+        self._specials: Optional[Dict[str, np.ndarray]] = None
+        self._codec_embed_cache: Dict[tuple, np.ndarray] = {}
+        self._xvec_cache: Dict[bytes, np.ndarray] = {}
+
+    def _h(self) -> int:
+        return self.cfg.talker.hidden_size
+
+    def _text_hidden(self, ids: np.ndarray) -> np.ndarray:
+        """ids [1, L] -> projected hiddens [L, H] (numpy f32)."""
+        L = ids.shape[1]
+        if L == 0:
+            return np.zeros((0, self._h()), np.float32)
+        padded = np.zeros((1, _bucket(L)), np.int64)
+        padded[:, :L] = ids
+        out = talker_lib.text_hidden(self.params["talker"], torch.as_tensor(padded, device=self.device))
+        return out.float().cpu().numpy()[0, :L]
+
+    def _codec_embed(self, ids: Sequence[int]) -> np.ndarray:
+        key = tuple(int(i) for i in np.asarray(ids).reshape(-1))
+        hit = self._codec_embed_cache.get(key)
+        if hit is None:
+            idx = torch.as_tensor(key, dtype=torch.long, device=self.device)
+            hit = talker_lib.embed_codec(self.params["talker"], idx).float().cpu().numpy()
+            self._codec_embed_cache[key] = hit
+        return hit
+
+    def specials(self) -> Dict[str, np.ndarray]:
+        """Projected tts_bos / tts_eos / tts_pad text embeddings, cached."""
+        if self._specials is None:
+            c = self.cfg
+            ids = np.array([[c.tts_bos_token_id, c.tts_eos_token_id, c.tts_pad_token_id]])
+            h = self._text_hidden(ids)
+            self._specials = {"bos": h[0], "eos": h[1], "pad": h[2]}
+        return self._specials
+
+    def speaker_embed_from_xvector(self, xvec: np.ndarray) -> np.ndarray:
+        """2048-d x-vector -> talker hidden, cached per x-vector."""
+        key = np.ascontiguousarray(xvec, np.float32).tobytes()
+        hit = self._xvec_cache.get(key)
+        if hit is None:
+            x = torch.as_tensor(np.asarray(xvec, np.float32).reshape(1, -1), device=self.device)
+            hit = talker_lib.speaker_project(self.params["talker"], x).float().cpu().numpy()[0]
+            self._xvec_cache[key] = hit
+        return hit
+
+    def _item_codec_block(self, language: Optional[str], xvec: np.ndarray) -> np.ndarray:
+        """One item's codec control block [k, H] f32: think/language prefix,
+        the speaker embedding, then (codec_pad, codec_bos)."""
+        tc = self.cfg.talker
+        xv = np.asarray(xvec, np.float32)
+        # a vector of the talker width is taken as an already-projected embedding
+        speaker_embed = xv if xv.ndim == 1 and xv.shape[0] == self._h() else self.speaker_embed_from_xvector(xv)
+
+        if language is None:
+            raise ValueError("language is required")
+        lang_key = language.lower()
+        if lang_key == "auto":
+            prefix_ids = [tc.codec_nothink_id, tc.codec_think_bos_id, tc.codec_think_eos_id]
+        elif lang_key in tc.codec_language_id:
+            prefix_ids = [tc.codec_think_id, tc.codec_think_bos_id, tc.codec_language_id[lang_key],
+                          tc.codec_think_eos_id]
+        else:
+            raise NotImplementedError(f"Language {language} not implemented")
+        return np.concatenate([
+            self._codec_embed(prefix_ids),
+            speaker_embed.reshape(1, -1),
+            self._codec_embed([tc.codec_pad_id, tc.codec_bos_id]),
+        ], axis=0)
+
+    def build(
+        self,
+        input_ids: List[np.ndarray],
+        xvectors: List[np.ndarray],
+        languages: List[str],
+        non_streaming_mode: bool,
+        instruct_ids: Optional[List[Optional[np.ndarray]]] = None,
+    ) -> Tuple[np.ndarray, np.ndarray, np.ndarray, np.ndarray]:
+        """Returns (tie [B, P, H], attn_mask [B, P], tth [B, T, H], tpe [1, 1, H]),
+        numpy f32, left-padded across the batch. `xvectors` holds one speaker
+        x-vector (2048-d) per item."""
+        tc = self.cfg.talker
+        sp = self.specials()
+        tts_bos, tts_eos, tts_pad = sp["bos"], sp["eos"], sp["pad"]
+        n = len(input_ids)
+        instruct_ids = instruct_ids if instruct_ids is not None else [None] * n
+
+        embeds_per_item, trailing_per_item = [], []
+        for ids, xvec, language, iid in zip(input_ids, xvectors, languages, instruct_ids):
+            parts: List[np.ndarray] = []
+            if iid is not None:  # the instruction turn goes first
+                parts.append(self._text_hidden(np.asarray(iid).reshape(1, -1)))
+            codec_emb = self._item_codec_block(language, xvec)
+            full_h = self._text_hidden(np.asarray(ids).reshape(1, -1))
+            k = codec_emb.shape[0]
+            text_lane = np.concatenate([np.tile(tts_pad[None, :], (k - 2, 1)), tts_bos[None, :]], axis=0)
+            item = parts + [full_h[:3], text_lane + codec_emb[:-1]]
+            if non_streaming_mode:
+                pad_codec = self._codec_embed([tc.codec_pad_id])[0]
+                block = np.concatenate([full_h[3:-5], tts_eos[None, :]], axis=0) + pad_codec
+                tail = (tts_pad + self._codec_embed([tc.codec_bos_id])[0])[None, :]
+                item.extend([block, tail])
+                trailing = tts_pad[None, :]
+            else:
+                item.append(full_h[3:4] + codec_emb[-1:])
+                trailing = np.concatenate([full_h[4:-5], tts_eos[None, :]], axis=0)
+            embeds_per_item.append(np.concatenate(item, axis=0))
+            trailing_per_item.append(trailing)
+
+        H = self._h()
+        max_len = max(e.shape[0] for e in embeds_per_item)
+        tie = np.zeros((n, max_len, H), np.float32)
+        mask = np.zeros((n, max_len), np.int32)
+        for b, e in enumerate(embeds_per_item):
+            tie[b, max_len - e.shape[0]:] = e
+            mask[b, max_len - e.shape[0]:] = 1
+        max_t = max(t.shape[0] for t in trailing_per_item)
+        tth = np.tile(tts_pad[None, None, :], (n, max_t, 1))
+        for b, t in enumerate(trailing_per_item):
+            tth[b, : t.shape[0]] = t
+        return tie, mask, tth, tts_pad[None, None, :]
