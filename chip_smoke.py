@@ -13,13 +13,22 @@ Phases, each of which fails the run:
    per call (CUDA-graph replay over operands larger than L2) and the median
    eager call time (host work included);
 4. reference: the port on the card against the port on the CPU (plain
-   versions) at a tiny geometry in float32, greedy: equal tokens;
+   versions) at a tiny geometry in float32, greedy: equal tokens; then ICL
+   voice clone from a seeded synthetic recording written under build/:
+   x-vector (relative 1e-3), reference codes (equal, up to argmin ties),
+   streamed tokens (equal) and audio (1e-3);
 5. slice Q8_0: `from_pretrained("Qwen/Qwen3-TTS-12Hz-0.6B-Base", quant="Q8_0")`
    at full width (random weights from a seed), `warmup()`, then three
    streaming x-vector voice-clone requests (chunk 8, first chunk 4); checks
    the audio, that K1 and K2 carried the run, and greedy determinism; prints
    TTFA and stream RTF per request;
-6. slice BF16: one request of the same kind in BF16 (K1 only).
+6. slice ICL on the same Q8_0 model: `create_voice_clone_prompt` timed on a
+   4.0 s recording; ICL streams from `ref_audio` with a long reference
+   (~56 frames: every chunk vocoded on the card) and a short one (~19
+   frames: host decode with the reference prepended until 24 frames), one
+   `xvec_only` stream, one non-streaming ICL request; checks sample counts,
+   that K1 and K2 carried these requests, and greedy determinism;
+7. slice BF16: one x-vector request in BF16 (K1 only).
 
 The second-to-last line is the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`. Any failure exits non-zero before them.
@@ -38,6 +47,7 @@ REPO = Path(__file__).resolve().parent
 MODEL = "Qwen/Qwen3-TTS-12Hz-0.6B-Base"
 TEXT = "The quick brown fox jumps over the lazy dog today."
 CHUNK, FIRST_CHUNK, FRAMES = 8, 4, 96
+REF_TEXT = "This is a seeded reference recording for the smoke run."
 # bf16 kernel output against the f32 plain result from the same bf16 inputs:
 # the final rounding to bf16 alone is up to 2^-9 relative (|out| <= ~4 here),
 # plus f32 sums in another order.
@@ -220,7 +230,7 @@ def reference_phase(report, devices=("cpu", "cuda")):
                                                    quant=quant, max_seq_len=256, seed=0)
             frames = []
             relay = model._stream_decode
-            model._stream_decode = lambda stream: relay(_recording(stream, frames))
+            model._stream_decode = lambda stream, *a: relay(_recording(stream, frames), *a)
             audio = [a for a, _, _ in model.generate_voice_clone_streaming(
                 "Hello from the reference phase.", "English", voice_clone_prompt=prompt,
                 max_new_tokens=30, chunk_size=CHUNK, first_chunk_size=FIRST_CHUNK,
@@ -236,24 +246,127 @@ def reference_phase(report, devices=("cpu", "cuda")):
                                                    "tokens_equal": bool(same), "audio_max_abs_diff": err})
         if not same or not err <= 1e-3:
             fail(f"reference phase ({quant}): the card disagrees with the CPU plain path")
+    return tiny_dir
 
 
-def run_request(model, seed, greedy=False, frames=FRAMES):
+def write_recording(path: Path, secs: float, seed: int) -> Path:
+    """A seeded synthetic voice-like recording at 24 kHz (a gliding harmonic
+    tone under a syllable-rate envelope, plus noise), written as 16-bit PCM."""
+    import numpy as np
+
+    from faster_qwen3_tts_tpu_torch.model import audio_lib
+
+    rng = np.random.default_rng(seed)
+    sr = 24000
+    t = np.arange(int(secs * sr)) / sr
+    f0 = 120.0 + 30.0 * np.sin(2 * np.pi * 0.7 * t + rng.uniform(0, 2 * np.pi))
+    phase = 2 * np.pi * np.cumsum(f0) / sr
+    voice = sum(np.sin(k * phase) / k for k in range(1, 6))
+    envelope = 0.5 + 0.5 * np.sin(2 * np.pi * 4.0 * t)
+    audio = 0.2 * envelope * voice + 0.01 * rng.standard_normal(t.size)
+    path.parent.mkdir(parents=True, exist_ok=True)
+    audio_lib.write_wav(path, audio.astype(np.float32), sr)
+    return path
+
+
+def code_ties(model, audio, sr, codes_ref, codes):
+    """Entries where `codes` (card) differ from `codes_ref` (CPU): each must
+    be an argmin tie, the two codewords' distances to the CPU residual
+    agreeing within 1e-4 relative. Later levels of such a frame start from
+    another residual and are not compared. -> [(frame, level, rel), ...]."""
+    import numpy as np
+
+    ccfg = model.config.codec
+    latents, n = model._get_voice_extractor().encode(audio, sr)
+    table = model.params["codec"]["code_embed"].float()
+    residual = latents[0, :n].float() * ccfg.num_quantizers
+    ties = []
+    for f in np.nonzero((codes_ref != codes).any(axis=1))[0]:
+        q = int(np.nonzero(codes_ref[f] != codes[f])[0][0])
+        r = residual[f] - sum(table[lv * ccfg.codebook_size + int(codes_ref[f, lv])] for lv in range(q))
+        d = [float((r - table[q * ccfg.codebook_size + int(c[f, q])]).square().sum()) for c in (codes_ref, codes)]
+        rel = abs(d[0] - d[1]) / max(abs(d[0]), abs(d[1]), 1e-30)
+        if rel > 1e-4:
+            fail(f"reference codes differ at frame {f}, level {q} beyond an argmin tie (distances {d})")
+        ties.append((int(f), q, rel))
+    return ties
+
+
+def reference_icl_phase(report, tiny_dir, devices=("cpu", "cuda")):
+    """ICL voice clone from a reference recording: the card against the CPU
+    at the tiny geometry, float32, greedy. The 1.0 s recording (+ 0.5 s of
+    silence) gives 19 reference frames, so the stream takes the host
+    prepend path and switches to the card's window vocode at 24 frames."""
+    import numpy as np
+
+    from faster_qwen3_tts_tpu_torch.model import FasterQwen3TTS, audio_lib
+
+    ref = write_recording(REPO / "build" / "chip_smoke_ref_tiny.wav", 1.0, seed=3)
+    audio, sr = audio_lib.load_ref_audio(ref, silence_secs=0.5)
+    kw = dict(max_new_tokens=36, chunk_size=CHUNK, first_chunk_size=FIRST_CHUNK, do_sample=False,
+              subtalker_dosample=False, seed=0)
+
+    def stream(model, **prompt):
+        frames = []
+        relay = model._stream_decode
+        model._stream_decode = lambda s, *a: relay(_recording(s, frames), *a)
+        audio_out = [a for a, _, _ in model.generate_voice_clone_streaming(
+            "Hello from the ICL reference phase.", "English", **prompt, **kw)]
+        model._stream_decode = relay
+        return np.concatenate(frames), np.concatenate(audio_out)
+
+    runs = []
+    for device in devices:
+        model = FasterQwen3TTS.from_pretrained(str(tiny_dir), device=device, dtype="float32",
+                                               max_seq_len=256, seed=0)
+        (item,) = model.create_voice_clone_prompt((audio, sr), ref_text=REF_TEXT)
+        runs.append((model, item, stream(model, ref_audio=str(ref), ref_text=REF_TEXT)))
+    (cpu, cpu_item, (f_cpu, a_cpu)), (gpu, gpu_item, (f_gpu, a_gpu)) = runs
+    x_cpu, x_gpu = cpu_item.ref_spk_embedding, gpu_item.ref_spk_embedding
+    x_rel = float(np.abs(x_gpu - x_cpu).max() / np.abs(x_cpu).max())
+    c_cpu, c_gpu = cpu_item.ref_code, gpu_item.ref_code
+    if c_cpu.shape != c_gpu.shape:
+        fail(f"reference codes of shape {c_gpu.shape} on the card, {c_cpu.shape} on the CPU")
+    ties = code_ties(cpu, audio, sr, c_cpu, c_gpu)
+    for f, q, rel in ties:
+        log(f"reference ICL: argmin tie at frame {f}, level {q} (distances agree to {rel:.2e})")
+    if ties:  # hold the stream to the CPU's prompt so the tokens stay comparable
+        f_gpu, a_gpu = stream(gpu, voice_clone_prompt=[cpu_item])
+    same = f_cpu.shape == f_gpu.shape and bool((f_cpu == f_gpu).all())
+    err = float(np.abs(a_cpu - a_gpu).max()) if a_cpu.shape == a_gpu.shape else float("inf")
+    log(f"reference ICL (tiny f32, greedy, {c_cpu.shape[0]} reference frames): x-vector max rel diff "
+        f"{x_rel:.3e} (tolerance 1e-3); codes equal but {len(ties)} argmin ties; {f_gpu.shape[0]} frames "
+        f"equal to CPU: {same}; audio max abs diff {err:.3e} (tolerance 1e-3)")
+    report["reference_icl"] = {"ref_frames": int(c_cpu.shape[0]), "xvec_max_rel_diff": x_rel,
+                               "code_ties": ties, "frames": int(f_gpu.shape[0]), "tokens_equal": same,
+                               "audio_max_abs_diff": err}
+    if not x_rel <= 1e-3 or not same or not err <= 1e-3:
+        fail("reference ICL phase: the card disagrees with the CPU plain path")
+
+
+def run_request(model, seed, greedy=False, frames=FRAMES, **prompt):
+    """One streaming request -> (record, token frames). `prompt` holds the
+    voice kwargs (default: a seeded x-vector). An ICL reference's length
+    decides the expected sample count: exact for chunks vocoded on the card
+    (x-vector, or >= 24 reference frames), within 2 frames after the
+    proportional cut of a shorter reference."""
     import numpy as np
     import torch
 
     from faster_qwen3_tts_tpu_torch.engine.fused_stream import codec_deficit
 
-    prompt = {"ref_spk_embedding": [np.random.default_rng(0).standard_normal(2048).astype(np.float32)]}
+    if not prompt:
+        prompt = {"voice_clone_prompt": {
+            "ref_spk_embedding": [np.random.default_rng(0).standard_normal(2048).astype(np.float32)]}}
     extra = dict(do_sample=False, subtalker_dosample=False) if greedy else {}
     tokens = []
     relay = model._stream_decode
-    model._stream_decode = lambda stream: relay(_recording(stream, tokens))
+    model._stream_decode = lambda stream, *a: relay(_recording(stream, tokens), *a)
     t0 = time.perf_counter()
     ttfa, chunks, sr, n_frames = None, [], None, 0
     for audio, sr, timing in model.generate_voice_clone_streaming(
-        TEXT, "English", voice_clone_prompt=prompt, max_new_tokens=frames, chunk_size=CHUNK,
-        first_chunk_size=FIRST_CHUNK, seed=seed, **extra,
+        TEXT, "English", max_new_tokens=frames, chunk_size=CHUNK, first_chunk_size=FIRST_CHUNK,
+        seed=seed, **prompt, **extra,
     ):
         if ttfa is None:
             ttfa = (time.perf_counter() - t0) * 1000.0
@@ -263,23 +376,115 @@ def run_request(model, seed, greedy=False, frames=FRAMES):
     wall = time.perf_counter() - t0
     model._stream_decode = relay
     audio = np.concatenate(chunks) if chunks else np.zeros(0, np.float32)
-    expect = n_frames * model.config.codec.total_upsample - codec_deficit(model.config.codec)
+    up = model.config.codec.total_upsample
+    ref_frames = None
+    if "ref_audio" in prompt and not prompt.get("xvec_only"):
+        vcp, _ = model._voice_prompt_cache[(prompt["ref_audio"], prompt["ref_text"], False, True)]
+        ref_frames = int(vcp["ref_code"][0].shape[0])
+    if ref_frames is None:  # x-vector: the first window lacks the decoder's deficit
+        expect, slack = n_frames * up - codec_deficit(model.config.codec), 0
+    else:  # ICL: the reference tail is the first window's context, or it is cut off
+        expect, slack = n_frames * up, (0 if ref_frames >= 24 else 2 * up)
     if sr != 24000 or audio.dtype != np.float32 or audio.size == 0:
         fail(f"request seed {seed}: bad audio (sr {sr}, dtype {audio.dtype}, {audio.size} samples)")
-    if not np.isfinite(audio).all() or audio.size != expect:
-        fail(f"request seed {seed}: {audio.size} samples for {n_frames} frames, expected {expect}, "
-             f"finite {bool(np.isfinite(audio).all())}")
+    if not np.isfinite(audio).all() or abs(audio.size - expect) > slack:
+        fail(f"request seed {seed}: {audio.size} samples for {n_frames} frames, expected {expect} "
+             f"(+- {slack}), finite {bool(np.isfinite(audio).all())}")
     rtf = (audio.size / sr) / wall
-    return {"seed": seed, "frames": int(n_frames), "samples": int(audio.size), "ttfa_ms": ttfa,
-            "stream_rtf": rtf, "wall_s": wall}, np.concatenate(tokens)
+    return {"seed": seed, "frames": int(n_frames), "ref_frames": ref_frames, "samples": int(audio.size),
+            "ttfa_ms": ttfa, "stream_rtf": rtf, "wall_s": wall}, np.concatenate(tokens)
 
 
-def slice_phase(quant, n_requests, report):
+def _reset_launches():
+    from faster_qwen3_tts_tpu_torch.ops import attention
+    from faster_qwen3_tts_tpu_torch.ops import quant as quant_ops
+
+    attention.decode_attention.launches = 0
+    quant_ops.int8_gemv.launches = 0
+
+
+def _read_launches():
+    from faster_qwen3_tts_tpu_torch.ops import attention
+    from faster_qwen3_tts_tpu_torch.ops import quant as quant_ops
+
+    return {"K1": attention.decode_attention.launches, "K2": quant_ops.int8_gemv.launches}
+
+
+def slice_icl_phase(model, report):
+    """ICL voice clone from reference recordings on the full-width model."""
+    import numpy as np
+    import torch
+
+    from faster_qwen3_tts_tpu_torch.model import audio_lib
+
+    build = REPO / "build"
+    long_ref = write_recording(build / "chip_smoke_ref_4s.wav", 4.0, seed=11)
+    short_ref = write_recording(build / "chip_smoke_ref_1s.wav", 1.0, seed=12)
+    torch.cuda.reset_peak_memory_stats()
+    audio, sr = audio_lib.read_wav(long_ref)
+    extract_ms = []
+    for _ in range(4):  # the first call also draws the encoders' weights and moves them to the card
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        (item,) = model.create_voice_clone_prompt((audio, sr), ref_text=REF_TEXT)
+        torch.cuda.synchronize()
+        extract_ms.append((time.perf_counter() - t0) * 1000.0)
+    log(f"slice ICL: create_voice_clone_prompt on a 4.0 s recording: first call {extract_ms[0]:.1f} ms "
+        f"(encoder init included), then {', '.join(f'{t:.1f}' for t in extract_ms[1:])} ms; "
+        f"{item.ref_code.shape[0]} frames of codes")
+
+    cases = [("long ICL", long_ref, False, FRAMES, 21), ("short ICL", short_ref, False, 48, 22),
+             ("xvec_only", short_ref, True, 48, 23)]
+    _reset_launches()
+    requests = []
+    for name, ref, xvec_only, frames, seed in cases:
+        prompt = dict(ref_audio=str(ref), ref_text=REF_TEXT, xvec_only=xvec_only)
+        # first request for the voice: extraction, then the voice-prompt cache is warm
+        cold, _ = run_request(model, seed, frames=FIRST_CHUNK, **prompt)
+        req, _ = run_request(model, seed, frames=frames, **prompt)
+        req.update(name=name, cold_voice_ttfa_ms=cold["ttfa_ms"])
+        requests.append(req)
+        log(f"slice ICL {name}: {req['ref_frames']} reference frames, {req['frames']} frames, TTFA "
+            f"{req['ttfa_ms']:.1f} ms (first request for the voice {cold['ttfa_ms']:.1f} ms), "
+            f"stream RTF {req['stream_rtf']:.3f}")
+
+    codec_ids = []
+    relay = model._decode_audio
+    model._decode_audio = lambda ids, rc: (codec_ids.append(ids), relay(ids, rc))[1]
+    t0 = time.perf_counter()
+    (wav,), sr = model.generate_voice_clone(TEXT, "English", ref_audio=str(long_ref), ref_text=REF_TEXT,
+                                            max_new_tokens=48, seed=24)
+    wall = time.perf_counter() - t0
+    model._decode_audio = relay
+    up = model.config.codec.total_upsample
+    n = codec_ids[0].shape[0]
+    if sr != 24000 or not np.isfinite(wav).all() or abs(wav.size - n * up) > 2 * up:
+        fail(f"non-streaming ICL: {wav.size} samples for {n} frames at {sr} Hz")
+    nonstream = {"frames": int(n), "samples": int(wav.size), "wall_s": wall, "rtf": wav.size / sr / wall}
+    log(f"slice ICL non-streaming: {n} frames in {wall:.2f} s, RTF {nonstream['rtf']:.3f}")
+    launches = _read_launches()
+    log(f"slice ICL: launches during the ICL requests {launches}")
+    if launches["K1"] == 0 or launches["K2"] == 0:
+        fail(f"the ICL requests did not go through both kernels: {launches}")
+
+    prompt = dict(ref_audio=str(long_ref), ref_text=REF_TEXT)
+    _, tok_a = run_request(model, seed=7, greedy=True, frames=24, **prompt)
+    _, tok_b = run_request(model, seed=8, greedy=True, frames=24, **prompt)
+    if tok_a.shape != tok_b.shape or not (tok_a == tok_b).all():
+        fail("slice ICL: two greedy runs gave different tokens")
+    log(f"slice ICL: two greedy runs gave equal tokens ({tok_a.shape[0]} frames)")
+    report["slice_icl_Q8_0"] = {"extract_ms": extract_ms, "requests": requests, "non_streaming": nonstream,
+                                "launches": launches,
+                                "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    return launches
+
+
+def slice_phase(quant, n_requests, report, icl=False):
+    """x-vector requests on the full-width model, then (icl) the ICL
+    requests on the same model. -> launches of each path."""
     import torch
 
     from faster_qwen3_tts_tpu_torch.model import FasterQwen3TTS
-    from faster_qwen3_tts_tpu_torch.ops import attention
-    from faster_qwen3_tts_tpu_torch.ops import quant as quant_ops
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -289,15 +494,14 @@ def slice_phase(quant, n_requests, report):
     model.warmup(chunk_size=CHUNK, first_chunk_size=FIRST_CHUNK)
     warmup_s = time.perf_counter() - t0
     log(f"slice {quant}: loaded in {load_s:.1f} s, warmup {warmup_s:.1f} s")
-    attention.decode_attention.launches = 0
-    quant_ops.int8_gemv.launches = 0
+    _reset_launches()
     requests = []
     for i in range(n_requests):
         req, _ = run_request(model, seed=i + 1)
         requests.append(req)
         log(f"slice {quant} request {i}: {req['frames']} frames, TTFA {req['ttfa_ms']:.1f} ms, "
             f"stream RTF {req['stream_rtf']:.3f}")
-    launches = {"K1": attention.decode_attention.launches, "K2": quant_ops.int8_gemv.launches}
+    launches = _read_launches()
     log(f"slice {quant}: launches during the requests {launches}")
     _, tok_a = run_request(model, seed=7, greedy=True, frames=24)
     _, tok_b = run_request(model, seed=8, greedy=True, frames=24)
@@ -307,9 +511,10 @@ def slice_phase(quant, n_requests, report):
     report[f"slice_{quant}"] = {"load_s": load_s, "warmup_s": warmup_s, "requests": requests,
                                 "launches": launches,
                                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+    icl_launches = slice_icl_phase(model, report) if icl else None
     del model
     torch.cuda.empty_cache()
-    return launches
+    return launches, icl_launches
 
 
 def main() -> None:
@@ -343,15 +548,17 @@ def main() -> None:
     report["build_s"] = lib.build_seconds
 
     k1_cases, k2_cases = kernel_phase(report)
-    reference_phase(report)
-    q8 = slice_phase("Q8_0", 3, report)
-    bf16 = slice_phase("BF16", 1, report)
+    reference_icl_phase(report, reference_phase(report))
+    q8, icl = slice_phase("Q8_0", 3, report, icl=True)
+    bf16, _ = slice_phase("BF16", 1, report)
     if q8["K1"] == 0 or q8["K2"] == 0:
         fail(f"the Q8_0 slice did not go through both kernels: {q8}")
     if bf16["K1"] == 0:
         fail(f"the BF16 slice did not go through K1: {bf16}")
     if "jax" in sys.modules:
         fail("jax was imported")
+    # launches of every slice path: Q8_0 x-vector, Q8_0 ICL, BF16 x-vector
+    total = {k: q8[k] + icl[k] + bf16[k] for k in q8}
 
     def entry(name, source, replaces, cases, launches, pick):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
@@ -361,9 +568,9 @@ def main() -> None:
     record = {"kernels": [
         entry("decode_attention", "faster_qwen3_tts_tpu_torch/csrc/decode_attention.cu",
               "faster_qwen3_tts_tpu/ops/decode_attn_pallas.py:84 (git ce388ee^)", k1_cases,
-              q8["K1"], 1),
+              total["K1"], 1),
         entry("int8_gemv", "faster_qwen3_tts_tpu_torch/csrc/int8_gemv.cu",
-              "faster_qwen3_tts_tpu/ops/matvec_pallas.py:86 (git f94c020^)", k2_cases, q8["K2"], 6),
+              "faster_qwen3_tts_tpu/ops/matvec_pallas.py:86 (git f94c020^)", k2_cases, total["K2"], 6),
     ]}
     report["record"] = record
     if args.report:

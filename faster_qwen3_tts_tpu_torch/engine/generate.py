@@ -2,8 +2,9 @@
 
 Port of the single-stream parts of faster_qwen3_tts_tpu/engine/generate.py:
 prompt padding buckets, `GenerationSession`, `fast_generate` (non-streaming)
-and `fast_generate_streaming_fused` (streaming with the window vocode after
-every chunk). The host reads the device once per chunk.
+and `fast_generate_streaming_fused` (streaming; chunks vocoded on the device
+after their decode, or left to the caller's host vocode while an ICL stream
+with a short reference warms in). The host reads the device once per chunk.
 
 Timing dicts keep the JAX package's keys:
   non-streaming: {prefill_ms, decode_s, steps, ms_per_step, steps_per_s}
@@ -159,8 +160,9 @@ class GenerationSession:
 
     def decode_chunk_fused(self, chunk_size: int, ctx: int, history: List[np.ndarray]):
         """One chunk plus its window vocode, read once -> (audio [1, chunk * up],
-        frames [n, 16], done). `history` holds the stream's frames so far; the
-        last `ctx` of them are the vocoder's left context."""
+        frames [n, 16], done). `history` holds the frames before this chunk
+        (an ICL stream's reference codes first); the last `ctx` of them are
+        the vocoder's left context."""
         hist = None
         if ctx > 0:
             hist = torch.as_tensor(np.concatenate(history, axis=0)[-ctx:][None]).to(self.device)
@@ -241,18 +243,32 @@ def fast_generate_streaming_fused(
     chunk_size: int = 12,
     seed: Optional[int] = None,
     context_frames: int = CONTEXT_FRAMES,
+    fuse_first_chunk: bool = False,
     first_chunk_size: Optional[int] = None,
+    ref_codes: Optional[np.ndarray] = None,
     subtalker_dosample: Optional[bool] = None,
     subtalker_top_k: Optional[int] = None,
     subtalker_top_p: Optional[float] = None,
     subtalker_temperature: Optional[float] = None,
-) -> Generator[Tuple[np.ndarray, np.ndarray, Dict[str, Any]], None, None]:
-    """Streaming generation; yields (frames [n, 16], audio [m] f32, timing).
+) -> Generator[Tuple[np.ndarray, Optional[np.ndarray], Dict[str, Any]], None, None]:
+    """Streaming generation; yields (frames [n, 16], audio [m] f32 or None,
+    timing). Each chunk is one of three kinds:
 
-    Every chunk decodes its frames and vocodes a window of them with a left
-    context that grows min(total, context_frames): 0, then first, first +
-    chunk, ... up to 24 frames. Chunk k emits the window-local samples
-    [ctx*up - D, (ctx+n)*up - D), so the chunks are sample-contiguous."""
+    - fused0 (chunk 0 with fuse_first_chunk): decode, then vocode the chunk
+      alone; emits its first n * up - D samples;
+    - fused: decode, then vocode a window whose left context is the last
+      `ctx` frames of the history; emits the window-local samples
+      [ctx*up - D, (ctx+n)*up - D), so fused chunks are sample-contiguous;
+    - plain: decode only (audio None); the caller vocodes on the host.
+
+    Without reference codes the context grows min(total, context_frames):
+    0, first, first + chunk, ... With ICL reference codes ref_codes [R, 16]
+    and R >= context_frames, every chunk, chunk 0 included, is fused with
+    ctx = context_frames over the last frames of ref_codes + history, so the
+    reference audio is never emitted. With R < context_frames (and
+    fuse_first_chunk False) chunks stay plain until context_frames frames
+    were generated, for the caller's reference-prepending host decode; then
+    fused with ctx = min(total, context_frames) over generated frames only."""
     sess = GenerationSession(
         params, cfg, tie, attention_mask, trailing_text, tts_pad_embed, max_seq_len,
         SamplingParams(temperature, top_k, top_p, do_sample, repetition_penalty),
@@ -263,19 +279,33 @@ def fast_generate_streaming_fused(
     up = cfg.codec.total_upsample
     D = fused_stream.codec_deficit(cfg.codec)
     first_cs = first_chunk_size or chunk_size
+    icl_fused = ref_codes is not None and ref_codes.shape[0] >= context_frames
     history: List[np.ndarray] = []
     total = chunk_index = 0
     t0 = time.perf_counter()
     sess.prefill(block=False)  # its time folds into chunk 0's decode_ms
     while total < max_new_tokens:
         cs = first_cs if total == 0 else chunk_size
-        ctx = min(total, context_frames)
-        audio_full, frames, done = sess.decode_chunk_fused(cs, ctx, history)
-        # clip to the token budget before slicing audio, so audio stops at the last frame
-        frames = frames[: max_new_tokens - total]
-        v = frames.shape[0]
-        audio = audio_full[0, : (max(v * up - D, 0) if ctx == 0 else v * up)]
+        if icl_fused:
+            kind, ctx, window = "fused", context_frames, [np.asarray(ref_codes)] + history
+        elif total == 0:
+            kind, ctx, window = ("fused0" if fuse_first_chunk else "plain"), 0, history
+        elif not fuse_first_chunk and total < context_frames:
+            kind, ctx, window = "plain", 0, history  # ICL warm-in: the caller prepends the reference
+        else:
+            kind, ctx, window = "fused", min(total, context_frames), history
+        if kind == "plain":
+            frames, done = sess.decode_chunk(cs)
+            audio = None
+            frames = frames[: max_new_tokens - total]
+        else:
+            audio_full, frames, done = sess.decode_chunk_fused(cs, ctx, window)
+            # clip to the token budget before slicing audio, so audio stops at the last frame
+            frames = frames[: max_new_tokens - total]
+            v = frames.shape[0]
+            audio = audio_full[0, : (max(v * up - D, 0) if kind == "fused0" else v * up)]
         decode_ms = (time.perf_counter() - t0) * 1000.0
+        v = frames.shape[0]
         stream_done = done or total + v >= max_new_tokens
         if v:
             history.append(frames)
@@ -292,7 +322,7 @@ def fast_generate_streaming_fused(
         elif not done:
             raise RuntimeError(
                 f"decode chunk {chunk_index} returned 0 valid frames without EOS "
-                f"(total={total}): the engine state is not advancing"
+                f"(kind={kind}, total={total}): the engine state is not advancing"
             )
         if stream_done:
             break

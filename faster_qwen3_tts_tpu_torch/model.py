@@ -1,23 +1,27 @@
-"""FasterQwen3TTS on PyTorch: x-vector voice clone, streaming and not.
+"""FasterQwen3TTS on PyTorch: voice clone, streaming and not.
 
 A subset of faster_qwen3_tts_tpu/model.py's public API over this port's
 engine: `from_pretrained` (seeded random init at a published geometry; no
-download), `warmup`, `generate_voice_clone` and
-`generate_voice_clone_streaming` with precomputed x-vector prompts
-(`voice_clone_prompt={"ref_spk_embedding": [xvec]}`). ICL prompts, reference
-audio, CustomVoice / VoiceDesign and batching are not ported yet (ROADMAP
-queue A).
+download), `warmup`, `create_voice_clone_prompt`, and `generate_voice_clone`
+/ `generate_voice_clone_streaming` with the JAX package's signatures. A voice
+comes from a reference recording (`ref_audio` + `ref_text`: ICL mode, or
+`xvec_only=True`) or from a precomputed prompt (`voice_clone_prompt`).
+`parity_mode`, the native-backend cached-reference kwargs, CustomVoice /
+VoiceDesign and batching are not ported yet (ROADMAP queue A).
 """
 from __future__ import annotations
 
+import dataclasses
 import logging
 import time
+from pathlib import Path
 from typing import Any, Dict, Generator, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from faster_qwen3_tts_tpu.config import Qwen3TTSConfig, get_config
+from faster_qwen3_tts_tpu.utils import audio as audio_lib
 from faster_qwen3_tts_tpu.utils.tokenizer import PromptTokenizer, load_tokenizer
 
 from . import weights as weights_lib
@@ -33,8 +37,15 @@ _DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16, "fp32": torch.flo
            "float32": torch.float32}
 
 
-def _not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to the PyTorch package yet (ROADMAP queue A)")
+@dataclasses.dataclass
+class VoiceClonePromptItem:
+    """One reference-voice prompt item, as `create_voice_clone_prompt` returns."""
+
+    ref_spk_embedding: np.ndarray  # [2048] x-vector
+    ref_code: Optional[np.ndarray] = None  # [T, 16] codec tokens (ICL only)
+    icl_mode: bool = False
+    x_vector_only_mode: bool = True
+    ref_text: str = ""
 
 
 class SpeechTokenizerFacade:
@@ -89,6 +100,8 @@ class FasterQwen3TTS:
         self._speech_tokenizer = SpeechTokenizerFacade(params, config)
         self.device_chunk = 32  # frames per chunk in non-streaming generation
         self._warmed_up = False
+        self._voice_prompt_cache: Dict[Any, Any] = {}
+        self._voice_extractor = None
 
     @classmethod
     def from_pretrained(
@@ -142,60 +155,199 @@ class FasterQwen3TTS:
     def speech_tokenizer(self) -> SpeechTokenizerFacade:
         return self._speech_tokenizer
 
-    # -- voice-clone prompt resolution ---------------------------------------
+    # -- voice-clone prompts ---------------------------------------------------
 
-    def _resolve_precomputed(self, input_ids, voice_clone_prompt) -> List[np.ndarray]:
-        """Validate a precomputed prompt -> one x-vector per item."""
+    def create_voice_clone_prompt(
+        self,
+        ref_audio: Union[str, Path, Tuple[np.ndarray, int]],
+        ref_text: str = "",
+        x_vector_only_mode: bool = False,
+    ) -> List[VoiceClonePromptItem]:
+        """Extract a voice-clone prompt from reference audio (a wav path or
+        (samples, sample_rate)): the x-vector, and in ICL mode the reference
+        codec tokens."""
+        if isinstance(ref_audio, (str, Path)):
+            audio, sr = audio_lib.read_wav(ref_audio)
+        else:
+            audio, sr = ref_audio
+            audio = np.asarray(audio, np.float32)
+        extractor = self._get_voice_extractor()
+        xvec = extractor.extract_xvector(audio, sr)
+        if x_vector_only_mode:
+            return [VoiceClonePromptItem(ref_spk_embedding=xvec, icl_mode=False,
+                                         x_vector_only_mode=True, ref_text="")]
+        ref_code = extractor.extract_codes(audio, sr)
+        return [VoiceClonePromptItem(ref_spk_embedding=xvec, ref_code=ref_code, icl_mode=True,
+                                     x_vector_only_mode=False, ref_text=ref_text)]
+
+    def _get_voice_extractor(self):
+        """The two reference-audio encoders, built at first use in float32
+        on the model's device."""
+        if self._voice_extractor is None:
+            from .models.voice_extract import VoiceExtractor
+
+            self._voice_extractor = VoiceExtractor(self.params, self.config)
+        return self._voice_extractor
+
+    @staticmethod
+    def _prompt_items_to_voice_clone_prompt(items: List[VoiceClonePromptItem]) -> Dict[str, Any]:
+        return dict(
+            ref_code=[i.ref_code for i in items],
+            ref_spk_embedding=[i.ref_spk_embedding for i in items],
+            x_vector_only_mode=[bool(i.x_vector_only_mode) for i in items],
+            icl_mode=[bool(i.icl_mode) for i in items],
+        )
+
+    def _resolve_voice_clone_prompt(self, input_ids, ref_audio, ref_text, xvec_only, append_silence,
+                                    voice_clone_prompt):
+        """-> (voice_clone_prompt dict of per-item lists, ref_ids, using_icl)."""
+        if voice_clone_prompt is not None:
+            return self._resolve_precomputed(input_ids, ref_text, voice_clone_prompt)
+        if ref_audio is None:
+            raise ValueError("ref_audio is required when voice_clone_prompt is not provided")
+        return self._resolve_from_reference(input_ids, ref_audio, ref_text, xvec_only, append_silence)
+
+    def _resolve_precomputed(self, input_ids, ref_text, voice_clone_prompt):
         n = len(input_ids)
         if isinstance(voice_clone_prompt, list):
-            voice_clone_prompt = {
-                "ref_spk_embedding": [i.ref_spk_embedding for i in voice_clone_prompt],
-                "x_vector_only_mode": [bool(i.x_vector_only_mode) for i in voice_clone_prompt],
-                "icl_mode": [bool(i.icl_mode) for i in voice_clone_prompt],
-                "ref_code": [i.ref_code for i in voice_clone_prompt],
-            }
+            if len(voice_clone_prompt) != n:
+                raise ValueError(f"voice_clone_prompt must have length {n}, got {len(voice_clone_prompt)}")
+            vcp = self._prompt_items_to_voice_clone_prompt(voice_clone_prompt)
+            ref_ids = []
+            for item in voice_clone_prompt:
+                if bool(item.icl_mode):
+                    item_text = item.ref_text or ref_text
+                    if not item_text:
+                        raise ValueError("ref_text is required when voice_clone_prompt uses ICL mode.")
+                    ref_ids.append(self.tokenizer.ref_ids(item_text))
+                else:
+                    ref_ids.append(None)
+            return vcp, ref_ids, any(vcp["icl_mode"])
+
         if "ref_spk_embedding" not in voice_clone_prompt:
             raise ValueError("voice_clone_prompt missing required keys: ['ref_spk_embedding']")
         for key in ("ref_spk_embedding", "x_vector_only_mode", "icl_mode", "ref_code"):
             v = voice_clone_prompt.get(key)
-            if v is not None and (not isinstance(v, list) or len(v) != n):
+            if key in voice_clone_prompt and (not isinstance(v, list) or len(v) != n):
                 raise ValueError(f"voice_clone_prompt[{key!r}] must be a list with length {n}")
         xvec_modes = [bool(v) for v in voice_clone_prompt.get("x_vector_only_mode", [True] * n)]
-        icl_modes = [bool(v) for v in voice_clone_prompt.get("icl_mode", [not m for m in xvec_modes])]
-        for i, (xm, im) in enumerate(zip(xvec_modes, icl_modes)):
-            if xm == im:
-                raise ValueError(
-                    f"voice_clone_prompt has inconsistent mode flags at index {i}: "
-                    "x_vector_only_mode and icl_mode must be opposites"
-                )
+        if "icl_mode" in voice_clone_prompt:
+            icl_modes = [bool(v) for v in voice_clone_prompt["icl_mode"]]
+            for i, (xm, im) in enumerate(zip(xvec_modes, icl_modes)):
+                if xm == im:
+                    raise ValueError(
+                        f"voice_clone_prompt has inconsistent mode flags at index {i}: "
+                        "x_vector_only_mode and icl_mode must be opposites"
+                    )
+        else:
+            icl_modes = [not m for m in xvec_modes]
         ref_codes = voice_clone_prompt.get("ref_code", [None] * n)
-        if any(icl_modes) or any(rc is not None for rc in ref_codes):
-            raise _not_ported("ICL voice clone (reference codes)")
-        return voice_clone_prompt["ref_spk_embedding"]
+        for i, (xm, im, rc) in enumerate(zip(xvec_modes, icl_modes, ref_codes)):
+            if xm and rc is not None:
+                raise ValueError(f"voice_clone_prompt index {i}: ref_code must be None in x_vector_only mode")
+            if im and rc is None:
+                raise ValueError(f"voice_clone_prompt index {i}: ref_code is required in ICL mode")
+        vcp = dict(ref_code=ref_codes, ref_spk_embedding=voice_clone_prompt["ref_spk_embedding"],
+                   x_vector_only_mode=xvec_modes, icl_mode=icl_modes)
+        using_icl = any(icl_modes)
+        if not using_icl:
+            return vcp, [None] * n, False
+        if not ref_text:
+            raise ValueError("ref_text is required when voice_clone_prompt uses ICL mode.")
+        rid = self.tokenizer.ref_ids(ref_text)
+        return vcp, [rid if im else None for im in icl_modes], True
 
-    def _prepare_generation(self, text: str, language: str, ref_audio=None,
-                            non_streaming_mode: bool = False, voice_clone_prompt=None,
+    def _resolve_from_reference(self, input_ids, ref_audio, ref_text, xvec_only, append_silence):
+        """Extract (or take from the per-model cache) the prompt of a
+        reference recording. ICL mode appends 0.5 s of silence unless
+        append_silence is False."""
+        using_icl = not xvec_only
+        cache_key = (str(ref_audio), ref_text, xvec_only, append_silence)
+        if cache_key in self._voice_prompt_cache:
+            vcp, ref_ids = self._voice_prompt_cache[cache_key]
+            return vcp, ref_ids, using_icl
+        if xvec_only:
+            items = self.create_voice_clone_prompt(str(ref_audio), ref_text="", x_vector_only_mode=True)
+            ref_ids = [None] * len(input_ids)
+        else:
+            if not ref_text:
+                raise ValueError("ref_text is required for ICL voice clone from ref_audio "
+                                 "(or pass xvec_only=True)")
+            audio, sr = audio_lib.load_ref_audio(ref_audio, silence_secs=0.5 if append_silence else 0.0)
+            items = self.create_voice_clone_prompt((audio, sr), ref_text=ref_text)
+            ref_ids = [self.tokenizer.ref_ids(items[0].ref_text)]
+        vcp = self._prompt_items_to_voice_clone_prompt(items)
+        self._voice_prompt_cache[cache_key] = (vcp, ref_ids)
+        return vcp, ref_ids, using_icl
+
+    def _prepare_generation(self, text: str, ref_audio=None, ref_text: str = "", language: str = "English",
+                            xvec_only: bool = False, non_streaming_mode: bool = False,
+                            append_silence: bool = True, voice_clone_prompt=None,
                             instruct: Optional[str] = None):
-        if voice_clone_prompt is None:
-            if ref_audio is not None:
-                raise _not_ported("Voice extraction from reference audio")
-            raise ValueError("voice_clone_prompt (a precomputed x-vector) is required")
+        """-> (tie, attention_mask, tth, tpe, ref_codes [R, 16] int32 or None)."""
         input_ids = [self.tokenizer.assistant_ids(text)]
-        xvectors = self._resolve_precomputed(input_ids, voice_clone_prompt)
-        return self.prompt_builder.build(
-            input_ids=input_ids, xvectors=xvectors,
-            languages=[language if language is not None else "Auto"],
-            non_streaming_mode=non_streaming_mode,
-            instruct_ids=[self.tokenizer.instruct_ids(instruct) if instruct else None],
+        instruct_ids = [self.tokenizer.instruct_ids(instruct)] if instruct else [None]
+        vcp, ref_ids, using_icl = self._resolve_voice_clone_prompt(
+            input_ids, ref_audio, ref_text, xvec_only, append_silence, voice_clone_prompt
         )
+        if instruct and not using_icl:
+            logger.warning("Base-model instruct with x-vector-only voice cloning is experimental; "
+                           "prefer xvec_only=False (ICL mode).")
+        ref_codes = None
+        if using_icl and vcp.get("ref_code") and vcp["ref_code"][0] is not None:
+            ref_codes = np.asarray(vcp["ref_code"][0], np.int32)
+        tie, tam, tth, tpe = self.prompt_builder.build(
+            input_ids=input_ids, ref_ids=ref_ids, voice_clone_prompt=vcp,
+            languages=[language if language is not None else "Auto"], speakers=None,
+            non_streaming_mode=non_streaming_mode, instruct_ids=instruct_ids,
+        )
+        return tie, tam, tth, tpe, ref_codes
+
+    # -- codec decode helpers --------------------------------------------------
+
+    def _decode_audio(self, codec_ids: np.ndarray, ref_codes: Optional[np.ndarray]):
+        """Whole-sequence codec decode; ICL reference codes are prepended and
+        their share of the samples is cut off proportionally."""
+        codes = codec_ids if ref_codes is None else np.concatenate([ref_codes, codec_ids], axis=0)
+        audio_list, sr = self._speech_tokenizer.decode({"audio_codes": codes[None]})
+        ref_len = 0 if ref_codes is None else ref_codes.shape[0]
+        outs = []
+        for a in audio_list:
+            a = np.asarray(a).flatten()
+            if ref_len > 0:
+                a = a[int(ref_len / max(codes.shape[0], 1) * len(a)):]
+            outs.append(a)
+        return outs, sr
+
+    def _log_rtf(self, timing: Dict[str, Any]) -> None:
+        audio_s = timing["steps"] / self.config.frame_rate
+        total = timing["prefill_ms"] / 1000 + timing["decode_s"]
+        logger.info("Generated %.2fs audio in %.2fs (%.1fms/step, RTF: %.2f)", audio_s, total,
+                    timing["ms_per_step"], audio_s / total if total > 0 else 0)
 
     # -- generation ----------------------------------------------------------
+
+    @staticmethod
+    def _reject_unported(parity_mode: bool, ref_spk=None, ref_rvq=None, ref_spk_emb=None,
+                         ref_codes=None) -> None:
+        """The cached-reference kwargs belong to the native backend; the JAX
+        package accepts them in its signature and rejects them at call time,
+        and so does the port. parity_mode's eager engine is not ported."""
+        if any(v is not None for v in (ref_spk, ref_rvq, ref_spk_emb, ref_codes)):
+            raise NotImplementedError(
+                "ref_spk/ref_rvq cached references require backend='native'. "
+                "Use voice_clone_prompt for precomputed prompts."
+            )
+        if parity_mode:
+            raise NotImplementedError(
+                "parity_mode (engine/parity.py) is not ported to the PyTorch package yet (ROADMAP queue A)")
 
     def generate_voice_clone(
         self,
         text: str,
         language: str,
-        ref_audio=None,
+        ref_audio: Optional[Union[str, Path]] = None,
+        ref_text: str = "",
         max_new_tokens: int = 2048,
         min_new_tokens: int = 2,
         temperature: float = 0.9,
@@ -203,14 +355,24 @@ class FasterQwen3TTS:
         top_p: float = 1.0,
         do_sample: bool = True,
         repetition_penalty: float = 1.05,
+        xvec_only: bool = False,
         non_streaming_mode: Optional[bool] = None,
+        append_silence: bool = True,
+        parity_mode: bool = False,
         instruct: Optional[str] = None,
+        ref_spk: Optional[Union[str, Path]] = None,
+        ref_rvq: Optional[Union[str, Path]] = None,
+        ref_spk_emb: Optional[np.ndarray] = None,
+        ref_codes: Optional[np.ndarray] = None,
         voice_clone_prompt=None,
         seed: Optional[int] = None,
     ) -> Tuple[List[np.ndarray], int]:
         """Voice-clone TTS -> ([waveform], sample_rate)."""
-        tie, tam, tth, tpe = self._prepare_generation(
-            text, language, ref_audio, bool(non_streaming_mode), voice_clone_prompt, instruct
+        self._reject_unported(parity_mode, ref_spk, ref_rvq, ref_spk_emb, ref_codes)
+        tie, tam, tth, tpe, ref_codes = self._prepare_generation(
+            text=text, ref_audio=ref_audio, ref_text=ref_text, language=language, xvec_only=xvec_only,
+            non_streaming_mode=bool(non_streaming_mode), append_silence=append_silence,
+            voice_clone_prompt=voice_clone_prompt, instruct=instruct,
         )
         codec_ids, timing = gen_lib.fast_generate(
             self.params, self.config, tie, tam, tth, tpe, max_seq_len=self.max_seq_len,
@@ -221,14 +383,16 @@ class FasterQwen3TTS:
         if codec_ids is None:
             logger.warning("Generation returned no tokens")
             return [np.zeros(1, np.float32)], self.sample_rate
-        audio, sr = self._speech_tokenizer.decode({"audio_codes": codec_ids[None]})
+        audio, sr = self._decode_audio(codec_ids, ref_codes)
+        self._log_rtf(timing)
         return audio, sr
 
     def generate_voice_clone_streaming(
         self,
         text: str,
         language: str,
-        ref_audio=None,
+        ref_audio: Optional[Union[str, Path]] = None,
+        ref_text: str = "",
         max_new_tokens: int = 2048,
         min_new_tokens: int = 2,
         temperature: float = 0.9,
@@ -238,7 +402,15 @@ class FasterQwen3TTS:
         repetition_penalty: float = 1.05,
         chunk_size: int = 12,
         first_chunk_size: Optional[int] = None,
+        xvec_only: bool = False,
+        non_streaming_mode: Optional[bool] = None,
+        append_silence: bool = True,
+        parity_mode: bool = False,
         instruct: Optional[str] = None,
+        ref_spk: Optional[Union[str, Path]] = None,
+        ref_rvq: Optional[Union[str, Path]] = None,
+        ref_spk_emb: Optional[np.ndarray] = None,
+        ref_codes: Optional[np.ndarray] = None,
         voice_clone_prompt=None,
         seed: Optional[int] = None,
         subtalker_dosample: Optional[bool] = None,
@@ -247,9 +419,13 @@ class FasterQwen3TTS:
         subtalker_temperature: Optional[float] = None,
     ) -> Generator[Tuple[np.ndarray, int, Dict[str, Any]], None, None]:
         """Streaming voice clone: yields (audio_chunk, sample_rate, timing)
-        per chunk; chunks are sample-contiguous."""
-        tie, tam, tth, tpe = self._prepare_generation(
-            text, language, ref_audio, False, voice_clone_prompt, instruct
+        per chunk; chunks are sample-contiguous (up to the proportional cut
+        of a short ICL reference)."""
+        self._reject_unported(parity_mode, ref_spk, ref_rvq, ref_spk_emb, ref_codes)
+        tie, tam, tth, tpe, ref_codes = self._prepare_generation(
+            text=text, ref_audio=ref_audio, ref_text=ref_text, language=language, xvec_only=xvec_only,
+            non_streaming_mode=bool(non_streaming_mode), append_silence=append_silence,
+            voice_clone_prompt=voice_clone_prompt, instruct=instruct,
         )
         stream = gen_lib.fast_generate_streaming_fused(
             self.params, self.config, tie, tam, tth, tpe, max_seq_len=self.max_seq_len,
@@ -259,12 +435,45 @@ class FasterQwen3TTS:
             first_chunk_size=first_chunk_size, subtalker_dosample=subtalker_dosample,
             subtalker_top_k=subtalker_top_k, subtalker_top_p=subtalker_top_p,
             subtalker_temperature=subtalker_temperature,
+            # x-vector streams and ICL streams with >= 24 reference frames
+            # vocode every chunk on the device; a shorter reference keeps the
+            # host decode that prepends it until 24 frames were generated
+            fuse_first_chunk=ref_codes is None, ref_codes=ref_codes,
         )
-        yield from self._stream_decode(stream)
+        yield from self._stream_decode(stream, ref_codes)
 
-    def _stream_decode(self, stream):
-        """Every chunk of an x-vector stream is vocoded on the device after
-        its decode (engine/fused_stream.py), so this only relays the audio;
-        the host-vocode regimes of the JAX package serve ICL prompts."""
-        for _frames, audio, timing in stream:
-            yield audio, self.sample_rate, timing
+    def _stream_decode(self, stream, ref_codes: Optional[np.ndarray]):
+        """Relays a stream's audio in three regimes:
+        1. fused chunks: audio already vocoded on the device;
+        2. plain chunks before 24 context frames exist: accumulated decode
+           through the bucketed codec facade, ICL reference codes prepended and
+           their share of the samples cut off proportionally;
+        3. plain chunks after that: a fixed 24-frame left-context window,
+           emitting the window-local samples [ctx*up - D, (ctx+n)*up - D).
+        The JAX package vocodes regimes 2-3 on a worker thread; here they run
+        inline, giving the same samples in the same order."""
+        ctx = gen_lib.CONTEXT_FRAMES
+        up = self.config.codec.total_upsample
+        D = codec_deficit(self.config.codec)
+        all_codes: List[np.ndarray] = []
+        prev_len = 0  # samples emitted, in generated-audio coordinates
+        for codec_chunk, fused_audio, timing in stream:
+            all_codes.append(codec_chunk)
+            if fused_audio is not None:
+                prev_len += len(fused_audio)
+                yield fused_audio, self.sample_rate, timing
+                continue
+            all_flat = np.concatenate(all_codes, axis=0)
+            n_new = codec_chunk.shape[0]
+            if all_flat.shape[0] - n_new >= ctx:
+                (audio,), _ = self._speech_tokenizer.decode({"audio_codes": all_flat[-(ctx + n_new):][None]})
+                new_audio = audio[ctx * up - D:(ctx + n_new) * up - D]
+                prev_len += len(new_audio)
+            else:
+                codes_in = all_flat if ref_codes is None else np.concatenate([ref_codes, all_flat], axis=0)
+                (audio,), _ = self._speech_tokenizer.decode({"audio_codes": codes_in[None]})
+                if ref_codes is not None:
+                    audio = audio[int(ref_codes.shape[0] / max(codes_in.shape[0], 1) * len(audio)):]
+                new_audio = audio[prev_len:]
+                prev_len = len(audio)
+            yield new_audio, self.sample_rate, timing

@@ -7,8 +7,11 @@
 - `params_from_numpy(tree, device)` turns such a tree, or one made by the JAX
   package (`weights.init_all(cfg, device_put=False)`, optionally quantized),
   into this port's tree of torch tensors. bfloat16 leaves of the JAX package
-  (ml_dtypes) convert bit for bit. Codec conv weights change layout here,
-  once: see `_codec_layout`.
+  (ml_dtypes) convert bit for bit. Conv weights of the codec and of the
+  two reference-audio encoders change layout here, once: see `_LAYOUTS`.
+- `init_speaker_encoder(seed, cfg)` / `init_codec_encoder(seed, cfg)` draw
+  the reference-audio encoders as the JAX package's `VoiceExtractor` does
+  (seeds 7 and 8 there).
 - `init_all(cfg, seed, dtype, device, quant)` = init_numpy -> round to dtype
   -> optional host int8 quantization -> params_from_numpy -> device. Rounding
   float32 to bfloat16 is round-to-nearest-even in both torch and ml_dtypes,
@@ -22,7 +25,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from faster_qwen3_tts_tpu.config import CodecConfig, PredictorConfig, Qwen3TTSConfig, TalkerConfig
+from faster_qwen3_tts_tpu.config import (CodecConfig, PredictorConfig, Qwen3TTSConfig,
+                                         SpeakerEncoderConfig, TalkerConfig)
 
 from .ops import quant as quant_lib
 
@@ -96,19 +100,41 @@ def _init_predictor(seed: int, cfg: PredictorConfig, talker_hidden: int):
     }
 
 
-def _init_codec(seed: int, cfg: CodecConfig):
-    rng = np.random.default_rng(seed)
+def _conv_init(rng, cin, cout, k, groups=1):
+    """Codec conv weight [K, Cin/groups, Cout] at 0.5x gain, zero bias."""
+    w = rng.standard_normal((k, cin // groups, cout), dtype=np.float32)
+    return w * (0.5 / math.sqrt(max(cin // groups * k, 1))), np.zeros(cout, np.float32)
+
+
+def _lin_init(rng, cin, cout):
+    return rng.standard_normal((cin, cout), dtype=np.float32) * cin**-0.5
+
+
+def _convnext_init(rng, dim):
+    dw_w, dw_b = _conv_init(rng, dim, dim, 7, groups=dim)
+    pw1_w = _lin_init(rng, dim, 4 * dim)
+    pw2_w = _lin_init(rng, 4 * dim, dim)
+    return {
+        "dw_w": dw_w, "dw_b": dw_b, "ln_w": np.ones(dim, np.float32), "ln_b": np.zeros(dim, np.float32),
+        "pw1_w": pw1_w, "pw1_b": np.zeros(4 * dim, np.float32), "pw2_w": pw2_w,
+        "pw2_b": np.zeros(dim, np.float32), "gamma": np.full((dim,), 1e-6, np.float32),
+    }
+
+
+def _res_unit_init(rng, dim):
+    c1_w, c1_b = _conv_init(rng, dim, dim, 7)
+    c2_w, c2_b = _conv_init(rng, dim, dim, 1)
+    zeros = lambda: np.zeros(dim, np.float32)
+    return {"a1": zeros(), "b1": zeros(), "c1_w": c1_w, "c1_b": c1_b,
+            "a2": zeros(), "b2": zeros(), "c2_w": c2_w, "c2_b": c2_b}
+
+
+def _init_codec(seed: int, cfg: CodecConfig, rng=None):
+    rng = np.random.default_rng(seed) if rng is None else rng
     zeros = lambda *shape: np.zeros(shape, np.float32)
     ones = lambda *shape: np.ones(shape, np.float32)
     full = lambda shape, v: np.full(shape, v, np.float32)
-
-    def conv(cin, cout, k, groups=1):
-        w = rng.standard_normal((k, cin // groups, cout), dtype=np.float32)
-        return w * (0.5 / math.sqrt(max(cin // groups * k, 1))), zeros(cout)
-
-    def lin(cin, cout):
-        return rng.standard_normal((cin, cout), dtype=np.float32) * cin**-0.5
-
+    lin = lambda cin, cout: _lin_init(rng, cin, cout)
     C = cfg.hidden_size
 
     def tlayer():
@@ -128,37 +154,21 @@ def _init_codec(seed: int, cfg: CodecConfig):
     layer_list = [tlayer() for _ in range(cfg.num_hidden_layers)]
     stacked = {k: np.stack([lay[k] for lay in layer_list]) for k in layer_list[0]}
 
-    def convnext(dim):
-        dw_w, dw_b = conv(dim, dim, 7, groups=dim)
-        pw1_w = lin(dim, 4 * dim)
-        pw2_w = lin(4 * dim, dim)
-        return {
-            "dw_w": dw_w, "dw_b": dw_b, "ln_w": ones(dim), "ln_b": zeros(dim),
-            "pw1_w": pw1_w, "pw1_b": zeros(4 * dim), "pw2_w": pw2_w, "pw2_b": zeros(dim),
-            "gamma": full((dim,), 1e-6),
-        }
-
     upsample = []
     for factor in cfg.upsampling_ratios:
-        up_w, up_b = conv(C, C, factor)
-        upsample.append({"up_w": up_w, "up_b": up_b, "convnext": convnext(C)})
-
-    def res_unit(dim):
-        c1_w, c1_b = conv(dim, dim, 7)
-        c2_w, c2_b = conv(dim, dim, 1)
-        return {"a1": zeros(dim), "b1": zeros(dim), "c1_w": c1_w, "c1_b": c1_b,
-                "a2": zeros(dim), "b2": zeros(dim), "c2_w": c2_w, "c2_b": c2_b}
+        up_w, up_b = _conv_init(rng, C, C, factor)
+        upsample.append({"up_w": up_w, "up_b": up_b, "convnext": _convnext_init(rng, C)})
 
     blocks = []
     for i, rate in enumerate(cfg.upsample_rates):
         in_dim, out_dim = cfg.decoder_dim // (2**i), cfg.decoder_dim // (2 ** (i + 1))
-        up_w, up_b = conv(in_dim, out_dim, 2 * rate)
+        up_w, up_b = _conv_init(rng, in_dim, out_dim, 2 * rate)
         blocks.append({"a": zeros(in_dim), "b": zeros(in_dim), "up_w": up_w, "up_b": up_b,
-                       "units": [res_unit(out_dim) for _ in _RES_DILATIONS]})
+                       "units": [_res_unit_init(rng, out_dim) for _ in _RES_DILATIONS]})
 
     out_dim = cfg.decoder_dim // (2 ** len(cfg.upsample_rates))
-    dec_in_w, dec_in_b = conv(C, cfg.decoder_dim, 7)
-    dec_out_w, dec_out_b = conv(out_dim, 1, 7)
+    dec_in_w, dec_in_b = _conv_init(rng, C, cfg.decoder_dim, 7)
+    dec_out_w, dec_out_b = _conv_init(rng, out_dim, 1, 7)
     embed = rng.standard_normal((cfg.codebook_size * cfg.num_quantizers, C), dtype=np.float32) * 0.02
     return {
         "code_embed": embed,
@@ -180,6 +190,74 @@ def init_numpy(cfg: Qwen3TTSConfig, seed: int = 0) -> Dict[str, Any]:
     }
 
 
+def init_speaker_encoder(seed: int, cfg: SpeakerEncoderConfig) -> Dict[str, Any]:
+    """ECAPA-TDNN tree, draw for draw the JAX package's
+    `voice_extract.init_speaker_params`: TDNN convs {"w" [K, Cin, Cout], "b"},
+    linears (w [Cin, Cout], b) tuples."""
+    rng = np.random.default_rng(seed)
+    C, S = cfg.channels, cfg.res2net_scale
+    if C % S:
+        raise ValueError(f"speaker encoder channels {C} must divide by res2net_scale {S}")
+    W = C // S
+
+    def tdnn(cin, cout, k):
+        w = rng.standard_normal((k, cin, cout), dtype=np.float32) / math.sqrt(cin * k)
+        return {"w": w, "b": np.zeros(cout, np.float32)}
+
+    def lin(cin, cout):
+        w = rng.standard_normal((cin, cout), dtype=np.float32) / math.sqrt(cin)
+        return w, np.zeros(cout, np.float32)
+
+    params: Dict[str, Any] = {"in": tdnn(cfg.mel_bins, C, 5)}
+    for i in range(cfg.num_blocks):
+        params[f"block{i}"] = {
+            "tdnn1": tdnn(C, C, 1),
+            "res2": [tdnn(W, W, 3) for _ in range(S - 1)],
+            "tdnn2": tdnn(C, C, 1),
+            "se1": lin(C, cfg.se_channels),
+            "se2": lin(cfg.se_channels, C),
+        }
+    params["mfa"] = tdnn(cfg.num_blocks * C, cfg.mfa_dim, 1)
+    params["att_tdnn"] = tdnn(3 * cfg.mfa_dim, cfg.attention_channels, 1)
+    params["att_proj"] = lin(cfg.attention_channels, cfg.mfa_dim)
+    params["out"] = lin(2 * cfg.mfa_dim, cfg.embedding_dim)
+    return params
+
+
+def init_codec_encoder(seed: int, cfg: CodecConfig) -> Dict[str, Any]:
+    """Codec-encoder tree (the decoder's mirror), draw for draw the JAX
+    package's `voice_extract.init_encoder_params`. Its pre_transformer is the
+    one of a whole codec init that continues the same rng stream."""
+    rng = np.random.default_rng(seed)
+    zeros = lambda n: np.zeros(n, np.float32)
+    dims = encoder_dims(cfg)
+    C = cfg.hidden_size
+    params: Dict[str, Any] = {}
+    params["enc_in_w"], params["enc_in_b"] = _conv_init(rng, 1, dims[0], 7)
+    params["blocks"] = [
+        {"units": [_res_unit_init(rng, dims[i]) for _ in _RES_DILATIONS],
+         "a": zeros(dims[i]), "b": zeros(dims[i]),
+         "down_w": _conv_init(rng, dims[i], dims[i + 1], 2 * rate)[0], "down_b": zeros(dims[i + 1])}
+        for i, rate in enumerate(reversed(cfg.upsample_rates))
+    ]
+    params["enc_mid_w"], params["enc_mid_b"] = _conv_init(rng, dims[-1], C, 7)
+    params["downsample"] = [
+        {"convnext": _convnext_init(rng, C), "down_w": _conv_init(rng, C, C, 2 * factor)[0],
+         "down_b": zeros(C)}
+        for factor in reversed(cfg.upsampling_ratios)
+    ]
+    params["pre_transformer"] = _init_codec(seed + 1, cfg, rng=rng)["pre_transformer"]
+    return params
+
+
+def encoder_dims(cfg: CodecConfig):
+    """Codec-encoder channel plan: from the decoder's narrowest width
+    (decoder_dim / 2^n) doubling back up to decoder_dim."""
+    n = len(cfg.upsample_rates)
+    base = cfg.decoder_dim // (2**n)
+    return tuple(base * (2**i) for i in range(n + 1))
+
+
 def _to_tensor(a) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # ml_dtypes leaf of the JAX package
@@ -197,6 +275,8 @@ def _convert(node, device):
         return quant_lib.QuantizedLinear(*(_to_tensor(x).to(device) for x in node))
     if fields == ("packed", "scale", "wmin"):
         return quant_lib.QuantizedLinear4(*(_to_tensor(x).to(device) for x in node))
+    if isinstance(node, tuple):  # (w, b) linears of the speaker encoder
+        return tuple(_convert(v, device) for v in node)
     return _to_tensor(node).to(device)
 
 
@@ -230,12 +310,53 @@ def _codec_layout(codec: dict) -> dict:
     return out
 
 
+def _speaker_encoder_layout(spk: dict) -> dict:
+    """TDNN conv weights {"w": [K, Cin, Cout]} -> [Cout, Cin, K]; the (w, b)
+    linears keep their [Cin, Cout] layout."""
+    def tdnn(node):
+        return {**node, "w": _conv_weight(node["w"])}
+
+    out = {}
+    for name, node in spk.items():
+        if name.startswith("block"):
+            out[name] = {**node, "tdnn1": tdnn(node["tdnn1"]), "tdnn2": tdnn(node["tdnn2"]),
+                         "res2": [tdnn(r) for r in node["res2"]]}
+        else:
+            out[name] = tdnn(node) if isinstance(node, dict) else node
+    return out
+
+
+def _codec_encoder_layout(enc: dict) -> dict:
+    """Every conv weight of the codec encoder -> [Cout, Cin/groups, K]."""
+    out = dict(enc)
+    out["enc_in_w"] = _conv_weight(enc["enc_in_w"])
+    out["enc_mid_w"] = _conv_weight(enc["enc_mid_w"])
+    out["blocks"] = [
+        {**blk, "down_w": _conv_weight(blk["down_w"]),
+         "units": [{**u, "c1_w": _conv_weight(u["c1_w"]), "c2_w": _conv_weight(u["c2_w"])}
+                   for u in blk["units"]]}
+        for blk in enc["blocks"]
+    ]
+    out["downsample"] = [
+        {**st, "down_w": _conv_weight(st["down_w"]),
+         "convnext": {**st["convnext"], "dw_w": _conv_weight(st["convnext"]["dw_w"])}}
+        for st in enc["downsample"]
+    ]
+    return out
+
+
+_LAYOUTS = {"codec": _codec_layout, "speaker_encoder": _speaker_encoder_layout,
+            "codec_encoder": _codec_encoder_layout}
+
+
 def params_from_numpy(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
     """Host tree (numpy leaves, QuantizedLinear / QuantizedLinear4 nodes of
-    either package) -> the port's tree on `device`."""
+    either package) -> the port's tree on `device`. Conv weights of the
+    codec and of the two reference-audio encoders change layout here."""
     out = _convert(tree, device)
-    if "codec" in out:
-        out["codec"] = _codec_layout(out["codec"])
+    for name, layout in _LAYOUTS.items():
+        if name in out:
+            out[name] = layout(out[name])
     return out
 
 

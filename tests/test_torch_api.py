@@ -4,6 +4,7 @@ Greedy (talker and code predictor), x-vector prompt, float32, tiny geometry.
 Token frames must be exactly equal; audio chunks agree at atol 1e-4 with
 equal lengths."""
 import dataclasses
+import inspect
 import os
 import subprocess
 import sys
@@ -93,7 +94,9 @@ def test_non_streaming_generate_and_codec_decode_match_jax(models, xvec_prompt):
     jprompt = jax_model._prepare_generation(
         "Same text.", language="English", voice_clone_prompt=xvec_prompt, prefer_device=False
     )[:4]
-    prompt = port._prepare_generation("Same text.", "English", voice_clone_prompt=xvec_prompt)
+    prompt = port._prepare_generation("Same text.", language="English", voice_clone_prompt=xvec_prompt)
+    assert prompt[4] is None  # no reference codes in x-vector mode
+    prompt = prompt[:4]
     for a, b in zip(prompt, jprompt):
         np.testing.assert_allclose(a, b, atol=1e-5, rtol=1e-5)
     jcodes, jtiming = jax_gen.fast_generate(jax_model.params, jax_model.config, *jprompt, **kw)
@@ -110,13 +113,28 @@ def test_non_streaming_generate_and_codec_decode_match_jax(models, xvec_prompt):
 
 
 def test_unported_prompts_raise(models, xvec_prompt):
+    """parity_mode and the native backend's cached-reference kwargs are
+    rejected at call time, as the JAX package rejects the latter."""
     _, port = models
-    icl = {"ref_spk_embedding": xvec_prompt["ref_spk_embedding"], "x_vector_only_mode": [False],
-           "icl_mode": [True], "ref_code": [np.zeros((10, 16), np.int32)]}
-    with pytest.raises(NotImplementedError):
-        next(port.generate_voice_clone_streaming("Hi.", "English", voice_clone_prompt=icl))
-    with pytest.raises(NotImplementedError):
-        next(port.generate_voice_clone_streaming("Hi.", "English", ref_audio="ref.wav"))
+    kw = dict(voice_clone_prompt=xvec_prompt, max_new_tokens=4)
+    with pytest.raises(NotImplementedError, match="parity_mode"):
+        next(port.generate_voice_clone_streaming("Hi.", "English", parity_mode=True, **kw))
+    with pytest.raises(NotImplementedError, match="parity_mode"):
+        port.generate_voice_clone("Hi.", "English", parity_mode=True, **kw)
+    for name in ("ref_spk", "ref_rvq", "ref_spk_emb", "ref_codes"):
+        with pytest.raises(NotImplementedError, match="native"):
+            next(port.generate_voice_clone_streaming("Hi.", "English", **{name: np.zeros(4)}, **kw))
+        with pytest.raises(NotImplementedError, match="native"):
+            port.generate_voice_clone("Hi.", "English", **{name: np.zeros(4)}, **kw)
+
+
+@pytest.mark.parametrize("method", ["generate_voice_clone", "generate_voice_clone_streaming"])
+def test_voice_clone_signature_matches_jax(method):
+    """Same parameter names in the same order, so positional calls written
+    for the JAX package (text, language, ref_audio, ref_text, ...) mean the
+    same on the port."""
+    names = list(inspect.signature(getattr(FasterQwen3TTS, method)).parameters)
+    assert names == list(inspect.signature(getattr(JaxTTS, method)).parameters)
 
 
 def test_from_pretrained_cuda_raises_without_a_card():
@@ -127,7 +145,8 @@ def test_from_pretrained_cuda_raises_without_a_card():
 
 
 def test_port_never_imports_jax(tmp_path):
-    """A tiny CPU generate through the port leaves jax unimported."""
+    """Tiny CPU generates through the port, x-vector and ICL from a
+    reference wav, leave jax unimported."""
     script = tmp_path / "run.py"
     script.write_text(
         "import dataclasses, sys\n"
@@ -145,11 +164,16 @@ def test_port_never_imports_jax(tmp_path):
         "n = sum(len(a) for a, _, _ in m.generate_voice_clone_streaming(\n"
         "    'Hi.', 'English', voice_clone_prompt=prompt, max_new_tokens=6, chunk_size=4, seed=0))\n"
         "assert n > 0\n"
+        "from faster_qwen3_tts_tpu.utils.audio import write_wav\n"
+        "write_wav(sys.argv[1], (0.3 * np.sin(np.arange(12000) / 20)).astype(np.float32), 24000)\n"
+        "n = sum(len(a) for a, _, _ in m.generate_voice_clone_streaming(\n"
+        "    'Hi.', 'English', sys.argv[1], 'Ref.', max_new_tokens=6, chunk_size=4, seed=0))\n"
+        "assert n > 0 and m._voice_prompt_cache\n"
         "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
-    proc = subprocess.run([sys.executable, str(script)], capture_output=True, text=True, env=env,
-                          timeout=300)
+    proc = subprocess.run([sys.executable, str(script), str(tmp_path / "ref.wav")], capture_output=True,
+                          text=True, env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("ok")
