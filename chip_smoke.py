@@ -7,28 +7,42 @@
 Phases, each of which fails the run:
 1. device: a CUDA card must be visible; prints its name and power limit;
 2. build: compiles the port's CUDA kernels (K1 decode attention, K2 int8
-   GEMV) from faster_qwen3_tts_tpu_torch/csrc with nvcc for sm_90a;
-3. kernels: each kernel against its plain PyTorch version on the same inputs
-   at the shapes of the 0.6B slice, with the error, the median device time
-   per call (CUDA-graph replay over operands larger than L2) and the median
-   eager call time (host work included);
-4. reference: the port on the card against the port on the CPU (plain
-   versions) at a tiny geometry in float32, greedy: equal tokens; then ICL
-   voice clone from a seeded synthetic recording written under build/:
-   x-vector (relative 1e-3), reference codes (equal, up to argmin ties),
-   streamed tokens (equal) and audio (1e-3);
-5. slice Q8_0: `from_pretrained("Qwen/Qwen3-TTS-12Hz-0.6B-Base", quant="Q8_0")`
-   at full width (random weights from a seed), `warmup()`, then three
-   streaming x-vector voice-clone requests (chunk 8, first chunk 4); checks
-   the audio, that K1 and K2 carried the run, and greedy determinism; prints
-   TTFA and stream RTF per request;
-6. slice ICL on the same Q8_0 model: `create_voice_clone_prompt` timed on a
+   GEMV, K3 weight streaming) from faster_qwen3_tts_tpu_torch/csrc with one
+   nvcc per source for sm_90a;
+3. kernels: K1 and K2 against their plain PyTorch versions on the same
+   inputs at the shapes of the 0.6B and 1.7B slices, with the error, the
+   median device time per call (CUDA-graph replay over operands larger than
+   L2) and the median eager call time (host work included);
+4. probe: K3 streams the stacked int8 weights of the Pallas probe it
+   replaces (L=28, I=2048, O=12288, the 1.7B gate+up stack, and L=28,
+   I=1024, O=6144), timed with CUDA events, then held against its plain
+   version: error, device ms and GB/s of each;
+5. reference: the port on the card against the port on the CPU (plain
+   versions) at a tiny geometry in float32, greedy: x-vector streams (equal
+   tokens); ICL voice clone from a seeded synthetic recording written under
+   build/: x-vector (relative 1e-3), reference codes (equal, up to argmin
+   ties), streamed tokens (equal) and audio (1e-3); a CustomVoice stream
+   (dialect speaker, Chinese, an instruction) and a VoiceDesign stream:
+   equal tokens, audio within 1e-3;
+6. slice 0.6B Q8_0: `from_pretrained("Qwen/Qwen3-TTS-12Hz-0.6B-Base",
+   quant="Q8_0")` at full width (random weights from a seed), `warmup()`,
+   then three streaming x-vector voice-clone requests (chunk 8, first chunk
+   4); checks the audio, that K1 and K2 carried the run, and greedy
+   determinism; prints TTFA and stream RTF per request;
+7. slice ICL on the same Q8_0 model: `create_voice_clone_prompt` timed on a
    4.0 s recording; ICL streams from `ref_audio` with a long reference
    (~56 frames: every chunk vocoded on the card) and a short one (~19
    frames: host decode with the reference prepended until 24 frames), one
    `xvec_only` stream, one non-streaming ICL request; checks sample counts,
    that K1 and K2 carried these requests, and greedy determinism;
-7. slice BF16: one x-vector request in BF16 (K1 only).
+8. slice BF16: one x-vector request in BF16 (K1 only);
+9. slice 1.7B Q8_0: `from_pretrained("Qwen/Qwen3-TTS-12Hz-1.7B-CustomVoice",
+   quant="Q8_0")`, `warmup()`, two CustomVoice streams (a plain speaker in
+   English, a dialect speaker in Chinese) and one non-streaming request;
+   on the same weights VoiceDesign (two streams with an instruction, one
+   non-streaming request) and a Base x-vector stream; checks sample counts,
+   that K1 and K2 carried these requests, and greedy determinism; prints
+   load and warmup time, TTFA and stream RTF per request, peak memory.
 
 The second-to-last line is the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`. Any failure exits non-zero before them.
@@ -36,6 +50,8 @@ The second-to-last line is the kernels' JSON record, the last line
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
 import json
 import statistics
 import subprocess
@@ -45,9 +61,14 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
 MODEL = "Qwen/Qwen3-TTS-12Hz-0.6B-Base"
+MODEL_17B = "Qwen/Qwen3-TTS-12Hz-1.7B-CustomVoice"
 TEXT = "The quick brown fox jumps over the lazy dog today."
 CHUNK, FIRST_CHUNK, FRAMES = 8, 4, 96
 REF_TEXT = "This is a seeded reference recording for the smoke run."
+INSTRUCT = "Speak slowly, in a calm and warm low voice."
+DESIGN = ("A warm middle-aged female narrator with a low, slightly husky voice, speaking slowly "
+          "and clearly, calm and reassuring.")
+HBM_PEAK_GB_S = 3350.0  # H100 SXM5 80GB HBM3, the card's data sheet
 # bf16 kernel output against the f32 plain result from the same bf16 inputs:
 # the final rounding to bf16 alone is up to 2^-9 relative (|out| <= ~4 here),
 # plus f32 sums in another order.
@@ -113,11 +134,34 @@ def _copies(nbytes: int) -> int:
     return max(2, min(64, -(-96_000_000 // nbytes)))
 
 
-def _recording(stream, sink):
-    """Relay a (frames, audio, timing) stream, keeping the frames."""
-    for item in stream:
-        sink.append(item[0])
-        yield item
+@contextlib.contextmanager
+def tapped_frames(model, frames):
+    """For the block, keep in `frames` the token frames of the model's
+    streams (its (frames, audio, timing) items pass through unchanged)."""
+    relay = model._stream_decode
+
+    def recording(stream):
+        for item in stream:
+            frames.append(item[0])
+            yield item
+
+    model._stream_decode = lambda stream, *a: relay(recording(stream), *a)
+    try:
+        yield frames
+    finally:
+        del model._stream_decode  # the class's method again: no cycle keeps the model alive
+
+
+@contextlib.contextmanager
+def tapped_codes(model, codes):
+    """For the block, keep in `codes` the codec ids of each whole-sequence
+    decode of the model."""
+    relay = model._decode_audio
+    model._decode_audio = lambda ids, rc: (codes.append(ids), relay(ids, rc))[1]
+    try:
+        yield codes
+    finally:
+        del model._decode_audio
 
 
 def check_close(name, out, ref, details):
@@ -141,8 +185,11 @@ def kernel_phase(report):
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(0)
     k1_cases, k2_cases = [], []
-    # K1: the talker (S_max 2048) and predictor (S_max 17) caches of the 0.6B slice
-    for S, lo, hi in [(2048, 0, 33), (2048, 5, 133), (2048, 0, 2048), (17, 0, 3), (17, 0, 17)]:
+    # K1: the talker (S_max 2048) and predictor (S_max 17) caches, the same at
+    # 0.6B and 1.7B (16 / 8 heads of 128); live [56, 300) is a VoiceDesign
+    # prefill of ~200 rows, left-padded to its bucket of 256, plus 44 frames
+    for S, lo, hi in [(2048, 0, 33), (2048, 5, 133), (2048, 56, 300), (2048, 0, 2048), (17, 0, 3),
+                      (17, 0, 17)]:
         q = torch.randn(1, 1, 16, 128, generator=g).to(dev, torch.bfloat16)
         k = torch.randn(1, S, 8, 128, generator=g).to(dev, torch.bfloat16)
         v = torch.randn(1, S, 8, 128, generator=g).to(dev, torch.bfloat16)
@@ -166,9 +213,12 @@ def kernel_phase(report):
         log(f"{name}: max_abs_err {err:.3e} (atol {ATOL}, rtol {RTOL}); device ms per call: kernel "
             f"{timed['ms']:.5f}, plain {timed['plain_ms']:.5f}; eager call ms: kernel "
             f"{timed['eager_ms']:.4f}, plain {timed['plain_eager_ms']:.4f}")
-    # K2: every Q8_0 projection shape of the 0.6B talker and predictor, M = 1, 2
+    # K2: every Q8_0 projection shape of the 0.6B and 1.7B talkers and the
+    # predictor they share, M = 1, 2
     shapes = {(1024, 2048): "wq/lm_heads", (1024, 1024): "wk/wv/mtp_proj/text_proj",
-              (2048, 1024): "wo", (1024, 3072): "gate/up/codec_head", (3072, 1024): "down"}
+              (2048, 1024): "wo; 1.7B wk/wv/mtp_proj", (1024, 3072): "gate/up/codec_head",
+              (3072, 1024): "down", (2048, 2048): "1.7B wq/wo/text_proj", (2048, 6144): "1.7B gate/up",
+              (6144, 2048): "1.7B down", (2048, 3072): "1.7B codec_head"}
     rng = np.random.default_rng(0)
     for (I, O), what in shapes.items():
         ql = quant.quantize_linear(rng.standard_normal((I, O)).astype("float32") * I**-0.5)
@@ -188,13 +238,72 @@ def kernel_phase(report):
                 "eager_ms": eager_ms(lambda i: quant.int8_gemv(x, qw, sc)),
                 "plain_eager_ms": eager_ms(lambda i: quant.int8_gemv_plain(x, qw, sc)),
             }
-            k2_cases[-1].update(timed)
+            timed["gb_s"] = qw.numel() / timed["ms"] / 1e6
+            k2_cases[-1].update(timed, shape=(M, I, O))
             log(f"{name}: max_abs_err {err:.3e} (atol {ATOL}, rtol {RTOL}); device ms per call: "
-                f"kernel {timed['ms']:.5f}, plain {timed['plain_ms']:.5f}; eager call ms: kernel "
-                f"{timed['eager_ms']:.4f}, plain {timed['plain_eager_ms']:.4f}")
+                f"kernel {timed['ms']:.5f} ({timed['gb_s']:.0f} GB/s of weights), plain "
+                f"{timed['plain_ms']:.5f}; eager call ms: kernel {timed['eager_ms']:.4f}, plain "
+                f"{timed['plain_eager_ms']:.4f}")
         del qs
     report["kernel_cases"] = {"K1": k1_cases, "K2": k2_cases}
     return k1_cases, k2_cases
+
+
+def _events_ms(fn, reps: int, warm: int = 2) -> float:
+    """Median device time of one call, each call between its own CUDA events."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    times = []
+    for _ in range(reps):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def probe_phase(report, k2_cases):
+    """K3 streams stacked int8 layer weights (operands far larger than L2, so
+    no copies are needed) -> (cases, launches of the timed probe runs)."""
+    import torch
+
+    from faster_qwen3_tts_tpu_torch.ops import weight_stream as ws
+
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    cases, launches = [], 0
+    for L, I, O in [(28, 2048, 12288), (28, 1024, 6144)]:
+        w = torch.randint(-127, 127, (L, I, O), dtype=torch.int8, device=dev, generator=g)
+        x = (torch.randn(1, I, device=dev, generator=g) * 0.1).to(torch.bfloat16)
+        ws.weight_stream.launches = 0  # the probe itself: the timed runs
+        ms = _events_ms(lambda: ws.weight_stream(x, w), reps=20)
+        launches += ws.weight_stream.launches
+        plain_ms = _events_ms(lambda: ws.weight_stream_plain(x, w), reps=5, warm=1)
+        out, ref = ws.weight_stream(x, w), ws.weight_stream_plain(x, w)
+        tol = 1e-5 * ref.abs().max().item()  # f32 sums of exact products in another order
+        gb = w.numel() / 1e9
+        c = {"case": f"K3 L={L} I={I} O={O}", "gb": gb, "ms": ms, "plain_ms": plain_ms,
+             "gb_s": gb / ms * 1e3, "plain_gb_s": gb / plain_ms * 1e3,
+             "max_abs_err": (out - ref).abs().max().item(), "atol": tol}
+        cases.append(c)
+        log(f"{c['case']} ({gb * 1e3:.0f} MB int8): max_abs_err {c['max_abs_err']:.3e} (atol "
+            f"{tol:.3e}); device ms: kernel {ms:.4f} ({c['gb_s']:.0f} GB/s, "
+            f"{c['gb_s'] / HBM_PEAK_GB_S:.1%} of HBM peak), plain {plain_ms:.4f} "
+            f"({c['plain_gb_s']:.0f} GB/s, {c['plain_gb_s'] / HBM_PEAK_GB_S:.1%})")
+        if not c["max_abs_err"] <= tol or not torch.isfinite(out).all():
+            fail(f"{c['case']}: the kernel disagrees with its plain version")
+        del w, out, ref
+    gate_up = next(c for c in k2_cases if c["shape"] == (1, 2048, 6144))
+    log(f"K2 1.7B gate/up (M=1, 2048x6144, 12.6 MB) {gate_up['gb_s']:.0f} GB/s beside K3's "
+        f"{cases[0]['gb_s']:.0f} GB/s over the 1.7B gate+up stack")
+    if launches == 0:
+        fail("the probe did not launch K3")
+    report["probe"] = {"cases": cases, "launches": launches}
+    return cases, launches
 
 
 # A tiny geometry of the Base model (the widths of the JAX package's
@@ -219,22 +328,18 @@ def reference_phase(report, devices=("cpu", "cuda")):
 
     from faster_qwen3_tts_tpu_torch.model import FasterQwen3TTS
 
-    tiny_dir = REPO / "build" / "chip_smoke_tiny"
-    tiny_dir.mkdir(parents=True, exist_ok=True)
-    (tiny_dir / "config.json").write_text(json.dumps(TINY_CONFIG))
+    tiny_dir = _tiny_config_dir("chip_smoke_tiny")
     prompt = {"ref_spk_embedding": [np.random.default_rng(0).standard_normal(2048).astype(np.float32)]}
     for quant in ("none", "Q8_0"):  # float32 weights, or their int8 quantization
         runs = []
         for device in devices:
             model = FasterQwen3TTS.from_pretrained(str(tiny_dir), device=device, dtype="float32",
                                                    quant=quant, max_seq_len=256, seed=0)
-            frames = []
-            relay = model._stream_decode
-            model._stream_decode = lambda stream, *a: relay(_recording(stream, frames), *a)
-            audio = [a for a, _, _ in model.generate_voice_clone_streaming(
-                "Hello from the reference phase.", "English", voice_clone_prompt=prompt,
-                max_new_tokens=30, chunk_size=CHUNK, first_chunk_size=FIRST_CHUNK,
-                do_sample=False, subtalker_dosample=False, seed=0)]
+            with tapped_frames(model, []) as frames:
+                audio = [a for a, _, _ in model.generate_voice_clone_streaming(
+                    "Hello from the reference phase.", "English", voice_clone_prompt=prompt,
+                    max_new_tokens=30, chunk_size=CHUNK, first_chunk_size=FIRST_CHUNK,
+                    do_sample=False, subtalker_dosample=False, seed=0)]
             runs.append((np.concatenate(frames), np.concatenate(audio)))
         (f_cpu, a_cpu), (f_gpu, a_gpu) = runs
         same = f_cpu.shape == f_gpu.shape and (f_cpu == f_gpu).all()
@@ -307,12 +412,9 @@ def reference_icl_phase(report, tiny_dir, devices=("cpu", "cuda")):
               subtalker_dosample=False, seed=0)
 
     def stream(model, **prompt):
-        frames = []
-        relay = model._stream_decode
-        model._stream_decode = lambda s, *a: relay(_recording(s, frames), *a)
-        audio_out = [a for a, _, _ in model.generate_voice_clone_streaming(
-            "Hello from the ICL reference phase.", "English", **prompt, **kw)]
-        model._stream_decode = relay
+        with tapped_frames(model, []) as frames:
+            audio_out = [a for a, _, _ in model.generate_voice_clone_streaming(
+                "Hello from the ICL reference phase.", "English", **prompt, **kw)]
         return np.concatenate(frames), np.concatenate(audio_out)
 
     runs = []
@@ -344,37 +446,104 @@ def reference_icl_phase(report, tiny_dir, devices=("cpu", "cuda")):
         fail("reference ICL phase: the card disagrees with the CPU plain path")
 
 
-def run_request(model, seed, greedy=False, frames=FRAMES, **prompt):
-    """One streaming request -> (record, token frames). `prompt` holds the
-    voice kwargs (default: a seeded x-vector). An ICL reference's length
-    decides the expected sample count: exact for chunks vocoded on the card
-    (x-vector, or >= 24 reference frames), within 2 frames after the
-    proportional cut of a shorter reference."""
+@contextlib.contextmanager
+def greedy_predictor():
+    """The CustomVoice and VoiceDesign methods take no `subtalker_*`
+    arguments and leave the code predictor sampling: make it greedy."""
+    from faster_qwen3_tts_tpu_torch.engine import generate as gen_lib
+
+    sampling = gen_lib.predictor_sampling
+    gen_lib.predictor_sampling = lambda *a: sampling(False)
+    try:
+        yield
+    finally:
+        gen_lib.predictor_sampling = sampling
+
+
+def _tiny_config_dir(name, **over):
+    """TINY_CONFIG with top-level overrides and talker keys (`talker_config`),
+    as a config.json under build/ -> its directory."""
+    cfg = dict(TINY_CONFIG, **over)
+    cfg["talker_config"] = dict(TINY_CONFIG["talker_config"], **over.get("talker_config", {}))
+    path = REPO / "build" / name
+    path.mkdir(parents=True, exist_ok=True)
+    (path / "config.json").write_text(json.dumps(cfg))
+    return path
+
+
+def reference_custom_phase(report, devices=("cpu", "cuda")):
+    """CustomVoice (a dialect speaker asked for Chinese, with an instruction a
+    1.7B model keeps) and VoiceDesign streams: the card against the CPU at
+    the tiny geometry, float32, greedy talker and predictor."""
+    import numpy as np
+
+    from faster_qwen3_tts_tpu_torch.model import FasterQwen3TTS
+
+    custom = _tiny_config_dir("chip_smoke_tiny_custom", model_type="custom_voice", model_size="1b7",
+                              talker_config={"spk_id": {"aiden": 2180, "dylan": 2182},
+                                             "spk_is_dialect": {"aiden": False, "dylan": "beijing_dialect"}})
+    design = _tiny_config_dir("chip_smoke_tiny_design", model_type="voice_design", model_size="1b7")
+    # no EOS before 30 frames (a tiny random model may end at once), so every chunk is compared
+    kw = dict(max_new_tokens=30, min_new_tokens=30, chunk_size=CHUNK, first_chunk_size=FIRST_CHUNK,
+              do_sample=False, seed=0)
+    cases = [("CustomVoice dylan/Chinese", custom, "generate_custom_voice_streaming",
+              ("Hello from the custom voice phase.", "dylan", "Chinese"), {"instruct": INSTRUCT}),
+             ("VoiceDesign", design, "generate_voice_design_streaming",
+              ("Hello from the voice design phase.", DESIGN, "English"), {})]
+    for name, tiny_dir, method, args, extra in cases:
+        runs = []
+        for device in devices:
+            # the instruction and the whole text sit in the prefill (bucket 256)
+            model = FasterQwen3TTS.from_pretrained(str(tiny_dir), device=device, dtype="float32",
+                                                   max_seq_len=512, seed=0)
+            with tapped_frames(model, []) as frames, greedy_predictor():
+                audio = [a for a, _, _ in getattr(model, method)(*args, **extra, **kw)]
+            runs.append((np.concatenate(frames), np.concatenate(audio)))
+        (f_cpu, a_cpu), (f_gpu, a_gpu) = runs
+        same = f_cpu.shape == f_gpu.shape and bool((f_cpu == f_gpu).all())
+        err = float(np.abs(a_cpu - a_gpu).max()) if a_cpu.shape == a_gpu.shape else float("inf")
+        log(f"reference {name} (tiny f32, greedy): {f_gpu.shape[0]} frames equal to CPU: {same}; "
+            f"audio max abs diff {err:.3e} (tolerance 1e-3)")
+        report.setdefault("reference_custom", []).append(
+            {"case": name, "frames": int(f_gpu.shape[0]), "tokens_equal": same, "audio_max_abs_diff": err})
+        if not same or not err <= 1e-3:
+            fail(f"reference {name}: the card disagrees with the CPU plain path")
+
+
+def run_request(model, seed, greedy=False, frames=FRAMES, method="generate_voice_clone_streaming",
+                args=(TEXT, "English"), **prompt):
+    """One streaming request through `method` -> (record, token frames).
+    `prompt` holds the voice kwargs (voice clone default: a seeded
+    x-vector). An ICL reference's length decides the expected sample count:
+    exact for chunks vocoded on the card (x-vector, CustomVoice, VoiceDesign,
+    or >= 24 reference frames), within 2 frames after the proportional cut of
+    a shorter reference. greedy: the talker, and the predictor through
+    `subtalker_dosample` (voice clone) or `greedy_predictor` (the caller's)."""
     import numpy as np
     import torch
 
     from faster_qwen3_tts_tpu_torch.engine.fused_stream import codec_deficit
 
-    if not prompt:
+    clone = method == "generate_voice_clone_streaming"
+    if clone and not prompt:
         prompt = {"voice_clone_prompt": {
             "ref_spk_embedding": [np.random.default_rng(0).standard_normal(2048).astype(np.float32)]}}
-    extra = dict(do_sample=False, subtalker_dosample=False) if greedy else {}
-    tokens = []
-    relay = model._stream_decode
-    model._stream_decode = lambda stream, *a: relay(_recording(stream, tokens), *a)
+    extra = {}
+    if greedy:
+        extra = dict(do_sample=False, subtalker_dosample=False) if clone else dict(do_sample=False)
     t0 = time.perf_counter()
     ttfa, chunks, sr, n_frames = None, [], None, 0
-    for audio, sr, timing in model.generate_voice_clone_streaming(
-        TEXT, "English", max_new_tokens=frames, chunk_size=CHUNK, first_chunk_size=FIRST_CHUNK,
-        seed=seed, **prompt, **extra,
-    ):
-        if ttfa is None:
-            ttfa = (time.perf_counter() - t0) * 1000.0
-        chunks.append(audio)
-        n_frames = timing["total_steps_so_far"]
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    model._stream_decode = relay
+    with tapped_frames(model, []) as tokens:
+        for audio, sr, timing in getattr(model, method)(
+            *args, max_new_tokens=frames, chunk_size=CHUNK, first_chunk_size=FIRST_CHUNK,
+            seed=seed, **prompt, **extra,
+        ):
+            if ttfa is None:
+                ttfa = (time.perf_counter() - t0) * 1000.0
+            chunks.append(audio)
+            n_frames = timing["total_steps_so_far"]
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
     audio = np.concatenate(chunks) if chunks else np.zeros(0, np.float32)
     up = model.config.codec.total_upsample
     ref_frames = None
@@ -448,14 +617,11 @@ def slice_icl_phase(model, report):
             f"{req['ttfa_ms']:.1f} ms (first request for the voice {cold['ttfa_ms']:.1f} ms), "
             f"stream RTF {req['stream_rtf']:.3f}")
 
-    codec_ids = []
-    relay = model._decode_audio
-    model._decode_audio = lambda ids, rc: (codec_ids.append(ids), relay(ids, rc))[1]
-    t0 = time.perf_counter()
-    (wav,), sr = model.generate_voice_clone(TEXT, "English", ref_audio=str(long_ref), ref_text=REF_TEXT,
-                                            max_new_tokens=48, seed=24)
-    wall = time.perf_counter() - t0
-    model._decode_audio = relay
+    with tapped_codes(model, []) as codec_ids:
+        t0 = time.perf_counter()
+        (wav,), sr = model.generate_voice_clone(TEXT, "English", ref_audio=str(long_ref),
+                                                ref_text=REF_TEXT, max_new_tokens=48, seed=24)
+        wall = time.perf_counter() - t0
     up = model.config.codec.total_upsample
     n = codec_ids[0].shape[0]
     if sr != 24000 or not np.isfinite(wav).all() or abs(wav.size - n * up) > 2 * up:
@@ -513,8 +679,110 @@ def slice_phase(quant, n_requests, report, icl=False):
                                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     icl_launches = slice_icl_phase(model, report) if icl else None
     del model
+    gc.collect()  # each slice's peak memory is its own
     torch.cuda.empty_cache()
     return launches, icl_launches
+
+
+def run_non_streaming(model, method, args, seed, frames=48):
+    """One non-streaming CustomVoice / VoiceDesign request; the decode of the
+    whole sequence gives exactly frames * upsample - deficit samples."""
+    import numpy as np
+
+    from faster_qwen3_tts_tpu_torch.engine.fused_stream import codec_deficit
+
+    with tapped_codes(model, []) as codec_ids:
+        t0 = time.perf_counter()
+        (wav,), sr = getattr(model, method)(*args, max_new_tokens=frames, seed=seed)
+        wall = time.perf_counter() - t0
+    n = codec_ids[0].shape[0]
+    expect = n * model.config.codec.total_upsample - codec_deficit(model.config.codec)
+    if sr != 24000 or not np.isfinite(wav).all() or wav.size != expect:
+        fail(f"{method}: {wav.size} samples for {n} frames at {sr} Hz, expected {expect}")
+    return {"frames": int(n), "samples": int(wav.size), "wall_s": wall, "rtf": wav.size / sr / wall}
+
+
+def slice_17b_phase(report):
+    """The 1.7B geometry in Q8_0: CustomVoice through `from_pretrained`, then
+    VoiceDesign and a Base x-vector stream on the same parameter tree (the
+    seeded init reads only the geometry, so these are the weights
+    `from_pretrained` would draw for them). -> launches of these requests."""
+    import torch
+
+    from faster_qwen3_tts_tpu.config import get_config
+    from faster_qwen3_tts_tpu_torch.engine import generate as gen_lib
+    from faster_qwen3_tts_tpu_torch.model import FasterQwen3TTS
+    from faster_qwen3_tts_tpu_torch.ops.sampling import SamplingParams
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = FasterQwen3TTS.from_pretrained(MODEL_17B, device="cuda", quant="Q8_0", seed=0)
+    load_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    model.warmup(chunk_size=CHUNK, first_chunk_size=FIRST_CHUNK)
+    warmup_s = time.perf_counter() - t0
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    log(f"slice 1.7B Q8_0: loaded in {load_s:.1f} s ({weights_gb:.2f} GB on the card), warmup "
+        f"{warmup_s:.1f} s")
+    design = FasterQwen3TTS(model.params, get_config("1.7b-design"), model.tokenizer)
+    base = FasterQwen3TTS(model.params, get_config("1.7b"), model.tokenizer)
+    prefills = {}
+    for name, m, speaker, instruct, nsm in [
+            ("CustomVoice, whole text", model, "aiden", None, True),
+            ("CustomVoice, step-fed text", model, "aiden", None, False),
+            ("VoiceDesign, whole text", design, None, DESIGN, True)]:
+        prompt = m._prepare_generation_custom(TEXT, "English", speaker, instruct=instruct,
+                                              non_streaming_mode=nsm)
+        times = []
+        for _ in range(3):
+            sess = gen_lib.GenerationSession(m.params, m.config, *prompt, m.max_seq_len,
+                                             SamplingParams(0.9, 50, 1.0, True, 1.05),
+                                             gen_lib.predictor_sampling(), 2, seed=0)
+            sess.prefill()
+            times.append(sess.prefill_ms)
+        prefills[name] = {"rows": int(prompt[0].shape[1]), "ms": statistics.median(times)}
+        log(f"slice 1.7B prefill, {name}: {prompt[0].shape[1]} rows, {prefills[name]['ms']:.1f} ms")
+    cv, vd = "generate_custom_voice", "generate_voice_design"
+    streams = [("CustomVoice aiden/English", model, cv, (TEXT, "aiden", "English"), 31),
+               ("CustomVoice dylan/Chinese", model, cv, (TEXT, "dylan", "Chinese"), 32),
+               ("VoiceDesign 1", design, vd, (TEXT, DESIGN, "English"), 33),
+               ("VoiceDesign 2", design, vd, (TEXT, DESIGN, "English"), 34),
+               ("Base x-vector", base, "generate_voice_clone", (TEXT, "English"), 35)]
+    non_streaming = [("CustomVoice aiden/English", model, cv, (TEXT, "aiden", "English"), 36),
+                     ("VoiceDesign", design, vd, (TEXT, DESIGN, "English"), 37)]
+    _reset_launches()
+    requests = []
+    for name, m, method, args, seed in streams:
+        req, _ = run_request(m, seed, method=f"{method}_streaming", args=args)
+        req["name"] = name
+        requests.append(req)
+        log(f"slice 1.7B {name}: {req['frames']} frames, TTFA {req['ttfa_ms']:.1f} ms, "
+            f"stream RTF {req['stream_rtf']:.3f}")
+    for name, m, method, args, seed in non_streaming:
+        req = run_non_streaming(m, method, args, seed)
+        req["name"] = f"{name} non-streaming"
+        requests.append(req)
+        log(f"slice 1.7B {req['name']}: {req['frames']} frames in {req['wall_s']:.2f} s, "
+            f"RTF {req['rtf']:.3f}")
+    launches = _read_launches()
+    log(f"slice 1.7B: launches during the requests {launches}")
+    if launches["K1"] == 0 or launches["K2"] == 0:
+        fail(f"the 1.7B requests did not go through both kernels: {launches}")
+    with greedy_predictor():
+        toks = [run_request(model, seed, greedy=True, frames=24, method=f"{cv}_streaming",
+                            args=(TEXT, "dylan", "Chinese"))[1] for seed in (7, 8)]
+    if toks[0].shape != toks[1].shape or not (toks[0] == toks[1]).all():
+        fail("slice 1.7B: two greedy CustomVoice runs gave different tokens")
+    log(f"slice 1.7B: two greedy CustomVoice runs gave equal tokens ({toks[0].shape[0]} frames)")
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"slice 1.7B: peak device memory {peak:.2f} GB")
+    report["slice_1.7B_Q8_0"] = {"load_s": load_s, "warmup_s": warmup_s, "weights_gb": weights_gb,
+                                 "prefill": prefills, "requests": requests, "launches": launches,
+                                 "peak_mem_gb": peak}
+    del model, design, base
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 def main() -> None:
@@ -548,29 +816,39 @@ def main() -> None:
     report["build_s"] = lib.build_seconds
 
     k1_cases, k2_cases = kernel_phase(report)
+    k3_cases, k3_launches = probe_phase(report, k2_cases)
     reference_icl_phase(report, reference_phase(report))
+    reference_custom_phase(report)
     q8, icl = slice_phase("Q8_0", 3, report, icl=True)
     bf16, _ = slice_phase("BF16", 1, report)
     if q8["K1"] == 0 or q8["K2"] == 0:
         fail(f"the Q8_0 slice did not go through both kernels: {q8}")
     if bf16["K1"] == 0:
         fail(f"the BF16 slice did not go through K1: {bf16}")
+    q8_17b = slice_17b_phase(report)
     if "jax" in sys.modules:
         fail("jax was imported")
-    # launches of every slice path: Q8_0 x-vector, Q8_0 ICL, BF16 x-vector
-    total = {k: q8[k] + icl[k] + bf16[k] for k in q8}
+    # launches of every slice path: 0.6B Q8_0 x-vector, Q8_0 ICL, BF16
+    # x-vector, 1.7B Q8_0 CustomVoice / VoiceDesign / Base; K3's probe
+    total = {k: q8[k] + icl[k] + bf16[k] + q8_17b[k] for k in q8}
+    total["K3"] = k3_launches
 
     def entry(name, source, replaces, cases, launches, pick):
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": max(c["max_abs_err"] for c in cases),
                 "ms": cases[pick]["ms"], "plain_ms": cases[pick]["plain_ms"]}
 
+    # ms: K1 at 133 live talker slots, K2 at the 1.7B gate/up (M = 1), K3 at 704 MB
+    gate_up = next(i for i, c in enumerate(k2_cases) if c["shape"] == (1, 2048, 6144))
     record = {"kernels": [
         entry("decode_attention", "faster_qwen3_tts_tpu_torch/csrc/decode_attention.cu",
               "faster_qwen3_tts_tpu/ops/decode_attn_pallas.py:84 (git ce388ee^)", k1_cases,
               total["K1"], 1),
         entry("int8_gemv", "faster_qwen3_tts_tpu_torch/csrc/int8_gemv.cu",
-              "faster_qwen3_tts_tpu/ops/matvec_pallas.py:86 (git f94c020^)", k2_cases, total["K2"], 6),
+              "faster_qwen3_tts_tpu/ops/matvec_pallas.py:86 (git f94c020^)", k2_cases, total["K2"],
+              gate_up),
+        entry("weight_stream", "faster_qwen3_tts_tpu_torch/csrc/weight_stream.cu",
+              "benchmarks/pallas_bw_probe.py:73 (git 4565532)", k3_cases, total["K3"], 0),
     ]}
     report["record"] = record
     if args.report:

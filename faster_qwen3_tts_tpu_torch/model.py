@@ -1,13 +1,18 @@
-"""FasterQwen3TTS on PyTorch: voice clone, streaming and not.
+"""FasterQwen3TTS on PyTorch: voice clone, CustomVoice and VoiceDesign,
+streaming and not.
 
 A subset of faster_qwen3_tts_tpu/model.py's public API over this port's
-engine: `from_pretrained` (seeded random init at a published geometry; no
-download), `warmup`, `create_voice_clone_prompt`, and `generate_voice_clone`
-/ `generate_voice_clone_streaming` with the JAX package's signatures. A voice
-comes from a reference recording (`ref_audio` + `ref_text`: ICL mode, or
-`xvec_only=True`) or from a precomputed prompt (`voice_clone_prompt`).
-`parity_mode`, the native-backend cached-reference kwargs, CustomVoice /
-VoiceDesign and batching are not ported yet (ROADMAP queue A).
+engine, with the JAX package's signatures: `from_pretrained` (seeded random
+init at a published geometry, 0.6B or 1.7B; no download), `warmup`,
+`create_voice_clone_prompt`, `generate_voice_clone[_streaming]` (Base
+models: a voice from a reference recording, `ref_audio` + `ref_text` for ICL
+mode or `xvec_only=True`, or from a precomputed `voice_clone_prompt`),
+`generate_custom_voice[_streaming]` (CustomVoice models: a preset speaker,
+`get_supported_speakers`) and `generate_voice_design[_streaming]`
+(VoiceDesign models: the voice described by an instruction). CustomVoice and
+VoiceDesign put the whole text into the prefill unless `non_streaming_mode`
+is False. `parity_mode`, the native-backend cached-reference kwargs and
+batching are not ported yet (ROADMAP queue A).
 """
 from __future__ import annotations
 
@@ -80,7 +85,7 @@ class SpeechTokenizerFacade:
 
 
 class FasterQwen3TTS:
-    """The PyTorch engine with the JAX package's voice-clone API."""
+    """The PyTorch engine with the JAX package's single-request API."""
 
     def __init__(self, params: Dict[str, Any], config: Qwen3TTSConfig, tokenizer: PromptTokenizer,
                  max_seq_len: int = 2048):
@@ -154,6 +159,40 @@ class FasterQwen3TTS:
     @property
     def speech_tokenizer(self) -> SpeechTokenizerFacade:
         return self._speech_tokenizer
+
+    @staticmethod
+    def _resolve_non_streaming_mode(non_streaming_mode: Optional[bool], *, default: bool) -> bool:
+        """None -> the method's default: voice clone False (text step-fed),
+        CustomVoice and VoiceDesign True (the whole text in the prefill)."""
+        return default if non_streaming_mode is None else non_streaming_mode
+
+    def generate(self, *args, **kwargs):
+        raise NotImplementedError(
+            "Default voice generation not implemented. Use generate_voice_clone(), "
+            "generate_custom_voice(), or generate_voice_design()."
+        )
+
+    def _validate_languages(self, languages: List[str]) -> None:
+        known = self.config.talker.codec_language_id
+        for lang in languages:
+            if lang is not None and lang.lower() != "auto" and lang.lower() not in known:
+                raise NotImplementedError(f"Language {lang} not implemented")
+
+    def _validate_speakers(self, speakers: List[str]) -> None:
+        for s in speakers:
+            if s and s.lower() not in self.config.talker.spk_id:
+                raise NotImplementedError(f"Speaker {s} not implemented")
+
+    def get_supported_speakers(self) -> List[str]:
+        return sorted(self.config.talker.spk_id.keys())
+
+    @property
+    def tts_model_type(self) -> str:
+        return self.config.model_type
+
+    @property
+    def tts_model_size(self) -> str:
+        return self.config.model_size
 
     # -- voice-clone prompts ---------------------------------------------------
 
@@ -303,6 +342,17 @@ class FasterQwen3TTS:
         )
         return tie, tam, tth, tpe, ref_codes
 
+    def _prepare_generation_custom(self, text, language, speaker, instruct=None, non_streaming_mode=True):
+        """Prompt of a CustomVoice (preset `speaker`) or VoiceDesign
+        (speaker None, voice described by `instruct`) request -> (tie,
+        attention_mask, tth, tpe)."""
+        return self.prompt_builder.build(
+            input_ids=[self.tokenizer.assistant_ids(text)], ref_ids=[None], voice_clone_prompt=None,
+            languages=[language if language is not None else "Auto"], speakers=[speaker],
+            non_streaming_mode=non_streaming_mode,
+            instruct_ids=[self.tokenizer.instruct_ids(instruct) if instruct else None],
+        )
+
     # -- codec decode helpers --------------------------------------------------
 
     def _decode_audio(self, codec_ids: np.ndarray, ref_codes: Optional[np.ndarray]):
@@ -369,9 +419,10 @@ class FasterQwen3TTS:
     ) -> Tuple[List[np.ndarray], int]:
         """Voice-clone TTS -> ([waveform], sample_rate)."""
         self._reject_unported(parity_mode, ref_spk, ref_rvq, ref_spk_emb, ref_codes)
+        nsm = self._resolve_non_streaming_mode(non_streaming_mode, default=False)
         tie, tam, tth, tpe, ref_codes = self._prepare_generation(
             text=text, ref_audio=ref_audio, ref_text=ref_text, language=language, xvec_only=xvec_only,
-            non_streaming_mode=bool(non_streaming_mode), append_silence=append_silence,
+            non_streaming_mode=nsm, append_silence=append_silence,
             voice_clone_prompt=voice_clone_prompt, instruct=instruct,
         )
         codec_ids, timing = gen_lib.fast_generate(
@@ -422,9 +473,10 @@ class FasterQwen3TTS:
         per chunk; chunks are sample-contiguous (up to the proportional cut
         of a short ICL reference)."""
         self._reject_unported(parity_mode, ref_spk, ref_rvq, ref_spk_emb, ref_codes)
+        nsm = self._resolve_non_streaming_mode(non_streaming_mode, default=False)
         tie, tam, tth, tpe, ref_codes = self._prepare_generation(
             text=text, ref_audio=ref_audio, ref_text=ref_text, language=language, xvec_only=xvec_only,
-            non_streaming_mode=bool(non_streaming_mode), append_silence=append_silence,
+            non_streaming_mode=nsm, append_silence=append_silence,
             voice_clone_prompt=voice_clone_prompt, instruct=instruct,
         )
         stream = gen_lib.fast_generate_streaming_fused(
@@ -477,3 +529,152 @@ class FasterQwen3TTS:
                 new_audio = audio[prev_len:]
                 prev_len = len(audio)
             yield new_audio, self.sample_rate, timing
+
+    # -- CustomVoice and VoiceDesign -------------------------------------------
+
+    def _generate_custom(self, text, language, speaker, instruct, nsm, **sampling):
+        """Non-streaming CustomVoice / VoiceDesign -> ([waveform], sample_rate)."""
+        tie, tam, tth, tpe = self._prepare_generation_custom(
+            text, language, speaker, instruct=instruct, non_streaming_mode=nsm
+        )
+        codec_ids, timing = gen_lib.fast_generate(
+            self.params, self.config, tie, tam, tth, tpe, max_seq_len=self.max_seq_len,
+            device_chunk=self.device_chunk, **sampling,
+        )
+        if codec_ids is None:
+            logger.warning("Generation returned no tokens")
+            return [np.zeros(1, np.float32)], self.sample_rate
+        audio, sr = self._decode_audio(codec_ids, None)
+        self._log_rtf(timing)
+        return audio, sr
+
+    def _generate_custom_streaming(self, text, language, speaker, instruct, nsm, **sampling):
+        """Streaming CustomVoice / VoiceDesign: every chunk, the first
+        included, is vocoded on the device."""
+        tie, tam, tth, tpe = self._prepare_generation_custom(
+            text, language, speaker, instruct=instruct, non_streaming_mode=nsm
+        )
+        stream = gen_lib.fast_generate_streaming_fused(
+            self.params, self.config, tie, tam, tth, tpe, max_seq_len=self.max_seq_len,
+            fuse_first_chunk=True, **sampling,
+        )
+        yield from self._stream_decode(stream, None)
+
+    def _custom_voice_request(self, speaker, language, instruct):
+        """Checks of a CustomVoice request -> the instruction it keeps (a
+        0.6B model takes none)."""
+        if self.tts_model_type != "custom_voice":
+            raise ValueError("Loaded model does not support custom voice generation")
+        self._validate_languages([language])
+        self._validate_speakers([speaker])
+        # a substring test on the size name, as in the JAX package
+        return None if self.tts_model_size in "0b6" else instruct
+
+    def _voice_design_request(self, language):
+        if self.tts_model_type != "voice_design":
+            raise ValueError("Loaded model does not support voice design generation")
+        self._validate_languages([language])
+
+    def generate_custom_voice(
+        self,
+        text: str,
+        speaker: str,
+        language: str,
+        instruct: Optional[str] = None,
+        non_streaming_mode: Optional[bool] = None,
+        max_new_tokens: int = 2048,
+        min_new_tokens: int = 2,
+        temperature: float = 0.9,
+        top_k: int = 50,
+        top_p: float = 1.0,
+        do_sample: bool = True,
+        repetition_penalty: float = 1.05,
+        seed: Optional[int] = None,
+    ) -> Tuple[List[np.ndarray], int]:
+        """CustomVoice TTS with a preset speaker -> ([waveform], sample_rate)."""
+        instruct = self._custom_voice_request(speaker, language, instruct)
+        nsm = self._resolve_non_streaming_mode(non_streaming_mode, default=True)
+        return self._generate_custom(
+            text, language, speaker, instruct, nsm, max_new_tokens=max_new_tokens,
+            min_new_tokens=min_new_tokens, temperature=temperature, top_k=top_k, top_p=top_p,
+            do_sample=do_sample, repetition_penalty=repetition_penalty, seed=seed,
+        )
+
+    def generate_custom_voice_streaming(
+        self,
+        text: str,
+        speaker: str,
+        language: str,
+        instruct: Optional[str] = None,
+        non_streaming_mode: Optional[bool] = None,
+        max_new_tokens: int = 2048,
+        min_new_tokens: int = 2,
+        temperature: float = 0.9,
+        top_k: int = 50,
+        top_p: float = 1.0,
+        do_sample: bool = True,
+        repetition_penalty: float = 1.05,
+        chunk_size: int = 12,
+        first_chunk_size: Optional[int] = None,
+        seed: Optional[int] = None,
+    ) -> Generator[Tuple[np.ndarray, int, Dict[str, Any]], None, None]:
+        """Streaming CustomVoice: yields (audio_chunk, sample_rate, timing)."""
+        instruct = self._custom_voice_request(speaker, language, instruct)
+        nsm = self._resolve_non_streaming_mode(non_streaming_mode, default=True)
+        yield from self._generate_custom_streaming(
+            text, language, speaker, instruct, nsm, max_new_tokens=max_new_tokens,
+            min_new_tokens=min_new_tokens, temperature=temperature, top_k=top_k, top_p=top_p,
+            do_sample=do_sample, repetition_penalty=repetition_penalty, chunk_size=chunk_size,
+            first_chunk_size=first_chunk_size, seed=seed,
+        )
+
+    def generate_voice_design(
+        self,
+        text: str,
+        instruct: str,
+        language: str,
+        non_streaming_mode: Optional[bool] = None,
+        max_new_tokens: int = 2048,
+        min_new_tokens: int = 2,
+        temperature: float = 0.9,
+        top_k: int = 50,
+        top_p: float = 1.0,
+        do_sample: bool = True,
+        repetition_penalty: float = 1.05,
+        seed: Optional[int] = None,
+    ) -> Tuple[List[np.ndarray], int]:
+        """VoiceDesign TTS, the voice described by `instruct` -> ([waveform], sample_rate)."""
+        self._voice_design_request(language)
+        nsm = self._resolve_non_streaming_mode(non_streaming_mode, default=True)
+        return self._generate_custom(
+            text, language, None, instruct, nsm, max_new_tokens=max_new_tokens,
+            min_new_tokens=min_new_tokens, temperature=temperature, top_k=top_k, top_p=top_p,
+            do_sample=do_sample, repetition_penalty=repetition_penalty, seed=seed,
+        )
+
+    def generate_voice_design_streaming(
+        self,
+        text: str,
+        instruct: str,
+        language: str,
+        non_streaming_mode: Optional[bool] = None,
+        max_new_tokens: int = 2048,
+        min_new_tokens: int = 2,
+        temperature: float = 0.9,
+        top_k: int = 50,
+        top_p: float = 1.0,
+        do_sample: bool = True,
+        repetition_penalty: float = 1.05,
+        chunk_size: int = 12,
+        first_chunk_size: Optional[int] = None,
+        seed: Optional[int] = None,
+    ) -> Generator[Tuple[np.ndarray, int, Dict[str, Any]], None, None]:
+        """Streaming VoiceDesign: yields (audio_chunk, sample_rate, timing)."""
+        self._voice_design_request(language)
+        nsm = self._resolve_non_streaming_mode(non_streaming_mode, default=True)
+        yield from self._generate_custom_streaming(
+            text, language, None, instruct, nsm, max_new_tokens=max_new_tokens,
+            min_new_tokens=min_new_tokens, temperature=temperature, top_k=top_k, top_p=top_p,
+            do_sample=do_sample, repetition_penalty=repetition_penalty, chunk_size=chunk_size,
+            first_chunk_size=first_chunk_size, seed=seed,
+        )

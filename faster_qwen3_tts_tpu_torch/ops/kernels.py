@@ -1,12 +1,12 @@
 """Build and load the port's hand-written Hopper kernels.
 
 The CUDA sources under ``faster_qwen3_tts_tpu_torch/csrc/`` have a plain C
-interface. At first use they are compiled with ``nvcc`` for ``sm_90a`` into
-one shared library under ``build/fq3t_torch/`` in the checkout (the file name
-carries a hash of the sources, so an edit rebuilds) and loaded with
-``ctypes``. Nothing here runs at import time: this module is imported on
-machines without ``nvcc`` or a card, where only the kernels' plain PyTorch
-versions run.
+interface. At first use each is compiled with its own ``nvcc`` for
+``sm_90a``, all at once, and the objects are linked into one shared library
+under ``build/fq3t_torch/`` in the checkout (the file name carries a hash of
+the sources, so an edit rebuilds), which is loaded with ``ctypes``. Nothing
+here runs at import time: this module is imported on machines without
+``nvcc`` or a card, where only the kernels' plain PyTorch versions run.
 """
 from __future__ import annotations
 
@@ -23,10 +23,10 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "fq3t_torch"
-SOURCES = ("decode_attention.cu", "int8_gemv.cu")
+SOURCES = ("decode_attention.cu", "int8_gemv.cu", "weight_stream.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 # dtype codes of csrc/common.cuh
@@ -42,6 +42,9 @@ _SIGNATURES = {
     "fq3t_int8_gemv": ([_int, _vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _vp], _int),
     "fq3t_int8_gemv_block_cols": ([], _int),
     "fq3t_int8_gemv_rows_per_block": ([], _int),
+    "fq3t_weight_stream": ([_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _vp], _int),
+    "fq3t_weight_stream_block_cols": ([], _int),
+    "fq3t_weight_stream_row_step": ([], _int),
 }
 
 
@@ -60,6 +63,8 @@ class KernelLibrary:
         self.attn_tile = self.cdll.fq3t_decode_attention_tile()
         self.gemv_block_cols = self.cdll.fq3t_int8_gemv_block_cols()
         self.gemv_rows_per_block = self.cdll.fq3t_int8_gemv_rows_per_block()
+        self.stream_block_cols = self.cdll.fq3t_weight_stream_block_cols()
+        self.stream_row_step = self.cdll.fq3t_weight_stream_row_step()
         self._gemv_counters = {}
 
     def gemv_counters(self, device: torch.device, n: int) -> torch.Tensor:
@@ -110,11 +115,23 @@ def library() -> KernelLibrary:
     log = ""
     if not target.exists():
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        log = proc.stdout + proc.stderr
+        nvcc = _nvcc()
+        objs = [tmp.with_name(f"{tmp.name}.{s}.o") for s in SOURCES]
+        procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC / s)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(SOURCES, objs)]
+        outs = [proc.communicate()[0] for proc in procs]  # every nvcc ends before any raise
+        for s, proc, out in zip(SOURCES, procs, outs):
+            log += f"{s}:\n{out}"
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {s} ({proc.returncode}):\n{out}")
+        proc = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *map(str, objs)],
+                              capture_output=True, text=True)
+        log += proc.stdout + proc.stderr
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stdout + proc.stderr}")
+        for o in objs:
+            o.unlink()
         os.replace(tmp, target)
     _LIB = KernelLibrary(target, time.perf_counter() - t0, log)
     return _LIB

@@ -2,11 +2,16 @@
 prefill embeddings.
 
 Port of `PromptBuilder.build` of faster_qwen3_tts_tpu/prompt.py for the
-x-vector and ICL layouts. Per batch item, with text-lane and codec-lane
-vectors summed position-wise:
+x-vector, ICL, preset-speaker (CustomVoice) and speakerless (VoiceDesign)
+layouts. Per batch item, with text-lane and codec-lane vectors summed
+position-wise:
 
     [instruct hiddens (optional)] [role hiddens (3)]
     [tts_pad x (k-2), tts_bos] + [codec think/language prefix, speaker, codec_pad]
+
+The speaker slot holds a projected x-vector, the codec embedding of a preset
+speaker's id, or nothing (VoiceDesign). A dialect speaker (`spk_is_dialect`)
+asked for Chinese or Auto gets its dialect's language id in the prefix.
     then, for an ICL item, the reference block
           [ref text hiddens, then tts_pad] + [codec_bos, ref frame embeds (R)]
     then  streaming, x-vector: [first text token + codec_bos]  (trailing = text[1:] + eos)
@@ -19,7 +24,7 @@ composition happens in host numpy and the finished prompt goes to the device
 once per request. Constant pieces (codec control-id embeds, projected
 x-vectors) are cached per builder, and each voice's ICL pieces in an LRU of
 16. This host build is the port's only builder (the JAX package's
-`build_device` is not ported); preset speakers (CustomVoice) raise.
+`build_device` is not ported).
 """
 from __future__ import annotations
 
@@ -127,8 +132,8 @@ class PromptBuilder:
     def _item_codec_block(self, index: int, language: Optional[str], speaker: Optional[str],
                           voice_clone_prompt: Optional[Dict[str, Any]]) -> np.ndarray:
         """One item's codec control block [k, H] f32: think/language prefix,
-        the speaker embedding (x-vector and ICL prompts), then
-        (codec_pad, codec_bos)."""
+        the speaker embedding (x-vector and ICL prompts, or a preset
+        speaker), then (codec_pad, codec_bos)."""
         tc = self.cfg.talker
         speaker_embed = None
         if voice_clone_prompt is not None:
@@ -137,20 +142,28 @@ class PromptBuilder:
                 # a vector of the talker width is taken as an already-projected embedding
                 speaker_embed = (xv if xv.ndim == 1 and xv.shape[0] == self._h()
                                  else self.speaker_embed_from_xvector(xv))
-        elif speaker:
-            raise NotImplementedError(
-                "preset speakers (CustomVoice) are not ported to the PyTorch package yet (ROADMAP queue A)")
+        elif speaker:  # a preset (CustomVoice) speaker: the codec embedding of its id
+            if speaker.lower() not in tc.spk_id:
+                raise NotImplementedError(f"Speaker {speaker} not implemented")
+            speaker_embed = self._codec_embed([tc.spk_id[speaker.lower()]])[0]
 
         if language is None:
             raise ValueError("language is required")
         lang_key = language.lower()
         if lang_key == "auto":
-            prefix_ids = [tc.codec_nothink_id, tc.codec_think_bos_id, tc.codec_think_eos_id]
+            language_id = None
         elif lang_key in tc.codec_language_id:
-            prefix_ids = [tc.codec_think_id, tc.codec_think_bos_id, tc.codec_language_id[lang_key],
-                          tc.codec_think_eos_id]
+            language_id = tc.codec_language_id[lang_key]
         else:
             raise NotImplementedError(f"Language {language} not implemented")
+        # a dialect speaker speaks its dialect when the language is Chinese or Auto
+        dialect = tc.spk_is_dialect.get(speaker.lower()) if speaker else None
+        if lang_key in ("chinese", "auto") and dialect:
+            language_id = tc.codec_language_id[dialect]
+        if language_id is None:
+            prefix_ids = [tc.codec_nothink_id, tc.codec_think_bos_id, tc.codec_think_eos_id]
+        else:
+            prefix_ids = [tc.codec_think_id, tc.codec_think_bos_id, language_id, tc.codec_think_eos_id]
         codec_seq = [self._codec_embed(prefix_ids)]
         if speaker_embed is not None:
             codec_seq.append(speaker_embed.reshape(1, -1))

@@ -146,7 +146,7 @@ def test_from_pretrained_cuda_raises_without_a_card():
 
 def test_port_never_imports_jax(tmp_path):
     """Tiny CPU generates through the port, x-vector and ICL from a
-    reference wav, leave jax unimported."""
+    reference wav, CustomVoice and VoiceDesign, leave jax unimported."""
     script = tmp_path / "run.py"
     script.write_text(
         "import dataclasses, sys\n"
@@ -169,6 +169,19 @@ def test_port_never_imports_jax(tmp_path):
         "n = sum(len(a) for a, _, _ in m.generate_voice_clone_streaming(\n"
         "    'Hi.', 'English', sys.argv[1], 'Ref.', max_new_tokens=6, chunk_size=4, seed=0))\n"
         "assert n > 0 and m._voice_prompt_cache\n"
+        "from faster_qwen3_tts_tpu.config import get_config\n"
+        "cv = get_config('1.7b-custom').talker\n"
+        "c = FasterQwen3TTS(m.params, dataclasses.replace(\n"
+        "    cfg, model_type='custom_voice', model_size='1b7', talker=dataclasses.replace(\n"
+        "        cfg.talker, spk_id=cv.spk_id, spk_is_dialect=cv.spk_is_dialect)),\n"
+        "    m.tokenizer, max_seq_len=64)\n"
+        "n = sum(len(a) for a, _, _ in c.generate_custom_voice_streaming(\n"
+        "    'Hi.', 'dylan', 'Chinese', instruct='Calm.', max_new_tokens=6, chunk_size=4, seed=0))\n"
+        "assert n > 0\n"
+        "d = FasterQwen3TTS(m.params, dataclasses.replace(cfg, model_type='voice_design'), m.tokenizer,\n"
+        "                   max_seq_len=64)\n"
+        "(wav,), sr = d.generate_voice_design('Hi.', 'A calm voice.', 'English', max_new_tokens=6, seed=0)\n"
+        "assert wav.size > 0 and sr == 24000\n"
         "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n"
         "print('ok')\n"
     )

@@ -1,4 +1,4 @@
-"""K1 and K2 on the card against their plain PyTorch versions.
+"""K1, K2 and K3 on the card against their plain PyTorch versions.
 
 These need an NVIDIA GPU (CUDA kernels have no CPU mode) and skip without
 one. The file imports no jax, so it runs on a machine without it:
@@ -7,12 +7,15 @@ one. The file imports no jax, so it runs on a machine without it:
 
 bf16 inputs; the kernel's bf16 output is held against the float32 plain
 result from the same inputs at atol 2e-2 / rtol 2e-2 (the output rounding).
+K3 returns float32 and differs from its plain version only in the order of
+the f32 sums: 1e-5 relative to the largest output.
 """
 import numpy as np
 import pytest
 import torch
 
 from faster_qwen3_tts_tpu_torch.ops import attention, quant
+from faster_qwen3_tts_tpu_torch.ops import weight_stream as ws
 
 
 @pytest.fixture
@@ -37,7 +40,8 @@ def test_decode_attention_kernel(cuda_device, S, lo, hi):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M, I, O", [(1, 1024, 3072), (2, 1024, 1024), (1, 3072, 1024), (9, 1024, 2048)])
+@pytest.mark.parametrize("M, I, O", [(1, 1024, 3072), (2, 1024, 1024), (1, 3072, 1024), (9, 1024, 2048),
+                                     (1, 2048, 6144), (2, 6144, 2048), (2, 2048, 3072)])
 def test_int8_gemv_kernel(cuda_device, M, I, O):
     w = np.random.default_rng(0).standard_normal((I, O)).astype(np.float32)
     ql = quant.quantize_linear(w)
@@ -48,8 +52,21 @@ def test_int8_gemv_kernel(cuda_device, M, I, O):
     torch.testing.assert_close(out.float(), ref, atol=2e-2, rtol=2e-2)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("L, I, O", [(28, 1024, 6144), (3, 2048, 12288), (2, 96, 128)])
+def test_weight_stream_kernel(cuda_device, L, I, O):
+    g = torch.Generator(device=cuda_device).manual_seed(0)
+    w = torch.randint(-127, 127, (L, I, O), dtype=torch.int8, device=cuda_device, generator=g)
+    x = (torch.randn(1, I, device=cuda_device, generator=g) * 0.1).to(torch.bfloat16)
+    before = ws.weight_stream.launches
+    out = ws.weight_stream(x, w)
+    ref = ws.weight_stream_plain(x, w)
+    assert ws.weight_stream.launches == before + 1
+    torch.testing.assert_close(out, ref, rtol=0, atol=1e-5 * ref.abs().max().item())
+
+
 def test_wrappers_refuse_tensors_that_are_neither_cpu_nor_cuda():
-    before = (attention.decode_attention.launches, quant.int8_gemv.launches)
+    before = (attention.decode_attention.launches, quant.int8_gemv.launches, ws.weight_stream.launches)
     meta = torch.device("meta")
     q = torch.empty(1, 1, 4, 16, device=meta)
     cache = torch.empty(1, 8, 2, 16, device=meta)
@@ -59,4 +76,8 @@ def test_wrappers_refuse_tensors_that_are_neither_cpu_nor_cuda():
     with pytest.raises(ValueError, match="CUDA"):
         quant.int8_gemv(torch.empty(1, 32, device=meta), torch.empty(32, 64, dtype=torch.int8, device=meta),
                         torch.empty(1, 64, device=meta))
-    assert (attention.decode_attention.launches, quant.int8_gemv.launches) == before
+    with pytest.raises(ValueError, match="CUDA"):
+        ws.weight_stream(torch.empty(1, 32, dtype=torch.bfloat16, device=meta),
+                         torch.empty(2, 32, 64, dtype=torch.int8, device=meta))
+    assert (attention.decode_attention.launches, quant.int8_gemv.launches,
+            ws.weight_stream.launches) == before

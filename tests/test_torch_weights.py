@@ -1,4 +1,6 @@
 """The port's parameter trees against the JAX package's, bit for bit."""
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -6,6 +8,7 @@ import torch
 import jax.numpy as jnp
 
 from faster_qwen3_tts_tpu import weights as jax_weights
+from faster_qwen3_tts_tpu.config import get_config
 from faster_qwen3_tts_tpu.ops import quant as jax_quant
 from faster_qwen3_tts_tpu_torch import weights
 from faster_qwen3_tts_tpu_torch.ops import quant
@@ -46,6 +49,27 @@ def test_init_numpy_draws_the_jax_streams(tiny_config):
     jax_tree = jax_weights.init_all(tiny_config, seed=5, dtype=jnp.float32, device_put=False)
     la = list(_leaves(weights.init_numpy(tiny_config, seed=5)))
     lb = list(_leaves(jax_tree))
+    assert [p for p, _ in la] == [p for p, _ in lb]
+    for (path, x), (_, y) in zip(la, lb):
+        np.testing.assert_array_equal(x, np.asarray(y), err_msg=path)
+
+
+def test_init_numpy_at_the_1_7b_widths(tiny_config):
+    """The 1.7B geometry (talker 2048 wide with a 6144 FFN, a 2048 -> 1024
+    mtp_proj into the predictor) draws the JAX package's tree; cut to one
+    layer per stack, a 512-token text vocabulary, 64 predictor codes and the
+    tiny codec, so that it stays small on the CPU."""
+    full = get_config("1.7b")
+    cfg = dataclasses.replace(
+        full, talker=dataclasses.replace(full.talker, num_hidden_layers=1, text_vocab_size=512),
+        predictor=dataclasses.replace(full.predictor, num_hidden_layers=1, vocab_size=64),
+        codec=tiny_config.codec)
+    port = weights.init_numpy(cfg, seed=0)
+    assert port["talker"]["layers"]["w_gate"].shape == (1, 2048, 6144)
+    assert port["talker"]["layers"]["w_down"].shape == (1, 6144, 2048)
+    assert port["predictor"]["mtp_proj"]["w"].shape == (2048, 1024)
+    jax_tree = jax_weights.init_all(cfg, seed=0, dtype=jnp.float32, device_put=False)
+    la, lb = list(_leaves(port)), list(_leaves(jax_tree))
     assert [p for p, _ in la] == [p for p, _ in lb]
     for (path, x), (_, y) in zip(la, lb):
         np.testing.assert_array_equal(x, np.asarray(y), err_msg=path)
