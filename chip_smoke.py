@@ -3,20 +3,26 @@
 
     python3 chip_smoke.py                       # from the repository root, on a machine with a card
     python3 chip_smoke.py --report out.json     # also write every measurement to out.json
+    python3 chip_smoke.py --kernels-only        # phases 1-4 only (no ok line)
 
 Phases, each of which fails the run:
 1. device: a CUDA card must be visible; prints its name and power limit;
 2. build: compiles the port's CUDA kernels (K1 decode attention, K2 int8
    GEMV, K3 weight streaming) from faster_qwen3_tts_tpu_torch/csrc with one
-   nvcc per source for sm_90a;
+   nvcc per source for sm_90a, and prints what ptxas says of each kernel;
 3. kernels: K1 and K2 against their plain PyTorch versions on the same
    inputs at the shapes of the 0.6B and 1.7B slices, with the error, the
    median device time per call (CUDA-graph replay over operands larger than
-   L2) and the median eager call time (host work included);
+   L2) of the kernel, of its plain version and of one PyTorch call that
+   computes the same function (the yardstick the port never calls: SDPA
+   for K1, `torch._weight_int8pack_mm` for K2, and for scale the bf16
+   matmul), the bound (bytes over the HBM rate or operations over the peak
+   rate, whichever is larger) and the median eager call time;
 4. probe: K3 streams the stacked int8 weights of the Pallas probe it
    replaces (L=28, I=2048, O=12288, the 1.7B gate+up stack, and L=28,
    I=1024, O=6144), timed with CUDA events, then held against its plain
-   version: error, device ms and GB/s of each;
+   version: error, device ms and GB/s of each, its bound and the library
+   call's time;
 5. reference: the port on the card against the port on the CPU (plain
    versions) at a tiny geometry in float32, greedy: x-vector streams (equal
    tokens); ICL voice clone from a seeded synthetic recording written under
@@ -28,7 +34,8 @@ Phases, each of which fails the run:
    quant="Q8_0")` at full width (random weights from a seed), `warmup()`,
    then three streaming x-vector voice-clone requests (chunk 8, first chunk
    4); checks the audio, that K1 and K2 carried the run, and greedy
-   determinism; prints TTFA and stream RTF per request;
+   determinism; prints TTFA and stream RTF per request; then one 24-frame
+   stream under torch.profiler: K1 and K2 device ms and launches per frame;
 7. slice ICL on the same Q8_0 model: `create_voice_clone_prompt` timed on a
    4.0 s recording; ICL streams from `ref_audio` with a long reference
    (~56 frames: every chunk vocoded on the card) and a short one (~19
@@ -42,8 +49,11 @@ Phases, each of which fails the run:
    on the same weights VoiceDesign (two streams with an instruction, one
    non-streaming request) and a Base x-vector stream; checks sample counts,
    that K1 and K2 carried these requests, and greedy determinism; prints
-   load and warmup time, TTFA and stream RTF per request, peak memory.
+   load and warmup time, TTFA and stream RTF per request, peak memory; then
+   a 24-frame CustomVoice stream under torch.profiler, as in 6.
 
+The run fails if jax or any module of the JAX package (faster_qwen3_tts_tpu)
+was loaded.
 The second-to-last line is the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`. Any failure exits non-zero before them.
 """
@@ -63,12 +73,15 @@ REPO = Path(__file__).resolve().parent
 MODEL = "Qwen/Qwen3-TTS-12Hz-0.6B-Base"
 MODEL_17B = "Qwen/Qwen3-TTS-12Hz-1.7B-CustomVoice"
 TEXT = "The quick brown fox jumps over the lazy dog today."
-CHUNK, FIRST_CHUNK, FRAMES = 8, 4, 96
+CHUNK, FIRST_CHUNK, FRAMES = 8, 4, 64  # 64 frames: 5.1 s of audio a stream
 REF_TEXT = "This is a seeded reference recording for the smoke run."
 INSTRUCT = "Speak slowly, in a calm and warm low voice."
 DESIGN = ("A warm middle-aged female narrator with a low, slightly husky voice, speaking slowly "
           "and clearly, calm and reassuring.")
 HBM_PEAK_GB_S = 3350.0  # H100 SXM5 80GB HBM3, the card's data sheet
+# dense peak operations per second by input type (H100 SXM data sheet): bf16
+# on the tensor cores, float32 outside them
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
 # bf16 kernel output against the f32 plain result from the same bf16 inputs:
 # the final rounding to bf16 alone is up to 2^-9 relative (|out| <= ~4 here),
 # plus f32 sums in another order.
@@ -82,6 +95,14 @@ def fail(msg: str) -> None:
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+_START = time.perf_counter()
+
+
+def phase(name: str) -> None:
+    """Mark the start of a phase with the seconds since the script began."""
+    log(f"[{time.perf_counter() - _START:.1f} s] phase: {name}")
 
 
 def eager_ms(fn, reps: int = 50, warm: int = 5) -> float:
@@ -176,20 +197,53 @@ def check_close(name, out, ref, details):
     return max_err
 
 
+def bound(nbytes: float, nops: float, dtype) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    HBM rate and the operations over the peak rate of the inputs' type."""
+    by_bytes = nbytes / (HBM_PEAK_GB_S * 1e9) * 1e3
+    by_ops = nops / PEAK_OPS[str(dtype).replace("torch.", "")] * 1e3
+    return {"bound_ms": max(by_bytes, by_ops), "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "bytes": nbytes, "ops": nops}
+
+
+def library_time(name, fn, n):
+    """Device ms of one PyTorch call computing the kernel's function (the
+    yardstick; the port never calls it), or None where the card's PyTorch
+    has no such call."""
+    try:
+        return device_ms(fn, n)
+    except (RuntimeError, NotImplementedError) as e:
+        log(f"{name}: no single library call ({type(e).__name__}: {str(e).splitlines()[0][:160]})")
+        return None
+
+
+def _fmt(ms):
+    return "none" if ms is None else f"{ms:.5f}"
+
+
+# K1: the talker (S_max 2048) and predictor (S_max 17) caches, the same at
+# 0.6B and 1.7B (16 / 8 heads of 128); live [56, 300) is a VoiceDesign prefill
+# of ~200 rows, left-padded to its bucket of 256, plus 44 frames
+K1_CASES = [(2048, 0, 33), (2048, 5, 133), (2048, 56, 300), (2048, 0, 2048), (17, 0, 3), (17, 0, 17)]
+# K2: every Q8_0 projection shape of the 0.6B and 1.7B talkers and the
+# predictor they share
+K2_SHAPES = {(1024, 2048): "wq/lm_heads", (1024, 1024): "wk/wv/mtp_proj/text_proj",
+             (2048, 1024): "wo; 1.7B wk/wv/mtp_proj", (1024, 3072): "gate/up/codec_head",
+             (3072, 1024): "down", (2048, 2048): "1.7B wq/wo/text_proj", (2048, 6144): "1.7B gate/up",
+             (6144, 2048): "1.7B down", (2048, 3072): "1.7B codec_head"}
+
+
 def kernel_phase(report):
     import numpy as np
     import torch
+    import torch.nn.functional as F
 
     from faster_qwen3_tts_tpu_torch.ops import attention, quant
 
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(0)
     k1_cases, k2_cases = [], []
-    # K1: the talker (S_max 2048) and predictor (S_max 17) caches, the same at
-    # 0.6B and 1.7B (16 / 8 heads of 128); live [56, 300) is a VoiceDesign
-    # prefill of ~200 rows, left-padded to its bucket of 256, plus 44 frames
-    for S, lo, hi in [(2048, 0, 33), (2048, 5, 133), (2048, 56, 300), (2048, 0, 2048), (17, 0, 3),
-                      (17, 0, 17)]:
+    for S, lo, hi in K1_CASES:
         q = torch.randn(1, 1, 16, 128, generator=g).to(dev, torch.bfloat16)
         k = torch.randn(1, S, 8, 128, generator=g).to(dev, torch.bfloat16)
         v = torch.randn(1, S, 8, 128, generator=g).to(dev, torch.bfloat16)
@@ -202,29 +256,35 @@ def kernel_phase(report):
         err = check_close(name, out, ref, k1_cases)
         n = _copies(2 * k.numel() * k.element_size())
         ks, vs = [k] + [k.clone() for _ in range(n - 1)], [v] + [v.clone() for _ in range(n - 1)]
+        bmask = (mask > 0)[:, None, None, :]  # SDPA's boolean mask, True = attend
+        qt = q.transpose(1, 2)
         timed = {
             "ms": device_ms(lambda i: attention.decode_attention(q, ks[i], vs[i], mask), n),
             "plain_ms": device_ms(lambda i: attention.decode_attention_plain(q, ks[i], vs[i], mask), n),
+            "library_ms": library_time(name, lambda i: F.scaled_dot_product_attention(
+                qt, ks[i].transpose(1, 2), vs[i].transpose(1, 2), attn_mask=bmask, enable_gqa=True), n),
             "eager_ms": eager_ms(lambda i: attention.decode_attention(q, k, v, mask)),
             "plain_eager_ms": eager_ms(lambda i: attention.decode_attention_plain(q, k, v, mask)),
         }
+        live = hi - lo
+        # q, the live K/V rows, the mask, out; 4 flops per live (query head, slot, d)
+        timed.update(bound(2 * q.numel() * 2 + 2 * live * 8 * 128 * 2 + S * 4, 4 * live * 16 * 128,
+                           q.dtype))
         k1_cases[-1].update(timed)
         del ks, vs
         log(f"{name}: max_abs_err {err:.3e} (atol {ATOL}, rtol {RTOL}); device ms per call: kernel "
-            f"{timed['ms']:.5f}, plain {timed['plain_ms']:.5f}; eager call ms: kernel "
+            f"{timed['ms']:.5f}, plain {timed['plain_ms']:.5f}, SDPA {_fmt(timed['library_ms'])}, bound "
+            f"{timed['bound_ms']:.5f} ({timed['bound_by']}); eager call ms: kernel "
             f"{timed['eager_ms']:.4f}, plain {timed['plain_eager_ms']:.4f}")
-    # K2: every Q8_0 projection shape of the 0.6B and 1.7B talkers and the
-    # predictor they share, M = 1, 2
-    shapes = {(1024, 2048): "wq/lm_heads", (1024, 1024): "wk/wv/mtp_proj/text_proj",
-              (2048, 1024): "wo; 1.7B wk/wv/mtp_proj", (1024, 3072): "gate/up/codec_head",
-              (3072, 1024): "down", (2048, 2048): "1.7B wq/wo/text_proj", (2048, 6144): "1.7B gate/up",
-              (6144, 2048): "1.7B down", (2048, 3072): "1.7B codec_head"}
     rng = np.random.default_rng(0)
-    for (I, O), what in shapes.items():
+    for (I, O), what in K2_SHAPES.items():
         ql = quant.quantize_linear(rng.standard_normal((I, O)).astype("float32") * I**-0.5)
         qw, sc = torch.from_numpy(ql.q).to(dev), torch.from_numpy(ql.scale).to(dev)
         n = _copies(qw.numel())
         qs = [qw] + [qw.clone() for _ in range(n - 1)]
+        packed = [w.t().contiguous() for w in qs]  # [O, I], the layout torch's int8 call takes
+        sc_bf16 = sc.reshape(O).to(torch.bfloat16)
+        wbf = [qw.to(torch.bfloat16)] + [qw.to(torch.bfloat16) for _ in range(max(2, n // 2) - 1)]
         for M in (1, 2):
             x = torch.randn(M, I, generator=g).to(dev, torch.bfloat16)
             out = quant.int8_gemv(x, qw, sc)
@@ -235,16 +295,23 @@ def kernel_phase(report):
             timed = {
                 "ms": device_ms(lambda i: quant.int8_gemv(x, qs[i], sc), n),
                 "plain_ms": device_ms(lambda i: quant.int8_gemv_plain(x, qs[i], sc), n),
+                "library_ms": library_time(
+                    name, lambda i: torch._weight_int8pack_mm(x, packed[i], sc_bf16), n),
+                # the BF16 slice's own product: twice the weight bytes
+                "bf16_matmul_ms": device_ms(lambda i: torch.matmul(x, wbf[i]), len(wbf)),
                 "eager_ms": eager_ms(lambda i: quant.int8_gemv(x, qw, sc)),
                 "plain_eager_ms": eager_ms(lambda i: quant.int8_gemv_plain(x, qw, sc)),
             }
             timed["gb_s"] = qw.numel() / timed["ms"] / 1e6
+            # x, q, scale, y; 2 flops per (row, weight)
+            timed.update(bound(M * I * 2 + I * O + O * 4 + M * O * 2, 2 * M * I * O, x.dtype))
             k2_cases[-1].update(timed, shape=(M, I, O))
             log(f"{name}: max_abs_err {err:.3e} (atol {ATOL}, rtol {RTOL}); device ms per call: "
                 f"kernel {timed['ms']:.5f} ({timed['gb_s']:.0f} GB/s of weights), plain "
-                f"{timed['plain_ms']:.5f}; eager call ms: kernel {timed['eager_ms']:.4f}, plain "
-                f"{timed['plain_eager_ms']:.4f}")
-        del qs
+                f"{timed['plain_ms']:.5f}, int8 library call {_fmt(timed['library_ms'])}, bf16 matmul "
+                f"{timed['bf16_matmul_ms']:.5f}, bound {timed['bound_ms']:.5f} ({timed['bound_by']}); "
+                f"eager call ms: kernel {timed['eager_ms']:.4f}, plain {timed['plain_eager_ms']:.4f}")
+        del qs, packed, wbf
     report["kernel_cases"] = {"K1": k1_cases, "K2": k2_cases}
     return k1_cases, k2_cases
 
@@ -285,15 +352,27 @@ def probe_phase(report, k2_cases):
         plain_ms = _events_ms(lambda: ws.weight_stream_plain(x, w), reps=5, warm=1)
         out, ref = ws.weight_stream(x, w), ws.weight_stream_plain(x, w)
         tol = 1e-5 * ref.abs().max().item()  # f32 sums of exact products in another order
+        # one library call for the same sum: x repeated L times against the
+        # [L*I, O] stack, in the [O, L*I] layout torch's int8 call takes
+        packed, xs, ones = w.reshape(L * I, O).t().contiguous(), x.repeat(1, L), torch.ones(
+            O, dtype=torch.bfloat16, device=dev)
+        try:
+            library_ms = _events_ms(lambda: torch._weight_int8pack_mm(xs, packed, ones), reps=20)
+        except (RuntimeError, NotImplementedError) as e:
+            log(f"K3: no single library call ({type(e).__name__}: {str(e).splitlines()[0][:160]})")
+            library_ms = None
+        del packed
         gb = w.numel() / 1e9
         c = {"case": f"K3 L={L} I={I} O={O}", "gb": gb, "ms": ms, "plain_ms": plain_ms,
-             "gb_s": gb / ms * 1e3, "plain_gb_s": gb / plain_ms * 1e3,
-             "max_abs_err": (out - ref).abs().max().item(), "atol": tol}
+             "library_ms": library_ms, "gb_s": gb / ms * 1e3, "plain_gb_s": gb / plain_ms * 1e3,
+             "max_abs_err": (out - ref).abs().max().item(), "atol": tol,
+             **bound(w.numel() + I * 2 + O * 4, 2 * w.numel(), x.dtype)}
         cases.append(c)
         log(f"{c['case']} ({gb * 1e3:.0f} MB int8): max_abs_err {c['max_abs_err']:.3e} (atol "
             f"{tol:.3e}); device ms: kernel {ms:.4f} ({c['gb_s']:.0f} GB/s, "
             f"{c['gb_s'] / HBM_PEAK_GB_S:.1%} of HBM peak), plain {plain_ms:.4f} "
-            f"({c['plain_gb_s']:.0f} GB/s, {c['plain_gb_s'] / HBM_PEAK_GB_S:.1%})")
+            f"({c['plain_gb_s']:.0f} GB/s, {c['plain_gb_s'] / HBM_PEAK_GB_S:.1%}), int8 library call "
+            f"{_fmt(library_ms)}, bound {c['bound_ms']:.4f} ({c['bound_by']})")
         if not c["max_abs_err"] <= tol or not torch.isfinite(out).all():
             fail(f"{c['case']}: the kernel disagrees with its plain version")
         del w, out, ref
@@ -579,6 +658,44 @@ def _read_launches():
     return {"K1": attention.decode_attention.launches, "K2": quant_ops.int8_gemv.launches}
 
 
+def frame_profile(model, name, report, method="generate_voice_clone_streaming", args=(TEXT, "English")):
+    """K1 and K2 inside the frame: one 24-frame stream under torch.profiler ->
+    device ms and launches per frame of each kernel and of all kernels."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:  # device activity only: less to parse
+        req, _ = run_request(model, seed=41, frames=24, method=method, args=args)
+    counted = _read_launches()
+    parse_s = time.perf_counter() - t0 - req["wall_s"]
+    frames = req["frames"]
+
+    def device_us(e):  # the kernel's own device time, across torch versions
+        us = getattr(e, "self_device_time_total", None)
+        return us if us is not None else e.self_cuda_time_total
+
+    events = prof.key_averages()
+    total_us = sum(device_us(e) for e in events)
+    row = {"frames": frames, "wall_ms_per_frame": req["wall_s"] * 1e3 / frames, "parse_s": parse_s,
+           "device_ms_per_frame": total_us / 1e3 / frames, "counted_launches": counted}
+    for kname, needle in (("K1", "decode_attn_kernel"), ("K2", "int8_gemv_kernel")):
+        hits = [e for e in events if needle in e.key]
+        row[kname] = {"ms_per_frame": sum(device_us(e) for e in hits) / 1e3 / frames,
+                      "launches_per_frame": sum(e.count for e in hits) / frames,
+                      "us_per_launch": sum(device_us(e) for e in hits) / max(1, sum(e.count for e in hits))}
+    log(f"frame profile, {name}: {frames} frames, profiled wall {row['wall_ms_per_frame']:.1f} ms/frame, "
+        f"device {row['device_ms_per_frame']:.3f} ms/frame; K1 {row['K1']['ms_per_frame']:.3f} ms/frame "
+        f"({row['K1']['launches_per_frame']:.1f} launches, {row['K1']['us_per_launch']:.2f} us each); K2 "
+        f"{row['K2']['ms_per_frame']:.3f} ms/frame ({row['K2']['launches_per_frame']:.1f} launches, "
+        f"{row['K2']['us_per_launch']:.2f} us each); counted launches {counted}; trace parsed in "
+        f"{parse_s:.1f} s")
+    if row["K1"]["launches_per_frame"] == 0 or row["K2"]["launches_per_frame"] == 0:
+        fail(f"frame profile {name}: the trace shows no K1 or K2 kernel")
+    report.setdefault("frame_profile", {})[name] = row
+
+
 def slice_icl_phase(model, report):
     """ICL voice clone from reference recordings on the full-width model."""
     import numpy as np
@@ -674,6 +791,8 @@ def slice_phase(quant, n_requests, report, icl=False):
     if tok_a.shape != tok_b.shape or not (tok_a == tok_b).all():
         fail(f"slice {quant}: two greedy runs gave different tokens")
     log(f"slice {quant}: two greedy runs gave equal tokens ({tok_a.shape[0]} frames)")
+    if quant == "Q8_0":
+        frame_profile(model, "0.6B Q8_0 x-vector", report)
     report[f"slice_{quant}"] = {"load_s": load_s, "warmup_s": warmup_s, "requests": requests,
                                 "launches": launches,
                                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
@@ -709,7 +828,7 @@ def slice_17b_phase(report):
     `from_pretrained` would draw for them). -> launches of these requests."""
     import torch
 
-    from faster_qwen3_tts_tpu.config import get_config
+    from faster_qwen3_tts_tpu_torch.config import get_config
     from faster_qwen3_tts_tpu_torch.engine import generate as gen_lib
     from faster_qwen3_tts_tpu_torch.model import FasterQwen3TTS
     from faster_qwen3_tts_tpu_torch.ops.sampling import SamplingParams
@@ -774,6 +893,8 @@ def slice_17b_phase(report):
     if toks[0].shape != toks[1].shape or not (toks[0] == toks[1]).all():
         fail("slice 1.7B: two greedy CustomVoice runs gave different tokens")
     log(f"slice 1.7B: two greedy CustomVoice runs gave equal tokens ({toks[0].shape[0]} frames)")
+    frame_profile(model, "1.7B Q8_0 CustomVoice", report, method=f"{cv}_streaming",
+                  args=(TEXT, "aiden", "English"))
     peak = torch.cuda.max_memory_allocated() / 1e9
     log(f"slice 1.7B: peak device memory {peak:.2f} GB")
     report["slice_1.7B_Q8_0"] = {"load_s": load_s, "warmup_s": warmup_s, "weights_gb": weights_gb,
@@ -785,9 +906,17 @@ def slice_17b_phase(report):
     return launches
 
 
+def write_report(path, report) -> None:
+    if path:
+        path.parent.mkdir(parents=True, exist_ok=True)
+        path.write_text(json.dumps(report, indent=1))
+
+
 def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--report", type=Path, help="write every measurement to this JSON file")
+    parser.add_argument("--kernels-only", action="store_true",
+                        help="stop after the build, kernel and probe phases (prints no ok line)")
     args = parser.parse_args()
     if not (REPO / "faster_qwen3_tts_tpu_torch" / "csrc").is_dir():
         fail("faster_qwen3_tts_tpu_torch/ is not beside chip_smoke.py: run it from the repository")
@@ -808,6 +937,7 @@ def main() -> None:
 
     from faster_qwen3_tts_tpu_torch.ops import kernels
 
+    phase("build")
     lib = kernels.library()
     ptxas = [ln.strip() for ln in lib.build_log.splitlines() if "registers" in ln or "spill" in ln]
     log(f"build: nvcc sm_90a {lib.build_seconds:.1f} s -> {lib.path.name}")
@@ -815,28 +945,43 @@ def main() -> None:
         log(f"  ptxas {ln}")
     report["build_s"] = lib.build_seconds
 
+    phase("kernels")
     k1_cases, k2_cases = kernel_phase(report)
+    phase("probe")
     k3_cases, k3_launches = probe_phase(report, k2_cases)
+    if args.kernels_only:
+        write_report(args.report, report)
+        log("chip_smoke: --kernels-only, stopped before the reference and slice phases")
+        return
+    phase("reference")
     reference_icl_phase(report, reference_phase(report))
     reference_custom_phase(report)
+    phase("slice 0.6B Q8_0 + ICL")
     q8, icl = slice_phase("Q8_0", 3, report, icl=True)
+    phase("slice BF16")
     bf16, _ = slice_phase("BF16", 1, report)
     if q8["K1"] == 0 or q8["K2"] == 0:
         fail(f"the Q8_0 slice did not go through both kernels: {q8}")
     if bf16["K1"] == 0:
         fail(f"the BF16 slice did not go through K1: {bf16}")
+    phase("slice 1.7B Q8_0")
     q8_17b = slice_17b_phase(report)
-    if "jax" in sys.modules:
-        fail("jax was imported")
+    phase("record")
+    jaxish = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.") or
+                    m == "faster_qwen3_tts_tpu" or m.startswith("faster_qwen3_tts_tpu."))
+    if jaxish:
+        fail(f"the port loaded jax or the JAX package: {jaxish[:8]}")
     # launches of every slice path: 0.6B Q8_0 x-vector, Q8_0 ICL, BF16
     # x-vector, 1.7B Q8_0 CustomVoice / VoiceDesign / Base; K3's probe
     total = {k: q8[k] + icl[k] + bf16[k] + q8_17b[k] for k in q8}
     total["K3"] = k3_launches
 
     def entry(name, source, replaces, cases, launches, pick):
+        c = cases[pick]
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": launches, "max_abs_err": max(c["max_abs_err"] for c in cases),
-                "ms": cases[pick]["ms"], "plain_ms": cases[pick]["plain_ms"]}
+                "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
+                "bound_by": c["bound_by"], "library_ms": c["library_ms"]}
 
     # ms: K1 at 133 live talker slots, K2 at the 1.7B gate/up (M = 1), K3 at 704 MB
     gate_up = next(i for i, c in enumerate(k2_cases) if c["shape"] == (1, 2048, 6144))
@@ -851,9 +996,7 @@ def main() -> None:
               "benchmarks/pallas_bw_probe.py:73 (git 4565532)", k3_cases, total["K3"], 0),
     ]}
     report["record"] = record
-    if args.report:
-        args.report.parent.mkdir(parents=True, exist_ok=True)
-        args.report.write_text(json.dumps(report, indent=1))
+    write_report(args.report, report)
     log(json.dumps(record))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                             "count": torch.cuda.device_count()}}))

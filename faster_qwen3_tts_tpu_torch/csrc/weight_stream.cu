@@ -14,7 +14,8 @@
 // instructions per byte on the way: at 3.35 TB/s an SM has ~15 bytes to turn
 // into floats each clock, about what its quarter-rate int-to-float unit
 // manages, so bytes become floats by a byte permute into the mantissa of 2^23
-// and one full-rate subtraction instead.
+// and one full-rate subtraction instead (common.cuh `bytes_to_floats`,
+// which K2 shares).
 //
 // Design: the weight is read as one [R = L * I, O] matrix whose row r meets
 // x[r % I]. A block of 256 threads owns 128 output columns: 8 threads across
@@ -42,15 +43,6 @@ constexpr int kRowLanes = kThreads / kColLanes;        // 32
 constexpr int kLoads = 4;                              // loads a thread keeps in flight
 constexpr int kRowStep = kRowLanes * kLoads;           // rows a block covers per step
 constexpr int kSumThreads = 256;
-
-// The four signed bytes of a word as floats, exactly: byte b + 128 becomes
-// the low mantissa byte of 2^23, and 2^23 + 128 is subtracted.
-__device__ __forceinline__ void bytes_to_floats(int word, float* out) {
-  const unsigned u = static_cast<unsigned>(word) ^ 0x80808080u;
-#pragma unroll
-  for (int j = 0; j < 4; ++j)
-    out[j] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540u + j)) - 8388736.f;
-}
 
 __device__ __forceinline__ void fma16(float* acc, float xv, const int4& w) {
   float wf[kColsPerThread];

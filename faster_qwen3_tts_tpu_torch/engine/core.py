@@ -16,7 +16,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from faster_qwen3_tts_tpu.config import PredictorConfig, TalkerConfig
+from faster_qwen3_tts_tpu_torch.config import PredictorConfig, TalkerConfig
 
 from ..models import predictor as predictor_lib
 from ..models import talker as talker_lib

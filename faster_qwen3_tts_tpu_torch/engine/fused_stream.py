@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from faster_qwen3_tts_tpu.config import CodecConfig, TalkerConfig
+from faster_qwen3_tts_tpu_torch.config import CodecConfig, TalkerConfig
 
 from ..models import codec as codec_lib
 from . import core

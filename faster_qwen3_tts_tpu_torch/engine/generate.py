@@ -20,7 +20,7 @@ from typing import Any, Dict, Generator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from faster_qwen3_tts_tpu.config import Qwen3TTSConfig
+from faster_qwen3_tts_tpu_torch.config import Qwen3TTSConfig
 
 from ..ops.sampling import SamplingParams
 from . import core, fused_stream

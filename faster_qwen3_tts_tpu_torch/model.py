@@ -25,9 +25,9 @@ from typing import Any, Dict, Generator, List, Optional, Tuple, Union
 import numpy as np
 import torch
 
-from faster_qwen3_tts_tpu.config import Qwen3TTSConfig, get_config
-from faster_qwen3_tts_tpu.utils import audio as audio_lib
-from faster_qwen3_tts_tpu.utils.tokenizer import PromptTokenizer, load_tokenizer
+from faster_qwen3_tts_tpu_torch.config import Qwen3TTSConfig, get_config
+from faster_qwen3_tts_tpu_torch.utils import audio as audio_lib
+from faster_qwen3_tts_tpu_torch.utils.tokenizer import PromptTokenizer, load_tokenizer
 
 from . import weights as weights_lib
 from .engine import generate as gen_lib

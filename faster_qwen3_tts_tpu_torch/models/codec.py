@@ -24,7 +24,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from faster_qwen3_tts_tpu.config import CodecConfig
+from faster_qwen3_tts_tpu_torch.config import CodecConfig
 
 from .layers import apply_rope, rms_norm, rope_cos_sin
 

@@ -12,7 +12,7 @@ from typing import Optional
 
 import torch
 
-from faster_qwen3_tts_tpu.config import PredictorConfig
+from faster_qwen3_tts_tpu_torch.config import PredictorConfig
 
 from ..ops.quant import QuantizedLinear, dot
 from ..ops.sampling import SamplingParams, sample_logits

@@ -10,7 +10,7 @@ from typing import Tuple
 
 import torch
 
-from faster_qwen3_tts_tpu.config import TalkerConfig
+from faster_qwen3_tts_tpu_torch.config import TalkerConfig
 
 from ..ops.quant import dot
 from . import layers

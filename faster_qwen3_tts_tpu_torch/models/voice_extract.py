@@ -28,8 +28,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from faster_qwen3_tts_tpu.config import CodecConfig, Qwen3TTSConfig, SpeakerEncoderConfig
-from faster_qwen3_tts_tpu.utils import audio as audio_lib
+from faster_qwen3_tts_tpu_torch.config import CodecConfig, Qwen3TTSConfig, SpeakerEncoderConfig
+from faster_qwen3_tts_tpu_torch.utils import audio as audio_lib
 
 from .. import weights as weights_lib
 from .codec import _RES_DILATIONS, causal_conv1d, convnext_block, pre_transformer, residual_unit, snake_beta

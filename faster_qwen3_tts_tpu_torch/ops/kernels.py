@@ -35,13 +35,9 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     "fq3t_decode_attention": (
-        [_int, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _float, _vp],
-        _int,
+        [_int, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _float, _int, _int, _vp], _int,
     ),
-    "fq3t_decode_attention_tile": ([], _int),
-    "fq3t_int8_gemv": ([_int, _vp, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _vp], _int),
-    "fq3t_int8_gemv_block_cols": ([], _int),
-    "fq3t_int8_gemv_rows_per_block": ([], _int),
+    "fq3t_int8_gemv": ([_int, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int, _vp], _int),
     "fq3t_weight_stream": ([_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _vp], _int),
     "fq3t_weight_stream_block_cols": ([], _int),
     "fq3t_weight_stream_row_step": ([], _int),
@@ -60,21 +56,8 @@ class KernelLibrary:
             fn = getattr(self.cdll, name)
             fn.argtypes = argtypes
             fn.restype = restype
-        self.attn_tile = self.cdll.fq3t_decode_attention_tile()
-        self.gemv_block_cols = self.cdll.fq3t_int8_gemv_block_cols()
-        self.gemv_rows_per_block = self.cdll.fq3t_int8_gemv_rows_per_block()
         self.stream_block_cols = self.cdll.fq3t_weight_stream_block_cols()
         self.stream_row_step = self.cdll.fq3t_weight_stream_row_step()
-        self._gemv_counters = {}
-
-    def gemv_counters(self, device: torch.device, n: int) -> torch.Tensor:
-        """Zeroed completion counters for K2's split-K, one buffer per device;
-        the kernel leaves every counter at 0 when it returns."""
-        buf = self._gemv_counters.get(device)
-        if buf is None or buf.numel() < n:
-            buf = torch.zeros(max(n, 4096), dtype=torch.int32, device=device)
-            self._gemv_counters[device] = buf
-        return buf
 
     def call(self, name: str, *args) -> None:
         """Call a launching entry point and raise on a CUDA error."""

@@ -13,7 +13,7 @@ Int4 (Q4_K_M / Q8_4) and the fused wqkv / w_gateup layout are not ported yet:
 """
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -99,13 +99,57 @@ def int8_gemv_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> to
     return (y * scale.float().reshape(scale.shape[-1])).to(x.dtype)
 
 
-_TARGET_BLOCKS = 264  # two blocks per SM of an H100
+# launch geometry of K2 (csrc/int8_gemv.cu)
+_COLS = 128           # output columns per tile
+_CHUNK_ROWS = 64      # rows per TMA box and ring stage
+_STAGES = 8
+_MAX_ROWS = 4         # rows of x per CTA; grid.y covers more
+_MAX_CLUSTER = 8      # CTAs per cluster (the portable maximum; 16 measured slower)
+_TARGET_CTAS = 264    # two CTAs on each of an H100's 132 SMs
+_MAX_SMEM = 232448    # dynamic shared memory of an H100 block (227 KB)
+
+
+class GemvPlan(NamedTuple):
+    """One K2 launch: grid (tiles * cluster, row groups), clusters of
+    `cluster` CTAs along x, each reducing `rows_per_cta` rows of I, with
+    `smem` bytes of dynamic shared memory; `mr` rows of x per CTA."""
+
+    grid: Tuple[int, int]
+    cluster: int
+    rows_per_cta: int
+    smem: int
+    mr: int
+
+
+def _gemv_plan(M: int, I: int, O: int, elt: int) -> GemvPlan:
+    """K2's launch for x [M, I] of `elt`-byte elements and q [I, O]. The
+    cluster of each 128-column tile splits I into slabs of whole 64-row
+    stages, as many as fill the card about twice (tiles x row groups x
+    cluster <= 264 CTAs, cluster <= 8); the cluster is then shrunk so that
+    every CTA has rows. Shared memory is csrc/int8_gemv.cu's `smem_bytes`,
+    which the launch checks. Raises ValueError on a shape the kernel does not
+    take."""
+    if not 1 <= M <= GEMV_MAX_ROWS or I < 1 or O < 16 or O % 16:
+        raise ValueError(f"int8_gemv: no K2 launch for M={M} I={I} O={O}")
+    mr = M if M <= 2 else _MAX_ROWS
+    tiles, groups = -(-O // _COLS), -(-M // mr)
+    chunks = -(-I // _CHUNK_ROWS)
+    cluster = max(1, min(_MAX_CLUSTER, chunks, _TARGET_CTAS // (tiles * groups)))
+    rows_per_cta = -(-chunks // cluster) * _CHUNK_ROWS
+    cluster = -(-I // rows_per_cta)
+    smem = (128 + _STAGES * _CHUNK_ROWS * _COLS + (mr * _COLS + _MAX_CLUSTER) * 4 + _STAGES * 8
+            + -(-mr * rows_per_cta * elt // 16) * 16)
+    if smem > _MAX_SMEM:
+        raise ValueError(f"int8_gemv: {smem} bytes of shared memory for I={I}")
+    return GemvPlan((tiles * cluster, groups), cluster, rows_per_cta, smem, mr)
 
 
 def int8_gemv(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """y = (x @ q) * scale for x [..., I] (at most 16 rows), q int8 [I, O],
-    scale f32 [1, O]. A CUDA tensor launches K2 (csrc/int8_gemv.cu) and
-    counts it in `int8_gemv.launches`; a CPU tensor takes the plain version."""
+    scale f32 [1, O]. A CUDA tensor launches K2 (csrc/int8_gemv.cu: one
+    launch, a cluster of CTAs per column tile summing through distributed
+    shared memory) and counts it in `int8_gemv.launches`; a CPU tensor takes
+    the plain version."""
     if x.device.type == "cpu":
         return int8_gemv_plain(x, q, scale)
     I, O = q.shape
@@ -119,21 +163,13 @@ def int8_gemv(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Te
     kernels.require_cuda(x2, q, scale)
     if O % 16 or q.data_ptr() % 16:
         raise ValueError("int8_gemv needs O % 16 == 0 and a 16-byte aligned q")
+    plan = _gemv_plan(M, I, O, x2.element_size())
     lib = kernels.library()
-    n_tiles = -(-O // lib.gemv_block_cols)
-    n_groups = -(-M // lib.gemv_rows_per_block)
-    ksplit = max(1, min(-(-I // 32), -(-_TARGET_BLOCKS // (n_tiles * n_groups))))
-    rows_per_split = -(-I // (ksplit * 32)) * 32
-    ksplit = -(-I // rows_per_split)
     y = torch.empty((M, O), dtype=x.dtype, device=x.device)
-    partial = torch.empty((ksplit * M * O,) if ksplit > 1 else (1,), dtype=torch.float32,
-                          device=x.device)
-    counters = lib.gemv_counters(x.device, n_tiles * n_groups)
     lib.call(
         "fq3t_int8_gemv",
-        kernels.dtype_code(x), x2.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(),
-        partial.data_ptr(), counters.data_ptr(), M, I, O, rows_per_split, ksplit,
-        kernels.stream_handle(x.device),
+        kernels.dtype_code(x), x2.data_ptr(), q.data_ptr(), scale.data_ptr(), y.data_ptr(), M, I, O,
+        plan.rows_per_cta, plan.cluster, plan.smem, kernels.stream_handle(x.device),
     )
     int8_gemv.launches += 1
     return y.reshape(*lead, O)

@@ -34,7 +34,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from faster_qwen3_tts_tpu.config import Qwen3TTSConfig
+from faster_qwen3_tts_tpu_torch.config import Qwen3TTSConfig
 
 from .models import predictor as predictor_lib
 from .models import talker as talker_lib

@@ -25,8 +25,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-from faster_qwen3_tts_tpu.config import (CodecConfig, PredictorConfig, Qwen3TTSConfig,
-                                         SpeakerEncoderConfig, TalkerConfig)
+from faster_qwen3_tts_tpu_torch.config import (CodecConfig, PredictorConfig, Qwen3TTSConfig,
+                                               SpeakerEncoderConfig, TalkerConfig)
 
 from .ops import quant as quant_lib
 
@@ -349,10 +349,11 @@ _LAYOUTS = {"codec": _codec_layout, "speaker_encoder": _speaker_encoder_layout,
             "codec_encoder": _codec_encoder_layout}
 
 
-def params_from_numpy(tree: Dict[str, Any], device="cpu") -> Dict[str, Any]:
+def params_from_numpy(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
     """Host tree (numpy leaves, QuantizedLinear / QuantizedLinear4 nodes of
-    either package) -> the port's tree on `device`. Conv weights of the
-    codec and of the two reference-audio encoders change layout here."""
+    either package) -> the port's tree on `device` (the card unless the
+    caller asks for "cpu"). Conv weights of the codec and of the two
+    reference-audio encoders change layout here."""
     out = _convert(tree, device)
     for name, layout in _LAYOUTS.items():
         if name in out:
@@ -375,10 +376,11 @@ def _round_to(node, dtype):
     return torch.from_numpy(node).to(dtype).float().numpy()
 
 
-def init_all(cfg: Qwen3TTSConfig, seed: int = 0, dtype=torch.bfloat16, device="cpu",
+def init_all(cfg: Qwen3TTSConfig, seed: int = 0, dtype=torch.bfloat16, device="cuda",
              quant: str = "none") -> Dict[str, Any]:
-    """Seeded random-init tree on `device`: talker and predictor in `dtype`
-    (int8 projections when quant == "int8"), codec in float32."""
+    """Seeded random-init tree on `device` (the card unless the caller asks
+    for "cpu"): talker and predictor in `dtype` (int8 projections when
+    quant == "int8"), codec in float32."""
     tree = init_numpy(cfg, seed)
     if dtype != torch.float32:
         for sub in ("talker", "predictor"):

@@ -35,7 +35,7 @@ def models(tiny_config):
     host = jax_weights.init_all(cfg, seed=0, dtype=jnp.float32, device_put=False)
     jax_model = JaxTTS(jax.device_put(host), cfg, PromptTokenizer(ByteTokenizer()), max_seq_len=128)
     jax_model._warmed_up = True
-    port = FasterQwen3TTS(weights.params_from_numpy(host), cfg, PromptTokenizer(ByteTokenizer()),
+    port = FasterQwen3TTS(weights.params_from_numpy(host, device="cpu"), cfg, PromptTokenizer(ByteTokenizer()),
                           max_seq_len=128)
     return jax_model, port
 
@@ -146,30 +146,32 @@ def test_from_pretrained_cuda_raises_without_a_card():
 
 def test_port_never_imports_jax(tmp_path):
     """Tiny CPU generates through the port, x-vector and ICL from a
-    reference wav, CustomVoice and VoiceDesign, leave jax unimported."""
+    reference wav, CustomVoice and VoiceDesign, built from the port's own
+    config, tokenizer and audio modules, leave jax and the JAX package
+    unimported."""
     script = tmp_path / "run.py"
     script.write_text(
         "import dataclasses, sys\n"
         "import numpy as np, torch\n"
-        "from faster_qwen3_tts_tpu.config import tiny_test_config\n"
-        "from faster_qwen3_tts_tpu.utils.tokenizer import ByteTokenizer, PromptTokenizer\n"
+        "from faster_qwen3_tts_tpu_torch.config import tiny_test_config\n"
+        "from faster_qwen3_tts_tpu_torch.utils.tokenizer import ByteTokenizer, PromptTokenizer\n"
         "from faster_qwen3_tts_tpu_torch import weights\n"
         "from faster_qwen3_tts_tpu_torch.model import FasterQwen3TTS\n"
         "torch.set_num_threads(1)\n"
         "cfg = dataclasses.replace(tiny_test_config(), tts_bos_token_id=300,\n"
         "                          tts_eos_token_id=301, tts_pad_token_id=302)\n"
-        "m = FasterQwen3TTS(weights.init_all(cfg, dtype=torch.float32, quant='int8'), cfg,\n"
+        "m = FasterQwen3TTS(weights.init_all(cfg, dtype=torch.float32, quant='int8', device='cpu'), cfg,\n"
         "                   PromptTokenizer(ByteTokenizer()), max_seq_len=64)\n"
         "prompt = {'ref_spk_embedding': [np.ones(2048, np.float32)]}\n"
         "n = sum(len(a) for a, _, _ in m.generate_voice_clone_streaming(\n"
         "    'Hi.', 'English', voice_clone_prompt=prompt, max_new_tokens=6, chunk_size=4, seed=0))\n"
         "assert n > 0\n"
-        "from faster_qwen3_tts_tpu.utils.audio import write_wav\n"
+        "from faster_qwen3_tts_tpu_torch.utils.audio import write_wav\n"
         "write_wav(sys.argv[1], (0.3 * np.sin(np.arange(12000) / 20)).astype(np.float32), 24000)\n"
         "n = sum(len(a) for a, _, _ in m.generate_voice_clone_streaming(\n"
         "    'Hi.', 'English', sys.argv[1], 'Ref.', max_new_tokens=6, chunk_size=4, seed=0))\n"
         "assert n > 0 and m._voice_prompt_cache\n"
-        "from faster_qwen3_tts_tpu.config import get_config\n"
+        "from faster_qwen3_tts_tpu_torch.config import get_config\n"
         "cv = get_config('1.7b-custom').talker\n"
         "c = FasterQwen3TTS(m.params, dataclasses.replace(\n"
         "    cfg, model_type='custom_voice', model_size='1b7', talker=dataclasses.replace(\n"
@@ -183,6 +185,8 @@ def test_port_never_imports_jax(tmp_path):
         "(wav,), sr = d.generate_voice_design('Hi.', 'A calm voice.', 'English', max_new_tokens=6, seed=0)\n"
         "assert wav.size > 0 and sr == 24000\n"
         "assert 'jax' not in sys.modules, sorted(k for k in sys.modules if 'jax' in k)\n"
+        "assert not any(k == 'faster_qwen3_tts_tpu' or k.startswith('faster_qwen3_tts_tpu.')\n"
+        "               for k in sys.modules), sorted(k for k in sys.modules if 'tts_tpu' in k)\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -39,7 +39,7 @@ def make(tiny_config):
     cfg0 = dataclasses.replace(tiny_config, tts_bos_token_id=300, tts_eos_token_id=301,
                                tts_pad_token_id=302)
     host = jax_weights.init_all(cfg0, seed=0, dtype=jnp.float32, device_put=False)
-    jax_params, port_params = jax.device_put(host), weights.params_from_numpy(host)
+    jax_params, port_params = jax.device_put(host), weights.params_from_numpy(host, device="cpu")
     built = {}
 
     def build(model_type, size="1b7"):

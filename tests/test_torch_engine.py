@@ -27,7 +27,7 @@ def test_start_state_and_three_chunks_match_jax(tiny_config, quant):
     host = jax_weights.init_all(tiny_config, seed=4, dtype=jnp.float32, device_put=False)
     if quant:
         host = jax_quant.quantize_model_params(host, "int8")
-    jparams, port = jax.device_put(host), weights.params_from_numpy(host)
+    jparams, port = jax.device_put(host), weights.params_from_numpy(host, device="cpu")
     rng = np.random.default_rng(0)
     H = tiny_config.talker.hidden_size
     B, P, T = 2, 8, 5
@@ -74,7 +74,7 @@ def test_start_state_and_three_chunks_match_jax(tiny_config, quant):
 @pytest.mark.parametrize("ctx", [0, 4])
 def test_vocode_window_matches_jax(tiny_config, ctx):
     host = jax_weights.init_all(tiny_config, seed=6, dtype=jnp.float32, device_put=False)
-    jparams, port = jax.device_put(host), weights.params_from_numpy(host)
+    jparams, port = jax.device_put(host), weights.params_from_numpy(host, device="cpu")
     rng = np.random.default_rng(1)
     chunk, up = 3, tiny_config.codec.total_upsample
     packed = np.concatenate(

@@ -37,7 +37,7 @@ def models(tiny_config):
     host = jax_weights.init_all(cfg, seed=0, dtype=jnp.float32, device_put=False)
     jax_model = JaxTTS(jax.device_put(host), cfg, PromptTokenizer(ByteTokenizer()), max_seq_len=160)
     jax_model._warmed_up = True
-    port = FasterQwen3TTS(weights.params_from_numpy(host), cfg, PromptTokenizer(ByteTokenizer()),
+    port = FasterQwen3TTS(weights.params_from_numpy(host, device="cpu"), cfg, PromptTokenizer(ByteTokenizer()),
                           max_seq_len=160)
     return jax_model, port
 

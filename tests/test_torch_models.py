@@ -38,7 +38,7 @@ def _trees(cfg, quant):
     host = jax_weights.init_all(cfg, seed=0, dtype=jnp.float32, device_put=False)
     if quant:
         host = jax_quant.quantize_model_params(host, "int8")
-    return jax.device_put(host), weights.params_from_numpy(host)
+    return jax.device_put(host), weights.params_from_numpy(host, device="cpu")
 
 
 @pytest.mark.parametrize("quant", [False, True], ids=["f32", "int8"])

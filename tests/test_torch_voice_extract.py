@@ -42,7 +42,7 @@ def encoders(tiny_config):
     """(JAX trees, port trees) of the two encoders, as VoiceExtractor draws them."""
     jtree = {"speaker_encoder": vx.init_speaker_params(7, tiny_config.speaker_encoder),
              "codec_encoder": vx.init_encoder_params(8, tiny_config.codec)}
-    return jtree, weights.params_from_numpy(jtree)
+    return jtree, weights.params_from_numpy(jtree, device="cpu")
 
 
 @pytest.mark.parametrize("name", ["speaker_encoder", "codec_encoder"])
@@ -54,7 +54,7 @@ def test_encoder_init_matches_jax(tiny_config, encoders, name):
     assert [k for k, _ in leaves] == [k for k, _ in jleaves]
     for (key, a), (_, b) in zip(leaves, jleaves):
         assert a.dtype == b.dtype and np.array_equal(a, b), key
-    converted = weights.params_from_numpy({name: mine})[name]
+    converted = weights.params_from_numpy({name: mine}, device="cpu")[name]
     for (key, a), (_, b) in zip(_leaves(converted), _leaves(port[name])):
         assert torch.equal(a, b), key
     if name == "codec_encoder":
@@ -114,7 +114,7 @@ def test_extractor_end_to_end_matches_jax(tiny_config, secs):
     lazily on both sides, then the x-vector and the codes of one clip."""
     host = jax_weights.init_all(tiny_config, seed=0, dtype=jnp.float32, device_put=False)
     jx = vx.VoiceExtractor(jax.device_put(host), tiny_config)
-    px = pvx.VoiceExtractor(weights.params_from_numpy(host), tiny_config)
+    px = pvx.VoiceExtractor(weights.params_from_numpy(host, device="cpu"), tiny_config)
     audio = _clip(secs, seed=4)
     xvec = px.extract_xvector(audio, 24000)
     assert xvec.shape == (2048,) and xvec.dtype == np.float32

@@ -41,8 +41,8 @@ def _assert_trees_equal(a, b):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_init_all_matches_jax_bit_for_bit(tiny_config, dtype):
     jax_tree = jax_weights.init_all(tiny_config, seed=3, dtype=getattr(jnp, dtype), device_put=False)
-    port = weights.init_all(tiny_config, seed=3, dtype=getattr(torch, dtype))
-    _assert_trees_equal(port, weights.params_from_numpy(jax_tree))
+    port = weights.init_all(tiny_config, seed=3, dtype=getattr(torch, dtype), device="cpu")
+    _assert_trees_equal(port, weights.params_from_numpy(jax_tree, device="cpu"))
 
 
 def test_init_numpy_draws_the_jax_streams(tiny_config):
@@ -79,8 +79,8 @@ def test_quantized_init_matches_jax(tiny_config):
     jax_tree = jax_quant.quantize_model_params(
         jax_weights.init_all(tiny_config, seed=1, dtype=jnp.bfloat16, device_put=False), "int8"
     )
-    port = weights.init_all(tiny_config, seed=1, dtype=torch.bfloat16, quant="int8")
-    _assert_trees_equal(port, weights.params_from_numpy(jax_tree))
+    port = weights.init_all(tiny_config, seed=1, dtype=torch.bfloat16, quant="int8", device="cpu")
+    _assert_trees_equal(port, weights.params_from_numpy(jax_tree, device="cpu"))
     assert isinstance(port["talker"]["layers"]["wq"], quant.QuantizedLinear)
     assert port["talker"]["layers"]["wq"].q.dtype == torch.int8
 
@@ -99,7 +99,7 @@ def test_params_from_numpy_round_trips_every_leaf(tiny_config):
     host = jax_quant.quantize_model_params(
         jax_weights.init_all(tiny_config, seed=2, dtype=jnp.bfloat16, device_put=False), "int8"
     )
-    port = weights.params_from_numpy(host)
+    port = weights.params_from_numpy(host, device="cpu")
     la, lb = list(_leaves(host)), list(_leaves(port))
     assert [p for p, _ in la] == [p for p, _ in lb]
     for (path, x), (_, y) in zip(la, lb):
