@@ -11,13 +11,14 @@ Phases, each of which fails the run:
    GEMV, K3 weight streaming) from faster_qwen3_tts_tpu_torch/csrc with one
    nvcc per source for sm_90a, and prints what ptxas says of each kernel;
 3. kernels: K1 and K2 against their plain PyTorch versions on the same
-   inputs at the shapes of the 0.6B and 1.7B slices, with the error, the
-   median device time per call (CUDA-graph replay over operands larger than
-   L2) of the kernel, of its plain version and of one PyTorch call that
-   computes the same function (the yardstick the port never calls: SDPA
-   for K1, `torch._weight_int8pack_mm` for K2, and for scale the bf16
-   matmul), the bound (bytes over the HBM rate or operations over the peak
-   rate, whichever is larger) and the median eager call time;
+   inputs at the shapes of the 0.6B and 1.7B slices and of an 8-lane pool
+   (K1 over 8 lanes of different ages, K2 at 8 and 16 rows), with the
+   error, the median device time per call (CUDA-graph replay over operands
+   larger than L2) of the kernel, of its plain version and of one PyTorch
+   call that computes the same function (the yardstick the port never
+   calls: SDPA for K1, `torch._weight_int8pack_mm` for K2, and for scale
+   the bf16 matmul), the bound (bytes over the HBM rate or operations over
+   the peak rate, whichever is larger) and the median eager call time;
 4. probe: K3 streams the stacked int8 weights of the Pallas probe it
    replaces (L=28, I=2048, O=12288, the 1.7B gate+up stack, and L=28,
    I=1024, O=6144), timed with CUDA events, then held against its plain
@@ -29,24 +30,42 @@ Phases, each of which fails the run:
    build/: x-vector (relative 1e-3), reference codes (equal, up to argmin
    ties), streamed tokens (equal) and audio (1e-3); a CustomVoice stream
    (dialect speaker, Chinese, an instruction) and a VoiceDesign stream:
-   equal tokens, audio within 1e-3;
+   equal tokens, audio within 1e-3; then many streams in Q8_0 (a narrow
+   vocoder): a lockstep batch of an x-vector, a long-reference and a
+   short-reference ICL request, and a ContinuousBatcher with a late joiner
+   and a reused slot: every lane's tokens equal its solo stream's on each
+   device, and the card's equal the CPU's, audio within 1e-4;
 6. slice 0.6B Q8_0: `from_pretrained("Qwen/Qwen3-TTS-12Hz-0.6B-Base",
    quant="Q8_0")` at full width (random weights from a seed), `warmup()`,
-   then three streaming x-vector voice-clone requests (chunk 8, first chunk
-   4); checks the audio, that K1 and K2 carried the run, and greedy
-   determinism; prints TTFA and stream RTF per request; then one 24-frame
-   stream under torch.profiler: K1 and K2 device ms and launches per frame;
+   then two streaming x-vector voice-clone requests (chunk 8, first chunk
+   4, 32 frames); checks the audio, that K1 and K2 carried the run, and
+   greedy determinism; prints TTFA and stream RTF per request; then one
+   24-frame stream under torch.profiler: K1 and K2 device ms and launches
+   per frame;
 7. slice ICL on the same Q8_0 model: `create_voice_clone_prompt` timed on a
    4.0 s recording; ICL streams from `ref_audio` with a long reference
    (~56 frames: every chunk vocoded on the card) and a short one (~19
    frames: host decode with the reference prepended until 24 frames), one
    `xvec_only` stream, one non-streaming ICL request; checks sample counts,
    that K1 and K2 carried these requests, and greedy determinism;
-8. slice BF16: one x-vector request in BF16 (K1 only);
-9. slice 1.7B Q8_0: `from_pretrained("Qwen/Qwen3-TTS-12Hz-1.7B-CustomVoice",
+8. batches on the same Q8_0 model: eight solo greedy x-vector streams,
+   then `generate_voice_clone_streaming_batch` of the same requests at B =
+   1, 2, 4, 8 (64 frames a lane): aggregate RTF, TTFA per lane, K1 and K2
+   launches per decode step (which must not grow with B), the lanes' row
+   and lane counts at K2 and K1 (B = 8 must launch K1 at 8 lanes and K2 at
+   8 and 16 rows), each lane's agreement with its solo stream, the B = 8
+   batch in reverse lane order (each request's tokens must not change), and
+   a B = 8 run under torch.profiler (K1 and K2 device ms and launches per
+   step, busy share); then a ContinuousBatcher (8 slots) answering 12
+   requests (8 x-vector, 4 ICL) submitted from a thread every 150 ms, one
+   cancelled at its first audio and one with text over the pool's bucket:
+   every stream must end once, those two with `cancelled` and `error`;
+   TTFA from submit p50 / max, aggregate RTF, peak memory;
+9. slice BF16: one x-vector request in BF16 (K1 only) and a B = 8 batch;
+10. slice 1.7B Q8_0: `from_pretrained("Qwen/Qwen3-TTS-12Hz-1.7B-CustomVoice",
    quant="Q8_0")`, `warmup()`, two CustomVoice streams (a plain speaker in
    English, a dialect speaker in Chinese) and one non-streaming request;
-   on the same weights VoiceDesign (two streams with an instruction, one
+   on the same weights VoiceDesign (a stream with an instruction, one
    non-streaming request) and a Base x-vector stream; checks sample counts,
    that K1 and K2 carried these requests, and greedy determinism; prints
    load and warmup time, TTFA and stream RTF per request, peak memory; then
@@ -73,7 +92,8 @@ REPO = Path(__file__).resolve().parent
 MODEL = "Qwen/Qwen3-TTS-12Hz-0.6B-Base"
 MODEL_17B = "Qwen/Qwen3-TTS-12Hz-1.7B-CustomVoice"
 TEXT = "The quick brown fox jumps over the lazy dog today."
-CHUNK, FIRST_CHUNK, FRAMES = 8, 4, 64  # 64 frames: 5.1 s of audio a stream
+CHUNK, FIRST_CHUNK, FRAMES = 8, 4, 32  # 32 frames: 2.6 s of audio a stream
+BATCH_FRAMES, AGREE_FRAMES = 64, 8  # a lockstep lane's frames; frames held against a solo stream
 REF_TEXT = "This is a seeded reference recording for the smoke run."
 INSTRUCT = "Speak slowly, in a calm and warm low voice."
 DESIGN = ("A warm middle-aged female narrator with a low, slightly husky voice, speaking slowly "
@@ -225,12 +245,20 @@ def _fmt(ms):
 # 0.6B and 1.7B (16 / 8 heads of 128); live [56, 300) is a VoiceDesign prefill
 # of ~200 rows, left-padded to its bucket of 256, plus 44 frames
 K1_CASES = [(2048, 0, 33), (2048, 5, 133), (2048, 56, 300), (2048, 0, 2048), (17, 0, 3), (17, 0, 17)]
+# K1 at the shapes of an 8-lane pool: the talker with eight lanes of different
+# ages (live ranges of 40-300 slots, some left-padded), and the predictor with
+# every lane at its last pass (17 live)
+K1_BATCH_CASES = [(2048, [(0, 40), (5, 85), (56, 300), (0, 120), (20, 180), (0, 220), (31, 291), (0, 300)]),
+                  (17, [(0, 17)] * 8)]
 # K2: every Q8_0 projection shape of the 0.6B and 1.7B talkers and the
 # predictor they share
 K2_SHAPES = {(1024, 2048): "wq/lm_heads", (1024, 1024): "wk/wv/mtp_proj/text_proj",
              (2048, 1024): "wo; 1.7B wk/wv/mtp_proj", (1024, 3072): "gate/up/codec_head",
              (3072, 1024): "down", (2048, 2048): "1.7B wq/wo/text_proj", (2048, 6144): "1.7B gate/up",
              (6144, 2048): "1.7B down", (2048, 3072): "1.7B codec_head"}
+# the 0.6B shapes also at the rows of an 8-lane pool: 8 (talker, predictor
+# passes 2-15) and 16 (the predictor's first pass, two rows a lane)
+K2_SHAPES_06B = ((1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072), (3072, 1024))
 
 
 def kernel_phase(report):
@@ -276,6 +304,39 @@ def kernel_phase(report):
             f"{timed['ms']:.5f}, plain {timed['plain_ms']:.5f}, SDPA {_fmt(timed['library_ms'])}, bound "
             f"{timed['bound_ms']:.5f} ({timed['bound_by']}); eager call ms: kernel "
             f"{timed['eager_ms']:.4f}, plain {timed['plain_eager_ms']:.4f}")
+    for S, ranges in K1_BATCH_CASES:
+        B = len(ranges)
+        q = torch.randn(B, 1, 16, 128, generator=g).to(dev, torch.bfloat16)
+        k = torch.randn(B, S, 8, 128, generator=g).to(dev, torch.bfloat16)
+        v = torch.randn(B, S, 8, 128, generator=g).to(dev, torch.bfloat16)
+        s = torch.arange(S)
+        mask = torch.stack([((s >= lo) & (s < hi)).to(torch.int32) for lo, hi in ranges]).to(dev)
+        out = attention.decode_attention(q, k, v, mask)
+        torch.cuda.synchronize()
+        ref = attention.decode_attention_plain(q.float(), k.float(), v.float(), mask)
+        live = sum(hi - lo for lo, hi in ranges)
+        name = f"K1 B={B} S_max={S} live {min(hi - lo for lo, hi in ranges)}-{max(hi - lo for lo, hi in ranges)}"
+        err = check_close(name, out, ref, k1_cases)
+        n = _copies(2 * k.numel() * k.element_size())
+        ks, vs = [k] + [k.clone() for _ in range(n - 1)], [v] + [v.clone() for _ in range(n - 1)]
+        bmask = (mask > 0)[:, None, None, :]
+        qt = q.transpose(1, 2)
+        timed = {
+            "ms": device_ms(lambda i: attention.decode_attention(q, ks[i], vs[i], mask), n),
+            "plain_ms": device_ms(lambda i: attention.decode_attention_plain(q, ks[i], vs[i], mask), n),
+            "library_ms": library_time(name, lambda i: F.scaled_dot_product_attention(
+                qt, ks[i].transpose(1, 2), vs[i].transpose(1, 2), attn_mask=bmask, enable_gqa=True), n),
+            "eager_ms": eager_ms(lambda i: attention.decode_attention(q, k, v, mask)),
+            "plain_eager_ms": eager_ms(lambda i: attention.decode_attention_plain(q, k, v, mask)),
+        }
+        # q, every lane's live K/V rows, the masks, out; 4 flops per live (query head, slot, d)
+        timed.update(bound(2 * q.numel() * 2 + 2 * live * 8 * 128 * 2 + B * S * 4, 4 * live * 16 * 128, q.dtype))
+        k1_cases[-1].update(timed, batch=B)
+        del ks, vs
+        log(f"{name}: max_abs_err {err:.3e} (atol {ATOL}, rtol {RTOL}); device ms per call: kernel "
+            f"{timed['ms']:.5f}, plain {timed['plain_ms']:.5f}, SDPA {_fmt(timed['library_ms'])}, bound "
+            f"{timed['bound_ms']:.5f} ({timed['bound_by']}); eager call ms: kernel "
+            f"{timed['eager_ms']:.4f}, plain {timed['plain_eager_ms']:.4f}")
     rng = np.random.default_rng(0)
     for (I, O), what in K2_SHAPES.items():
         ql = quant.quantize_linear(rng.standard_normal((I, O)).astype("float32") * I**-0.5)
@@ -285,7 +346,7 @@ def kernel_phase(report):
         packed = [w.t().contiguous() for w in qs]  # [O, I], the layout torch's int8 call takes
         sc_bf16 = sc.reshape(O).to(torch.bfloat16)
         wbf = [qw.to(torch.bfloat16)] + [qw.to(torch.bfloat16) for _ in range(max(2, n // 2) - 1)]
-        for M in (1, 2):
+        for M in (1, 2, 8, 16) if (I, O) in K2_SHAPES_06B else (1, 2):
             x = torch.randn(M, I, generator=g).to(dev, torch.bfloat16)
             out = quant.int8_gemv(x, qw, sc)
             torch.cuda.synchronize()
@@ -387,7 +448,8 @@ def probe_phase(report, k2_cases):
 
 # A tiny geometry of the Base model (the widths of the JAX package's
 # `config.tiny_test_config`), as a config.json that `from_pretrained` reads;
-# the text vocabulary is cut to 512, so the tts control ids move below it.
+# the text vocabulary is cut to 512, so the tts control ids move below it,
+# and the vocoder is 64 wide (the CPU side vocodes every chunk).
 TINY_CONFIG = {
     "model_type": "base", "tts_bos_token_id": 300, "tts_eos_token_id": 301, "tts_pad_token_id": 302,
     "talker_config": {"num_hidden_layers": 2, "hidden_size": 128, "num_attention_heads": 4,
@@ -396,7 +458,7 @@ TINY_CONFIG = {
     "predictor_config": {"num_hidden_layers": 2, "hidden_size": 64, "num_attention_heads": 2,
                          "num_key_value_heads": 1, "head_dim": 32, "intermediate_size": 128},
     "codec_config": {"hidden_size": 64, "num_hidden_layers": 1, "intermediate_size": 128,
-                     "num_attention_heads": 2, "num_key_value_heads": 2, "head_dim": 32},
+                     "num_attention_heads": 2, "num_key_value_heads": 2, "head_dim": 32, "decoder_dim": 64},
 }
 
 
@@ -658,6 +720,26 @@ def _read_launches():
     return {"K1": attention.decode_attention.launches, "K2": quant_ops.int8_gemv.launches}
 
 
+def _profile_row(prof, frames, wall_s):
+    """Device time per frame of all kernels, of K1 and of K2, from a trace
+    of `frames` frames over `wall_s` seconds."""
+
+    def device_us(e):  # the kernel's own device time, across torch versions
+        us = getattr(e, "self_device_time_total", None)
+        return us if us is not None else e.self_cuda_time_total
+
+    events = prof.key_averages()
+    total_us = sum(device_us(e) for e in events)
+    row = {"frames": frames, "wall_ms_per_frame": wall_s * 1e3 / frames,
+           "device_ms_per_frame": total_us / 1e3 / frames, "busy_share": total_us / 1e6 / wall_s}
+    for kname, needle in (("K1", "decode_attn_kernel"), ("K2", "int8_gemv_kernel")):
+        hits = [e for e in events if needle in e.key]
+        row[kname] = {"ms_per_frame": sum(device_us(e) for e in hits) / 1e3 / frames,
+                      "launches_per_frame": sum(e.count for e in hits) / frames,
+                      "us_per_launch": sum(device_us(e) for e in hits) / max(1, sum(e.count for e in hits))}
+    return row
+
+
 def frame_profile(model, name, report, method="generate_voice_clone_streaming", args=(TEXT, "English")):
     """K1 and K2 inside the frame: one 24-frame stream under torch.profiler ->
     device ms and launches per frame of each kernel and of all kernels."""
@@ -672,19 +754,8 @@ def frame_profile(model, name, report, method="generate_voice_clone_streaming", 
     parse_s = time.perf_counter() - t0 - req["wall_s"]
     frames = req["frames"]
 
-    def device_us(e):  # the kernel's own device time, across torch versions
-        us = getattr(e, "self_device_time_total", None)
-        return us if us is not None else e.self_cuda_time_total
-
-    events = prof.key_averages()
-    total_us = sum(device_us(e) for e in events)
-    row = {"frames": frames, "wall_ms_per_frame": req["wall_s"] * 1e3 / frames, "parse_s": parse_s,
-           "device_ms_per_frame": total_us / 1e3 / frames, "counted_launches": counted}
-    for kname, needle in (("K1", "decode_attn_kernel"), ("K2", "int8_gemv_kernel")):
-        hits = [e for e in events if needle in e.key]
-        row[kname] = {"ms_per_frame": sum(device_us(e) for e in hits) / 1e3 / frames,
-                      "launches_per_frame": sum(e.count for e in hits) / frames,
-                      "us_per_launch": sum(device_us(e) for e in hits) / max(1, sum(e.count for e in hits))}
+    row = _profile_row(prof, frames, req["wall_s"])
+    row.update(parse_s=parse_s, counted_launches=counted)
     log(f"frame profile, {name}: {frames} frames, profiled wall {row['wall_ms_per_frame']:.1f} ms/frame, "
         f"device {row['device_ms_per_frame']:.3f} ms/frame; K1 {row['K1']['ms_per_frame']:.3f} ms/frame "
         f"({row['K1']['launches_per_frame']:.1f} launches, {row['K1']['us_per_launch']:.2f} us each); K2 "
@@ -719,8 +790,8 @@ def slice_icl_phase(model, report):
         f"(encoder init included), then {', '.join(f'{t:.1f}' for t in extract_ms[1:])} ms; "
         f"{item.ref_code.shape[0]} frames of codes")
 
-    cases = [("long ICL", long_ref, False, FRAMES, 21), ("short ICL", short_ref, False, 48, 22),
-             ("xvec_only", short_ref, True, 48, 23)]
+    cases = [("long ICL", long_ref, False, FRAMES, 21), ("short ICL", short_ref, False, FRAMES, 22),
+             ("xvec_only", short_ref, True, FRAMES, 23)]
     _reset_launches()
     requests = []
     for name, ref, xvec_only, frames, seed in cases:
@@ -737,7 +808,7 @@ def slice_icl_phase(model, report):
     with tapped_codes(model, []) as codec_ids:
         t0 = time.perf_counter()
         (wav,), sr = model.generate_voice_clone(TEXT, "English", ref_audio=str(long_ref),
-                                                ref_text=REF_TEXT, max_new_tokens=48, seed=24)
+                                                ref_text=REF_TEXT, max_new_tokens=24, seed=24)
         wall = time.perf_counter() - t0
     up = model.config.codec.total_upsample
     n = codec_ids[0].shape[0]
@@ -764,7 +835,9 @@ def slice_icl_phase(model, report):
 
 def slice_phase(quant, n_requests, report, icl=False):
     """x-vector requests on the full-width model, then (icl) the ICL
-    requests on the same model. -> launches of each path."""
+    requests, then the lockstep batches (and for Q8_0 the continuous
+    batcher) on the same model. -> launches of the solo, ICL and batch
+    paths."""
     import torch
 
     from faster_qwen3_tts_tpu_torch.model import FasterQwen3TTS
@@ -797,13 +870,19 @@ def slice_phase(quant, n_requests, report, icl=False):
                                 "launches": launches,
                                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     icl_launches = slice_icl_phase(model, report) if icl else None
+    phase(f"batch {quant}")
+    batch = slice_batch_phase(model, quant, report)
+    if quant == "Q8_0":
+        phase(f"continuous {quant}")
+        cont = continuous_phase(model, report, REPO / "build" / "chip_smoke_ref_4s.wav")
+        batch = {k: batch[k] + cont[k] for k in batch}
     del model
     gc.collect()  # each slice's peak memory is its own
     torch.cuda.empty_cache()
-    return launches, icl_launches
+    return launches, icl_launches, batch
 
 
-def run_non_streaming(model, method, args, seed, frames=48):
+def run_non_streaming(model, method, args, seed, frames=24):
     """One non-streaming CustomVoice / VoiceDesign request; the decode of the
     whole sequence gives exactly frames * upsample - deficit samples."""
     import numpy as np
@@ -864,8 +943,7 @@ def slice_17b_phase(report):
     cv, vd = "generate_custom_voice", "generate_voice_design"
     streams = [("CustomVoice aiden/English", model, cv, (TEXT, "aiden", "English"), 31),
                ("CustomVoice dylan/Chinese", model, cv, (TEXT, "dylan", "Chinese"), 32),
-               ("VoiceDesign 1", design, vd, (TEXT, DESIGN, "English"), 33),
-               ("VoiceDesign 2", design, vd, (TEXT, DESIGN, "English"), 34),
+               ("VoiceDesign", design, vd, (TEXT, DESIGN, "English"), 33),
                ("Base x-vector", base, "generate_voice_clone", (TEXT, "English"), 35)]
     non_streaming = [("CustomVoice aiden/English", model, cv, (TEXT, "aiden", "English"), 36),
                      ("VoiceDesign", design, vd, (TEXT, DESIGN, "English"), 37)]
@@ -904,6 +982,415 @@ def slice_17b_phase(report):
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+# -- many streams on one engine batch ---------------------------------------------------------------
+
+BATCH_TEXTS = ["The quick brown fox jumps over the lazy dog today.", "Please leave the parcel by the door.",
+               "Our next train leaves at half past nine.", "She sells sea shells by the sea shore.",
+               "Turn left at the second light, then keep right.", "The meeting moved to Thursday morning.",
+               "A warm cup of tea settles the mind.", "Rain is expected later this evening."]
+
+
+def _xvec_prompt(seed):
+    import numpy as np
+
+    return {"ref_spk_embedding": [np.random.default_rng(seed).standard_normal(2048).astype(np.float32)]}
+
+
+@contextlib.contextmanager
+def tapped_lanes(rec):
+    """For the block, keep in rec["lanes"][s] the valid token frames of lane s
+    of each lockstep batch, in rec["steps"] the frames decoded, in
+    rec["start"] the kernel launches counted when the engine began (after
+    the prompts were built), and in rec["logits0"] lane 0's prefill logits."""
+    from faster_qwen3_tts_tpu_torch.engine import core
+    from faster_qwen3_tts_tpu_torch.engine import generate as gen_lib
+
+    real, start_state = gen_lib.fast_generate_streaming_batch, core.start_state
+    rec.update(lanes={}, steps=0)
+
+    def prefill(*a, **k):
+        state, logits = start_state(*a, **k)
+        rec["logits0"] = logits[0].float().clone()  # read after the run
+        return state, logits
+
+    def recording(*a, **k):
+        rec["start"] = _read_launches()
+        for item in real(*a, **k):
+            frames, valid = item[0], item[1]
+            for s in range(frames.shape[1]):
+                rec["lanes"].setdefault(s, []).append(frames[valid[:, s], s])
+            rec["steps"] += frames.shape[0]
+            yield item
+
+    gen_lib.fast_generate_streaming_batch, core.start_state = recording, prefill
+    try:
+        yield rec
+    finally:
+        gen_lib.fast_generate_streaming_batch, core.start_state = real, start_state
+
+
+@contextlib.contextmanager
+def tapped_reads():
+    """For the block, keep the engine's host reads in order: rec["solo"] the
+    B=1 reads (admission chunks), rec["batch"] the last pool read."""
+    from faster_qwen3_tts_tpu_torch.engine import core
+
+    rec = {"solo": [], "batch": None}
+    solo, batch = core.read_packed, core.read_packed_batch
+
+    def read_solo(packed):
+        out = solo(packed)
+        rec["solo"].append(out[0])
+        return out
+
+    def read_batch(packed):
+        rec["batch"] = batch(packed)
+        return rec["batch"]
+
+    core.read_packed, core.read_packed_batch = read_solo, read_batch
+    try:
+        yield rec
+    finally:
+        core.read_packed, core.read_packed_batch = solo, batch
+
+
+def batcher_tokens(rec, sid_tokens, sid, timing):
+    """File the token frames behind one yield of a ContinuousBatcher."""
+    v = timing["chunk_steps"]
+    if timing.get("solo_first_chunk"):
+        frames = rec["solo"].pop(0)[:v]
+    elif v:
+        f, valid, _ = rec["batch"]
+        frames = f[:, timing["slot"]][valid[:, timing["slot"]]][:v]
+    else:
+        return
+    sid_tokens.setdefault(sid, []).append(frames)
+
+
+@contextlib.contextmanager
+def shape_tally(tally):
+    """For the block, count K1 launches by lane count and K2 launches by row
+    count (the engine's calls of the two wrappers)."""
+    from faster_qwen3_tts_tpu_torch.models import layers
+    from faster_qwen3_tts_tpu_torch.ops import quant as quant_ops
+
+    attn, gemv = layers.decode_attention, quant_ops.int8_gemv
+
+    def attn_counted(q, *a):
+        tally.setdefault("K1", {}).setdefault(q.shape[0], 0)
+        tally["K1"][q.shape[0]] += 1
+        return attn(q, *a)
+
+    def gemv_counted(x, q, scale):
+        m = x.numel() // x.shape[-1]
+        tally.setdefault("K2", {}).setdefault(m, 0)
+        tally["K2"][m] += 1
+        return gemv(x, q, scale)
+
+    # int8_gemv counts its launches on the module's name for it: keep the count
+    gemv_counted.launches = gemv.launches
+    layers.decode_attention, quant_ops.int8_gemv = attn_counted, gemv_counted
+    try:
+        yield tally
+    finally:
+        layers.decode_attention, quant_ops.int8_gemv = attn, gemv
+        gemv.launches = gemv_counted.launches
+
+
+def reference_batch_phase(report, tiny_dir, devices=("cpu", "cuda")):
+    """Many streams at the tiny geometry, float32 activations, Q8_0
+    weights, greedy: a lockstep batch of an x-vector, a long-reference (30 frames)
+    and a short-reference (6 frames) ICL request, and a ContinuousBatcher
+    (2 slots) with a late joiner and a reused slot. On each device every
+    lane's tokens equal its own solo stream's; the card's tokens equal the
+    CPU's and its audio is within 1e-4."""
+    import numpy as np
+
+    from faster_qwen3_tts_tpu_torch.model import FasterQwen3TTS
+
+    def icl(seed, n):
+        rng = np.random.default_rng(seed)
+        return {"ref_spk_embedding": [rng.standard_normal(2048).astype(np.float32)],
+                "x_vector_only_mode": [False], "icl_mode": [True],
+                "ref_code": [rng.integers(0, 2048, size=(n, 16)).astype(np.int32)]}
+
+    lock_reqs = [{"text": "Hello from lane zero.", "voice_clone_prompt": _xvec_prompt(0), "xvec_only": True},
+                 {"text": "A long reference in lane one.", "voice_clone_prompt": icl(1, 30), "ref_text": REF_TEXT},
+                 {"text": "Short reference, lane two.", "voice_clone_prompt": icl(2, 6), "ref_text": REF_TEXT}]
+    # (request, budget): the first runs past 24 frames (the device vocode), the
+    # second joins late and ends first, the third waits and reuses its slot
+    cont_reqs = [({"text": "The first stream runs longest.", "voice_clone_prompt": _xvec_prompt(3),
+                   "xvec_only": True}, 40),
+                 ({"text": "A late joiner.", "voice_clone_prompt": _xvec_prompt(4), "xvec_only": True}, 16),
+                 ({"text": "It waits for a free lane.", "voice_clone_prompt": icl(5, 6), "ref_text": REF_TEXT}, 24)]
+    greedy = dict(do_sample=False, subtalker_dosample=False, seed=0)
+    frames_n = 36
+
+    def solo(model, req, budget, min_new):
+        with tapped_frames(model, []) as toks:
+            audio = [a for a, _, _ in model.generate_voice_clone_streaming(
+                req["text"], "English", voice_clone_prompt=req["voice_clone_prompt"],
+                ref_text=req.get("ref_text", ""), xvec_only=req.get("xvec_only", False),
+                max_new_tokens=budget, min_new_tokens=min_new, chunk_size=CHUNK,
+                first_chunk_size=FIRST_CHUNK, **greedy)]
+        return np.concatenate(toks), np.concatenate(audio)
+
+    runs = []
+    for device in devices:
+        model = FasterQwen3TTS.from_pretrained(str(tiny_dir), device=device, dtype="float32", quant="Q8_0",
+                                               max_seq_len=256, seed=0)
+        with tapped_lanes({}) as rec:
+            out = list(model.generate_voice_clone_streaming_batch(
+                lock_reqs, chunk_size=CHUNK, first_chunk_size=FIRST_CHUNK, max_new_tokens=frames_n,
+                min_new_tokens=frames_n, **greedy))
+        lock = {s: (np.concatenate(rec["lanes"][s]), np.concatenate([a for sl, a, _, _ in out if sl == s]))
+                for s in range(len(lock_reqs))}
+        for s, req in enumerate(lock_reqs):
+            toks, _ = solo(model, req, frames_n, frames_n)
+            if toks.shape != lock[s][0].shape or not (toks == lock[s][0]).all():
+                fail(f"reference batch ({device}): lockstep lane {s} differs from its solo stream")
+        cb = model.continuous_batcher(max_slots=2, chunk_size=CHUNK, first_chunk_size=FIRST_CHUNK,
+                                      min_new_tokens=40, **greedy)
+        cb.submit(cont_reqs[0][0], max_new_tokens=cont_reqs[0][1])
+        sid_tokens, sid_audio, slots, finals = {}, {}, {}, {}
+        with tapped_reads() as reads:
+            for sid, audio, _sr, t in cb.run():
+                batcher_tokens(reads, sid_tokens, sid, t)
+                sid_audio.setdefault(sid, []).append(audio)
+                slots.setdefault(sid, t["slot"])
+                if t["is_final"]:
+                    finals[sid] = t
+                if sid == 0 and t["chunk_index"] == 1 and len(slots) == 1:
+                    for req, budget in cont_reqs[1:]:
+                        cb.submit(req, max_new_tokens=budget)
+        if sorted(finals) != [0, 1, 2] or slots[2] != slots[1]:
+            fail(f"reference batch ({device}): continuous run ended {sorted(finals)}, slots {slots}")
+        cont = {sid: (np.concatenate(sid_tokens[sid]), np.concatenate(sid_audio[sid])) for sid in finals}
+        for sid, (req, budget) in enumerate(cont_reqs):
+            toks, _ = solo(model, req, budget, 40)
+            if toks.shape != cont[sid][0].shape or not (toks == cont[sid][0]).all():
+                fail(f"reference batch ({device}): continuous stream {sid} differs from its solo stream")
+        runs.append((lock, cont))
+        del model, cb
+    (cpu_lock, cpu_cont), (gpu_lock, gpu_cont) = runs
+    rows = []
+    for name, cpu, gpu in (("lockstep lane", cpu_lock, gpu_lock), ("continuous stream", cpu_cont, gpu_cont)):
+        for key in cpu:
+            (tc, ac), (tg, ag) = cpu[key], gpu[key]
+            same = tc.shape == tg.shape and bool((tc == tg).all())
+            err = float(np.abs(ac - ag).max()) if ac.shape == ag.shape and ac.size else float("inf")
+            rows.append({"case": f"{name} {key}", "frames": int(tg.shape[0]), "tokens_equal": same,
+                         "audio_max_abs_diff": err})
+            log(f"reference batch {name} {key} (tiny f32 Q8_0, greedy): {tg.shape[0]} frames equal to CPU: "
+                f"{same}, to its solo stream: True; audio max abs diff {err:.3e} (tolerance 1e-4)")
+            if not same or not err <= 1e-4:
+                fail(f"reference batch {name} {key}: the card disagrees with the CPU plain path")
+    report["reference_batch"] = rows
+
+
+def lockstep_run(model, requests, frames, greedy=True):
+    """One lockstep batch of `frames` frames a lane through
+    `generate_voice_clone_streaming_batch` -> (record, lane tokens)."""
+    import numpy as np
+    import torch
+
+    from faster_qwen3_tts_tpu_torch.engine.fused_stream import codec_deficit
+
+    kw = dict(do_sample=False, subtalker_dosample=False) if greedy else {}
+    B = len(requests)
+    first, chunks = {}, {s: [] for s in range(B)}
+    _reset_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with tapped_lanes({}) as rec:
+        for s, audio, sr, t in model.generate_voice_clone_streaming_batch(
+                requests, chunk_size=CHUNK, first_chunk_size=FIRST_CHUNK, max_new_tokens=frames,
+                min_new_tokens=frames, seed=1, **kw):
+            first.setdefault(s, (time.perf_counter() - t0) * 1000.0)
+            chunks[s].append(audio)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # the engine's launches: prompt building also runs K2 on short text pieces
+    launches = {k: n - rec["start"][k] for k, n in _read_launches().items()}
+    up, D = model.config.codec.total_upsample, codec_deficit(model.config.codec)
+    samples = []
+    for s in range(B):
+        audio = np.concatenate(chunks[s])
+        n = sum(f.shape[0] for f in rec["lanes"][s])
+        if audio.dtype != np.float32 or not np.isfinite(audio).all() or audio.size != n * up - D:
+            fail(f"lockstep B={B} lane {s}: {audio.size} samples for {n} frames, expected {n * up - D}")
+        samples.append(audio.size)
+    steps = rec["steps"]
+    tokens = [np.concatenate(rec["lanes"][s]) for s in range(B)]
+    return {"logits0": rec["logits0"].cpu(), "B": B, "frames_per_lane": [int(t.shape[0]) for t in tokens],
+            "steps": steps, "wall_s": wall,
+            "ttfa_ms": [first[s] for s in range(B)], "aggregate_rtf": sum(samples) / 24000 / wall,
+            "launches": launches, "launches_per_step": {k: v / steps for k, v in launches.items()}}, tokens
+
+
+def batch_profile(model, requests, report, name):
+    """One B-lane lockstep run of a first chunk and one chunk under
+    torch.profiler (device activity only) -> K1 and K2 device ms and
+    launches per decode step, and the card's busy share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        rec, _ = lockstep_run(model, requests, FIRST_CHUNK + CHUNK)
+    row = _profile_row(prof, rec["steps"], rec["wall_s"])
+    row.update(B=len(requests), counted_launches=rec["launches"])
+    log(f"batch profile, {name}: B={len(requests)}, {rec['steps']} steps, profiled wall "
+        f"{row['wall_ms_per_frame']:.1f} ms/step, device {row['device_ms_per_frame']:.3f} ms/step (busy "
+        f"{row['busy_share']:.1%}); K1 {row['K1']['ms_per_frame']:.3f} ms/step ({row['K1']['launches_per_frame']:.1f} "
+        f"launches, {row['K1']['us_per_launch']:.2f} us each); K2 {row['K2']['ms_per_frame']:.3f} ms/step "
+        f"({row['K2']['launches_per_frame']:.1f} launches, {row['K2']['us_per_launch']:.2f} us each)")
+    if row["K1"]["launches_per_frame"] == 0 or row["K2"]["launches_per_frame"] == 0:
+        fail(f"batch profile {name}: the trace shows no K1 or K2 kernel")
+    report.setdefault("batch_profile", {})[name] = row
+
+
+def continuous_phase(model, report, long_ref):
+    """A ContinuousBatcher(max_slots=8, chunk 8, first chunk 4) answering 12
+    requests (8 x-vector, 4 ICL from a 4.0 s recording) submitted from a
+    thread every 150 ms; one is cancelled at its first audio, one has text
+    over the pool's trailing-text bucket."""
+    import threading
+
+    import numpy as np
+    import torch
+
+    reqs = [{"text": BATCH_TEXTS[i], "voice_clone_prompt": _xvec_prompt(100 + i), "xvec_only": True}
+            for i in range(8)]
+    reqs[5] = dict(reqs[5], text="word " * 400)  # 2000 trailing rows, the pool's bucket is 256
+    reqs += [{"text": BATCH_TEXTS[i], "ref_audio": str(long_ref), "ref_text": REF_TEXT} for i in range(4)]
+    cancel_sid, bad_sid = 2, 5
+    cb = model.continuous_batcher(max_slots=8, chunk_size=CHUNK, first_chunk_size=FIRST_CHUNK,
+                                  max_new_tokens=40, seed=0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_mem = torch.cuda.memory_allocated()
+
+    def feeder():
+        for r in reqs:
+            cb.submit(r)
+            time.sleep(0.15)
+        cb.close()
+
+    _reset_launches()
+    t0 = time.perf_counter()
+    th = threading.Thread(target=feeder, daemon=True)
+    th.start()
+    finals, samples, first = {}, {}, {}
+    with shape_tally({}) as tally:
+        for sid, audio, sr, t in cb.run(wait=True):
+            samples[sid] = samples.get(sid, 0) + audio.size
+            if audio.size and sid not in first:
+                first[sid] = t["ttfa_from_submit_ms"]
+                if sid == cancel_sid:
+                    cb.cancel(sid)
+            if t["is_final"]:
+                if sid in finals:
+                    fail(f"continuous: stream {sid} ended twice")
+                finals[sid] = t
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    th.join(timeout=60)
+    launches = _read_launches()
+    after_mem = torch.cuda.memory_allocated()  # the pool stays with the batcher
+    if th.is_alive() or sorted(finals) != list(range(len(reqs))):
+        fail(f"continuous: streams that ended {sorted(finals)} of {len(reqs)}")
+    if not finals[cancel_sid].get("cancelled") or "error" not in finals[bad_sid]:
+        fail(f"continuous: cancelled terminal {finals[cancel_sid]}, oversized terminal {finals[bad_sid]}")
+    bad = [sid for sid, t in finals.items() if sid not in (cancel_sid, bad_sid)
+           and ("error" in t or "cancelled" in t or not samples[sid])]
+    if bad:
+        fail(f"continuous: streams {bad} ended without audio or with an error")
+    ttfa = sorted(first.values())
+    row = {"requests": len(reqs), "wall_s": wall, "audio_s": sum(samples.values()) / 24000,
+           "aggregate_rtf": sum(samples.values()) / 24000 / wall, "ttfa_from_submit_ms": first,
+           "ttfa_p50_ms": statistics.median(ttfa), "ttfa_max_ms": max(ttfa), "launches": launches,
+           "shapes": tally, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "base_mem_gb": base_mem / 1e9, "after_mem_gb": after_mem / 1e9,
+           "final_keys": {sid: sorted(t) for sid, t in finals.items() if sid in (0, cancel_sid, bad_sid)}}
+    log(f"continuous 0.6B Q8_0: {len(reqs)} requests every 150 ms, 8 slots: {row['audio_s']:.2f} s of audio "
+        f"in {wall:.2f} s, aggregate RTF {row['aggregate_rtf']:.3f}; TTFA from submit p50 "
+        f"{row['ttfa_p50_ms']:.1f} ms, max {row['ttfa_max_ms']:.1f} ms; stream {cancel_sid} cancelled, "
+        f"stream {bad_sid} error; launches {launches}, by shape {tally}; peak memory {row['peak_mem_gb']:.2f} GB "
+        f"(before the run {row['base_mem_gb']:.2f} GB, after it {row['after_mem_gb']:.2f} GB with the pool)")
+    report["continuous_Q8_0"] = row
+    return launches
+
+
+def _agreement(ref, toks):
+    """Leading frames of `toks` [n, 16] against a solo stream's `ref`."""
+    import numpy as np
+
+    n = min(len(ref), len(toks))
+    diff = np.argwhere(ref[:n] != toks[:n])
+    return {"frames": int(n), "equal_frames": int(n - len(np.unique(diff[:, 0]))),
+            "equal_codebook0": int((ref[:n, 0] == toks[:n, 0]).sum()),
+            "first_difference": [int(v) for v in diff[0]] if len(diff) else None}  # [frame, codebook]
+
+
+def slice_batch_phase(model, quant, report):
+    """Lockstep x-vector batches on the full-width model: greedy, 64 frames a
+    lane; Q8_0 at B = 1, 2, 4, 8 (the first 8 frames of each lane against
+    its solo greedy stream; the B = 8 batch again in reverse lane order must
+    give each request the same tokens), BF16 at B = 8. -> launches of these
+    runs."""
+    reqs = [{"text": BATCH_TEXTS[i], "voice_clone_prompt": _xvec_prompt(100 + i), "xvec_only": True}
+            for i in range(8)]
+    sizes = (1, 2, 4, 8) if quant == "Q8_0" else (8,)
+    total = {"K1": 0, "K2": 0}
+    rows, solo = [], {}
+    if quant == "Q8_0":
+        for i, r in enumerate(reqs):
+            rec, toks = run_request(model, seed=1, greedy=True, frames=AGREE_FRAMES, args=(r["text"], "English"),
+                                    voice_clone_prompt=r["voice_clone_prompt"], min_new_tokens=BATCH_FRAMES)
+            solo[i] = (rec, toks)
+        log(f"slice {quant} solo greedy streams: RTF " + ", ".join(f"{solo[i][0]['stream_rtf']:.3f}" for i in solo))
+    for B in sizes:
+        with shape_tally({}) as tally:
+            rec, toks = lockstep_run(model, reqs[:B], BATCH_FRAMES)
+        for k in total:
+            total[k] += rec["launches"][k]
+        rec["shapes"] = tally
+        logits0 = rec.pop("logits0")
+        if solo:  # B = 1 ran first; lane 0 is request 0 at every B
+            ref0 = logits0 if B == 1 else ref0
+            agree = [_agreement(solo[i][1], t) for i, t in enumerate(toks)]
+            rec.update(lane0_prefill_logits_max_abs_diff=float((logits0 - ref0).abs().max()),
+                       lane0_prefill_argmax_equal=bool(logits0.argmax() == ref0.argmax()),
+                       agreement_with_solo=agree)
+        rows.append(rec)
+        log(f"lockstep {quant} B={B}: {rec['steps']} steps, wall {rec['wall_s']:.2f} s, aggregate RTF "
+            f"{rec['aggregate_rtf']:.3f}; TTFA per lane " + ", ".join(f"{x:.0f}" for x in rec["ttfa_ms"]) +
+            f" ms; launches per step K1 {rec['launches_per_step']['K1']:.1f}, K2 "
+            f"{rec['launches_per_step']['K2']:.1f}; by shape {tally}" +
+            (f"; lane 0's prefill logits vs B=1: max abs diff {rec['lane0_prefill_logits_max_abs_diff']:.3e} "
+             f"(of {float(ref0.abs().max()):.3f}), argmax equal {rec['lane0_prefill_argmax_equal']}"
+             "; with solo: equal frames " + ", ".join(f"{a['equal_frames']}/{a['frames']}" for a in agree) +
+             ", equal codebook-0 tokens " + ", ".join(str(a["equal_codebook0"]) for a in agree) +
+             ", first difference (frame, codebook) " + ", ".join(str(a["first_difference"]) for a in agree)
+             if solo else ""))
+    if quant == "Q8_0":
+        per_step = [r["launches_per_step"] for r in rows]
+        if any(p["K1"] > per_step[0]["K1"] or p["K2"] > per_step[0]["K2"] for p in per_step):
+            fail(f"launches per step grew with B: {per_step}")
+        b8 = rows[-1]["shapes"]
+        if set(b8.get("K1", {})) != {8} or not {8, 16} <= set(b8.get("K2", {})):
+            fail(f"B=8: K1 not launched at 8 lanes or K2 not at 8 and 16 rows: {b8}")
+        # lanes are independent: the same requests in reverse lane order get the same tokens
+        _, rtoks = lockstep_run(model, reqs[::-1], AGREE_FRAMES)
+        for i, t in enumerate(rtoks[::-1]):
+            n = min(len(t), len(toks[i]))
+            if n < AGREE_FRAMES or not (t[:n] == toks[i][:n]).all():
+                fail(f"lockstep B=8 in reverse lane order: request {i} got other tokens ({_agreement(toks[i], t)})")
+        log(f"lockstep {quant} B=8 in reverse lane order: every request's {AGREE_FRAMES} frames equal")
+        batch_profile(model, reqs, report, f"0.6B B=8 {quant}")
+    report[f"lockstep_{quant}"] = {"runs": rows, "solo": {i: solo[i][0] for i in solo}}
+    return total
 
 
 def write_report(path, report) -> None:
@@ -954,16 +1441,18 @@ def main() -> None:
         log("chip_smoke: --kernels-only, stopped before the reference and slice phases")
         return
     phase("reference")
-    reference_icl_phase(report, reference_phase(report))
+    tiny_dir = reference_phase(report)
+    reference_icl_phase(report, tiny_dir)
     reference_custom_phase(report)
+    reference_batch_phase(report, tiny_dir)
     phase("slice 0.6B Q8_0 + ICL")
-    q8, icl = slice_phase("Q8_0", 3, report, icl=True)
+    q8, icl, q8_batch = slice_phase("Q8_0", 2, report, icl=True)
     phase("slice BF16")
-    bf16, _ = slice_phase("BF16", 1, report)
-    if q8["K1"] == 0 or q8["K2"] == 0:
-        fail(f"the Q8_0 slice did not go through both kernels: {q8}")
-    if bf16["K1"] == 0:
-        fail(f"the BF16 slice did not go through K1: {bf16}")
+    bf16, _, bf16_batch = slice_phase("BF16", 1, report)
+    if q8["K1"] == 0 or q8["K2"] == 0 or q8_batch["K1"] == 0 or q8_batch["K2"] == 0:
+        fail(f"the Q8_0 slice did not go through both kernels: {q8}, batches {q8_batch}")
+    if bf16["K1"] == 0 or bf16_batch["K1"] == 0:
+        fail(f"the BF16 slice did not go through K1: {bf16}, batch {bf16_batch}")
     phase("slice 1.7B Q8_0")
     q8_17b = slice_17b_phase(report)
     phase("record")
@@ -971,9 +1460,10 @@ def main() -> None:
                     m == "faster_qwen3_tts_tpu" or m.startswith("faster_qwen3_tts_tpu."))
     if jaxish:
         fail(f"the port loaded jax or the JAX package: {jaxish[:8]}")
-    # launches of every slice path: 0.6B Q8_0 x-vector, Q8_0 ICL, BF16
-    # x-vector, 1.7B Q8_0 CustomVoice / VoiceDesign / Base; K3's probe
-    total = {k: q8[k] + icl[k] + bf16[k] + q8_17b[k] for k in q8}
+    # launches of every slice path: 0.6B Q8_0 x-vector, Q8_0 ICL, Q8_0 lockstep
+    # and continuous batches, BF16 x-vector and lockstep batch, 1.7B Q8_0
+    # CustomVoice / VoiceDesign / Base; K3's probe
+    total = {k: q8[k] + icl[k] + q8_batch[k] + bf16[k] + bf16_batch[k] + q8_17b[k] for k in q8}
     total["K3"] = k3_launches
 
     def entry(name, source, replaces, cases, launches, pick):

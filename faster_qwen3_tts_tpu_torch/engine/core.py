@@ -6,7 +6,9 @@ logits, repetition penalty and sampling of the next codebook-0 token.
 `decode_chunk` runs `chunk_size` frames; the stream position, current token,
 done flags, history mask and frame counts stay on the device, so the host
 reads the device once per chunk, on the packed result. The KV cache is
-written in place.
+written in place. Continuous batching writes a B=1 stream into one lane of a
+running batch (`insert_slot`) and ends a lane (`release_slot`) with device
+writes only.
 """
 from __future__ import annotations
 
@@ -92,6 +94,54 @@ def start_state(
         n_frames=torch.zeros((B,), dtype=torch.int32, device=device),
     )
     return state, logits
+
+
+def zeros_state(
+    talker_cfg: TalkerConfig, batch: int, max_seq: int, dtype: torch.dtype, device: torch.device,
+    generator: Optional[torch.Generator],
+) -> DecodeState:
+    """An empty pool of `batch` lanes, every one done (masked) until a stream
+    is inserted. A done lane still runs the frame on its frozen position; its
+    frames are invalid and its cache lane is overwritten on insertion."""
+    L, KV, HD = talker_cfg.num_hidden_layers, talker_cfg.num_key_value_heads, talker_cfg.head_dim
+    i32 = dict(dtype=torch.int32, device=device)
+    return DecodeState(
+        cache=KVCache.zeros(L, batch, max_seq, KV, HD, dtype, device),
+        pos=torch.zeros((batch,), **i32),
+        num_pads=torch.zeros((batch,), **i32),
+        token=torch.zeros((batch,), **i32),
+        past_hidden=torch.zeros((batch, 1, talker_cfg.hidden_size), dtype=dtype, device=device),
+        gen_step=torch.zeros((batch,), **i32),
+        seen=torch.zeros((batch, talker_cfg.vocab_size), dtype=torch.bool, device=device),
+        generator=generator,
+        done=torch.ones((batch,), dtype=torch.bool, device=device),
+        n_frames=torch.zeros((batch,), **i32),
+    )
+
+
+_LANE_FIELDS = ("pos", "num_pads", "token", "past_hidden", "gen_step", "seen", "done", "n_frames")
+
+
+def insert_slot(state: DecodeState, slot_state: DecodeState, slot: int) -> DecodeState:
+    """Write a prefilled B=1 stream into lane `slot` of a running batch state
+    (the continuous-batching primitive): device copies into the pool's own
+    tensors, the KV cache lane included, with no second cache and no host
+    read. `slot_state` must have the pool's max_seq. The pool keeps its own
+    generator, as the JAX pool keeps its key. Returns `state`."""
+    if slot_state.cache.max_seq != state.cache.max_seq:
+        raise ValueError(f"slot cache max_seq {slot_state.cache.max_seq} != pool {state.cache.max_seq}")
+    state.cache.k[:, slot].copy_(slot_state.cache.k[:, 0])
+    state.cache.v[:, slot].copy_(slot_state.cache.v[:, 0])
+    for name in _LANE_FIELDS:
+        getattr(state, name)[slot].copy_(getattr(slot_state, name)[0])
+    return state
+
+
+def release_slot(state: DecodeState, slot: int) -> DecodeState:
+    """Mark lane `slot` done (its frames are invalid until it is reused): a
+    device write, no host read. Returns `state`."""
+    state.done[slot] = True
+    return state
 
 
 def _decode_frame(
@@ -218,3 +268,10 @@ def read_packed(packed: torch.Tensor) -> Tuple[np.ndarray, bool]:
     arr = packed.cpu().numpy()
     valid = arr[:, 0, -2].astype(bool)
     return arr[valid, 0, :-2].astype(np.int32), bool(arr[0, 0, -1])
+
+
+def read_packed_batch(packed: torch.Tensor) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """One device->host read of a `decode_chunk` result, every lane ->
+    (frames [chunk, B, 16] int32, valid [chunk, B] bool, done [B] bool)."""
+    arr = packed.cpu().numpy()
+    return arr[:, :, :-2].astype(np.int32), arr[:, :, -2].astype(bool), arr[0, :, -1].astype(bool)

@@ -52,3 +52,10 @@ def split_fused_output(audio: torch.Tensor, packed: torch.Tensor):
     [n, 16] int32 of stream 0, done)."""
     frames, done = core.read_packed(packed)
     return audio.float().cpu().numpy(), frames, done
+
+
+def split_fused_output_batch(audio: torch.Tensor, packed: torch.Tensor):
+    """One host read of a chunk, every lane -> (audio [B, chunk * up] f32,
+    frames [chunk, B, 16] int32, valid [chunk, B] bool, done [B] bool)."""
+    frames, valid, done = core.read_packed_batch(packed)
+    return audio.float().cpu().numpy(), frames, valid, done

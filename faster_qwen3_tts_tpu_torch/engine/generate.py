@@ -1,10 +1,12 @@
 """Host-side generation drivers over the device engine.
 
-Port of the single-stream parts of faster_qwen3_tts_tpu/engine/generate.py:
-prompt padding buckets, `GenerationSession`, `fast_generate` (non-streaming)
-and `fast_generate_streaming_fused` (streaming; chunks vocoded on the device
+Port of faster_qwen3_tts_tpu/engine/generate.py without its TPU-only
+parts (dispatch-ahead, the mesh, the parity engine): prompt padding buckets,
+`GenerationSession`, `fast_generate` (non-streaming),
+`fast_generate_streaming_fused` (streaming; chunks vocoded on the device
 after their decode, or left to the caller's host vocode while an ICL stream
-with a short reference warms in). The host reads the device once per chunk.
+with a short reference warms in) and `fast_generate_streaming_batch` (B
+streams in lockstep on one batch). The host reads the device once per chunk.
 
 Timing dicts keep the JAX package's keys:
   non-streaming: {prefill_ms, decode_s, steps, ms_per_step, steps_per_s}
@@ -131,6 +133,7 @@ class GenerationSession:
         self.generator = torch.Generator(device=self.device).manual_seed(seed)
         self.max_seq_len = max_seq_len
         self.state: Optional[core.DecodeState] = None
+        self.hist: Optional[torch.Tensor] = None  # [B, ctx, 16] vocoder left context of a batch
         self.prefill_ms = 0.0
 
     def prefill(self, block: bool = True) -> None:
@@ -171,6 +174,30 @@ class GenerationSession:
             self.params["codec"], self.cfg.talker, self.cfg.codec, hist, packed, chunk_size, ctx,
         )
         return fused_stream.split_fused_output(audio, packed)
+
+    # -- every lane of a batch (lockstep streaming) ------------------------------
+
+    def decode_chunk_batch(self, chunk_size: int):
+        """One chunk, read once -> (frames [chunk, B, 16] int32, valid
+        [chunk, B] bool, done [B] bool)."""
+        return core.read_packed_batch(self.decode_chunk_packed(chunk_size))
+
+    def set_codec_history_batch(self, frames_b: np.ndarray, ctx: int) -> None:
+        """Upload every lane's vocoder left context: the last `ctx` frames of
+        frames_b [B, >= ctx, 16] (each lane's own history, or its ICL
+        reference tail)."""
+        self.hist = torch.as_tensor(np.ascontiguousarray(frames_b[:, -ctx:], np.int32)).to(self.device)
+
+    def decode_chunk_fused_batch(self, chunk_size: int, ctx: int):
+        """One chunk plus the window vocode of every lane, read once ->
+        (audio [B, chunk * up] f32, frames [chunk, B, 16], valid [chunk, B],
+        done [B]). ctx > 0 takes the window set by `set_codec_history_batch`."""
+        packed = self.decode_chunk_packed(chunk_size)
+        audio = fused_stream._vocode_window(
+            self.params["codec"], self.cfg.talker, self.cfg.codec, self.hist if ctx > 0 else None,
+            packed, chunk_size, ctx,
+        )
+        return fused_stream.split_fused_output_batch(audio, packed)
 
 
 def fast_generate(
@@ -223,6 +250,107 @@ def fast_generate(
         "steps_per_s": (steps / decode_s) if decode_s > 0 else 0.0,
     }
     return (np.concatenate(chunks, axis=0) if chunks else None), timing
+
+
+def fast_generate_streaming_batch(
+    params,
+    cfg: Qwen3TTSConfig,
+    tie,
+    attention_mask,
+    trailing_text,
+    tts_pad_embed,
+    max_seq_len: int = 2048,
+    max_new_tokens: int = 2048,
+    min_new_tokens: int = 2,
+    temperature: float = 0.9,
+    top_k: int = 50,
+    top_p: float = 1.0,
+    do_sample: bool = True,
+    repetition_penalty: float = 1.05,
+    chunk_size: int = 12,
+    seed: Optional[int] = None,
+    context_frames: int = CONTEXT_FRAMES,
+    first_chunk_size: Optional[int] = None,
+    ref_codes_list: Optional[List[Optional[np.ndarray]]] = None,
+    subtalker_dosample: Optional[bool] = None,
+    subtalker_top_k: Optional[int] = None,
+    subtalker_top_p: Optional[float] = None,
+    subtalker_temperature: Optional[float] = None,
+) -> Generator[Tuple[np.ndarray, np.ndarray, np.ndarray, Optional[np.ndarray], Dict[str, Any]], None, None]:
+    """B independent streams in lockstep on one engine batch.
+
+    tie / attention_mask / trailing_text: [B, ...] stacked left-padded
+    prompts. Yields (frames [chunk, B, 16] int32, valid [chunk, B] bool,
+    done [B] bool, audio [B, chunk * up] f32 or None, timing) once per chunk,
+    each chunk read once. A stream that hit EOS keeps its lane (masked
+    invalid) until every stream has finished; valid is clipped to each
+    stream's token budget.
+
+    The window vocode runs on the device for every lane when every lane is
+    x-vector (ref_codes_list all None: chunk 0 is `fused0`, then the context
+    grows min(decoded, context_frames)) or every lane carries at least
+    context_frames ICL reference frames (ctx = context_frames from chunk 0,
+    over each lane's reference tail). Otherwise chunks are `plain` (audio
+    None) and the caller vocodes each lane on the host. Unlike the JAX
+    package, no chunk is dispatched ahead and there is no mesh."""
+    sess = GenerationSession(
+        params, cfg, tie, attention_mask, trailing_text, tts_pad_embed, max_seq_len,
+        SamplingParams(temperature, top_k, top_p, do_sample, repetition_penalty),
+        predictor_sampling(subtalker_dosample, subtalker_top_k, subtalker_top_p,
+                           subtalker_temperature),
+        min_new_tokens, seed,
+    )
+    B = tie.shape[0]
+    refs = list(ref_codes_list) if ref_codes_list is not None else [None] * B
+    icl_fused = all(r is not None and r.shape[0] >= context_frames for r in refs)
+    use_fused = icl_fused or all(r is None for r in refs)
+    first_cs = first_chunk_size or chunk_size
+    ncg = cfg.talker.num_code_groups
+    # each lane's newest frames (after its reference tail), the next window's context
+    if icl_fused:
+        tail = np.stack([np.asarray(r, np.int32)[-context_frames:] for r in refs], axis=0)
+    else:
+        tail = np.zeros((B, 0, ncg), np.int32)
+    totals = np.zeros(B, np.int64)
+    chunk_index = n_decoded = 0
+    t0 = time.perf_counter()
+    sess.prefill(block=False)  # its time folds into chunk 0's decode_ms
+    while True:
+        cs = first_cs if n_decoded == 0 else chunk_size
+        if not use_fused:
+            kind = "plain"
+            frames, valid, done = sess.decode_chunk_batch(cs)
+            audio = None
+        else:
+            if icl_fused:
+                kind, ctx = "fused", context_frames
+            elif n_decoded == 0:
+                kind, ctx = "fused0", 0
+            else:
+                kind, ctx = "fused", min(n_decoded, context_frames)
+            if ctx > 0:
+                sess.set_codec_history_batch(tail, ctx)
+            audio, frames, valid, done = sess.decode_chunk_fused_batch(cs, ctx)
+            tail = np.concatenate([tail, frames.transpose(1, 0, 2)], axis=1)[:, -context_frames:]
+        n_decoded += cs
+        # clip each stream to its token budget
+        valid = valid & (valid.cumsum(axis=0) + totals[None, :] <= max_new_tokens)
+        totals += valid.sum(axis=0)
+        decode_ms = (time.perf_counter() - t0) * 1000.0
+        stream_done = bool(np.all(done | (totals >= max_new_tokens)))
+        yield frames, valid, done, audio, {
+            "chunk_index": chunk_index,
+            "prefill_ms": sess.prefill_ms if chunk_index == 0 else 0.0,
+            "decode_ms": decode_ms,
+            "total_steps_so_far": totals.copy(),
+            "is_final": stream_done,
+            "fused": kind != "plain",
+            "first_window": kind == "fused0",
+        }
+        chunk_index += 1
+        if stream_done:
+            break
+        t0 = time.perf_counter()
 
 
 def fast_generate_streaming_fused(

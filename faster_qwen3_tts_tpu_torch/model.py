@@ -11,8 +11,11 @@ mode or `xvec_only=True`, or from a precomputed `voice_clone_prompt`),
 `get_supported_speakers`) and `generate_voice_design[_streaming]`
 (VoiceDesign models: the voice described by an instruction). CustomVoice and
 VoiceDesign put the whole text into the prefill unless `non_streaming_mode`
-is False. `parity_mode`, the native-backend cached-reference kwargs and
-batching are not ported yet (ROADMAP queue A).
+is False. Many streams share one engine batch through
+`generate_voice_clone_streaming_batch` (lockstep) and `continuous_batcher`
+(`serving.ContinuousBatcher`: requests join a running pool). `parity_mode`
+and the native-backend cached-reference kwargs are not ported (ROADMAP
+queue A).
 """
 from __future__ import annotations
 
@@ -84,8 +87,53 @@ class SpeechTokenizerFacade:
         return wav[0, :n].cpu().numpy()
 
 
+class _StreamVocoder:
+    """One stream's incremental host vocoder, with the host regimes of a
+    stream: until 24 frames exist, an accumulated decode of every frame so
+    far (ICL reference codes prepended, their share of the samples cut off
+    proportionally); then a fixed 24-frame left-context window emitting the
+    window-local samples [ctx*up - D, (ctx+n)*up - D). It keeps the
+    stream's code history and its emitted-sample count."""
+
+    _CTX = gen_lib.CONTEXT_FRAMES
+
+    def __init__(self, speech_tokenizer: SpeechTokenizerFacade, codec_cfg, ref_codes: Optional[np.ndarray]):
+        self._st = speech_tokenizer
+        self._up = codec_cfg.total_upsample
+        self._deficit = codec_deficit(codec_cfg)
+        self._ref_codes = ref_codes
+        self._codes: List[np.ndarray] = []
+        self._prev_len = 0  # samples emitted, in generated-audio coordinates
+
+    def add_vocoded(self, frames: np.ndarray, n_samples: int) -> None:
+        """Record frames whose `n_samples` samples were vocoded elsewhere (on
+        the device), so that later host chunks continue after them."""
+        self._codes.append(np.asarray(frames, np.int32))
+        self._prev_len += n_samples
+
+    def vocode_new(self, frames: np.ndarray) -> np.ndarray:
+        """Vocode `frames` [n, 16], the stream's newest frames -> their samples."""
+        self._codes.append(np.asarray(frames, np.int32))
+        all_flat = np.concatenate(self._codes, axis=0)
+        n_new = frames.shape[0]
+        ctx, up, D = self._CTX, self._up, self._deficit
+        if all_flat.shape[0] - n_new >= ctx:
+            (audio,), _ = self._st.decode({"audio_codes": all_flat[-(ctx + n_new):][None]})
+            new_audio = audio[ctx * up - D:(ctx + n_new) * up - D]
+            self._prev_len += len(new_audio)
+            return new_audio
+        rc = self._ref_codes
+        codes_in = all_flat if rc is None else np.concatenate([rc, all_flat], axis=0)
+        (audio,), _ = self._st.decode({"audio_codes": codes_in[None]})
+        if rc is not None:
+            audio = audio[int(rc.shape[0] / max(codes_in.shape[0], 1) * len(audio)):]
+        new_audio = audio[self._prev_len:]
+        self._prev_len = len(audio)
+        return new_audio
+
+
 class FasterQwen3TTS:
-    """The PyTorch engine with the JAX package's single-request API."""
+    """The PyTorch engine with the JAX package's API."""
 
     def __init__(self, params: Dict[str, Any], config: Qwen3TTSConfig, tokenizer: PromptTokenizer,
                  max_seq_len: int = 2048):
@@ -494,41 +542,118 @@ class FasterQwen3TTS:
         )
         yield from self._stream_decode(stream, ref_codes)
 
+    def _make_stream_vocoder(self, ref_codes: Optional[np.ndarray]) -> _StreamVocoder:
+        return _StreamVocoder(self._speech_tokenizer, self.config.codec, ref_codes)
+
     def _stream_decode(self, stream, ref_codes: Optional[np.ndarray]):
-        """Relays a stream's audio in three regimes:
-        1. fused chunks: audio already vocoded on the device;
-        2. plain chunks before 24 context frames exist: accumulated decode
-           through the bucketed codec facade, ICL reference codes prepended and
-           their share of the samples cut off proportionally;
-        3. plain chunks after that: a fixed 24-frame left-context window,
-           emitting the window-local samples [ctx*up - D, (ctx+n)*up - D).
-        The JAX package vocodes regimes 2-3 on a worker thread; here they run
-        inline, giving the same samples in the same order."""
-        ctx = gen_lib.CONTEXT_FRAMES
+        """Relays a stream's audio: fused chunks come vocoded on the device;
+        plain chunks go through the stream's host vocoder (`_StreamVocoder`).
+        The JAX package vocodes plain chunks on a worker thread; here they
+        run inline, giving the same samples in the same order."""
+        vocoder = self._make_stream_vocoder(ref_codes)
+        for codec_chunk, fused_audio, timing in stream:
+            if fused_audio is not None:
+                vocoder.add_vocoded(codec_chunk, len(fused_audio))
+                yield fused_audio, self.sample_rate, timing
+            else:
+                yield vocoder.vocode_new(codec_chunk), self.sample_rate, timing
+
+    # -- many streams on one engine batch ----------------------------------------
+
+    def continuous_batcher(self, **kwargs):
+        """A `serving.ContinuousBatcher` over this model: requests join a
+        running pool of lanes at chunk boundaries."""
+        from .serving import ContinuousBatcher
+
+        return ContinuousBatcher(self, **kwargs)
+
+    def generate_voice_clone_streaming_batch(
+        self,
+        requests: List[Dict[str, Any]],
+        chunk_size: int = 8,
+        first_chunk_size: Optional[int] = None,
+        max_new_tokens: int = 2048,
+        min_new_tokens: int = 2,
+        temperature: float = 0.9,
+        top_k: int = 50,
+        top_p: float = 1.0,
+        do_sample: bool = True,
+        repetition_penalty: float = 1.05,
+        seed: Optional[int] = None,
+        subtalker_dosample: Optional[bool] = None,
+        subtalker_top_k: Optional[int] = None,
+        subtalker_top_p: Optional[float] = None,
+        subtalker_temperature: Optional[float] = None,
+    ) -> Generator[Tuple[int, np.ndarray, int, Dict[str, Any]], None, None]:
+        """B voice-clone streams decoded in lockstep on one engine batch.
+
+        requests: dicts with the prompt fields of
+        `generate_voice_clone_streaming`: text (required), language,
+        ref_audio, ref_text, xvec_only, voice_clone_prompt, instruct,
+        append_silence, non_streaming_mode. Sampling and chunk arguments are
+        shared by the batch. Yields (slot, audio_chunk f32, sample_rate,
+        timing) in chunk order; a slot stops appearing once its stream hit
+        EOS. Every lane is vocoded on the device when all are x-vector or
+        all carry >= 24 ICL reference frames; a mixed batch vocodes each lane
+        with its own host vocoder."""
+        if not requests:
+            return
+        prepared = []
+        for r in requests:
+            nsm = self._resolve_non_streaming_mode(r.get("non_streaming_mode"), default=False)
+            prepared.append(self._prepare_generation(
+                text=r["text"], language=r.get("language", "English"), ref_audio=r.get("ref_audio"),
+                ref_text=r.get("ref_text", ""), xvec_only=bool(r.get("xvec_only", False)),
+                non_streaming_mode=nsm, append_silence=bool(r.get("append_silence", True)),
+                voice_clone_prompt=r.get("voice_clone_prompt"), instruct=r.get("instruct"),
+            ))
+        B = len(prepared)
+        H = self.config.talker.hidden_size
+        bucket = gen_lib.prefill_bucket(max(p[0].shape[1] for p in prepared), self.max_seq_len)
+        tbucket = gen_lib.tth_bucket(max(p[2].shape[1] for p in prepared))
+        tie = np.zeros((B, bucket, H), np.float32)
+        mask = np.zeros((B, bucket), np.int32)
+        tth = np.zeros((B, tbucket, H), np.float32)
+        tpe = np.asarray(prepared[0][3], np.float32)  # the pad embedding is the model's
+        ref_codes: List[Optional[np.ndarray]] = []
+        for s, (tie_s, tam_s, tth_s, tpe_s, rc) in enumerate(prepared):
+            P = tie_s.shape[1]
+            tie[s, bucket - P:] = tie_s[0]
+            mask[s, bucket - P:] = tam_s[0]
+            tth[s] = gen_lib._pad_trailing(np.asarray(tth_s, np.float32), tpe_s, tbucket)[0]
+            ref_codes.append(rc)
+        stream = gen_lib.fast_generate_streaming_batch(
+            self.params, self.config, tie, mask, tth, tpe, max_seq_len=self.max_seq_len,
+            max_new_tokens=max_new_tokens, min_new_tokens=min_new_tokens, temperature=temperature,
+            top_k=top_k, top_p=top_p, do_sample=do_sample, repetition_penalty=repetition_penalty,
+            chunk_size=chunk_size, first_chunk_size=first_chunk_size, seed=seed,
+            ref_codes_list=ref_codes, subtalker_dosample=subtalker_dosample,
+            subtalker_top_k=subtalker_top_k, subtalker_top_p=subtalker_top_p,
+            subtalker_temperature=subtalker_temperature,
+        )
         up = self.config.codec.total_upsample
         D = codec_deficit(self.config.codec)
-        all_codes: List[np.ndarray] = []
-        prev_len = 0  # samples emitted, in generated-audio coordinates
-        for codec_chunk, fused_audio, timing in stream:
-            all_codes.append(codec_chunk)
-            if fused_audio is not None:
-                prev_len += len(fused_audio)
-                yield fused_audio, self.sample_rate, timing
-                continue
-            all_flat = np.concatenate(all_codes, axis=0)
-            n_new = codec_chunk.shape[0]
-            if all_flat.shape[0] - n_new >= ctx:
-                (audio,), _ = self._speech_tokenizer.decode({"audio_codes": all_flat[-(ctx + n_new):][None]})
-                new_audio = audio[ctx * up - D:(ctx + n_new) * up - D]
-                prev_len += len(new_audio)
-            else:
-                codes_in = all_flat if ref_codes is None else np.concatenate([ref_codes, all_flat], axis=0)
-                (audio,), _ = self._speech_tokenizer.decode({"audio_codes": codes_in[None]})
-                if ref_codes is not None:
-                    audio = audio[int(ref_codes.shape[0] / max(codes_in.shape[0], 1) * len(audio)):]
-                new_audio = audio[prev_len:]
-                prev_len = len(audio)
-            yield new_audio, self.sample_rate, timing
+        vocoders: Optional[List[_StreamVocoder]] = None  # made for the first plain chunk
+        ended = [False] * B
+        for frames, valid, done, audio_b, timing in stream:
+            for s in range(B):
+                if ended[s]:
+                    continue
+                v = int(valid[:, s].sum())
+                if v:
+                    if audio_b is not None:
+                        n_emit = max(v * up - D, 0) if timing["first_window"] else v * up
+                        audio = np.asarray(audio_b[s, :n_emit], np.float32)
+                    else:
+                        if vocoders is None:
+                            vocoders = [self._make_stream_vocoder(rc) for rc in ref_codes]
+                        audio = vocoders[s].vocode_new(frames[valid[:, s], s])
+                    t = dict(timing, slot=s, chunk_steps=v,
+                             total_steps_so_far=int(timing["total_steps_so_far"][s]),
+                             is_final=bool(done[s]) or bool(timing["is_final"]))
+                    yield s, audio, self.sample_rate, t
+                if done[s]:
+                    ended[s] = True
 
     # -- CustomVoice and VoiceDesign -------------------------------------------
 

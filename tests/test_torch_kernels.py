@@ -11,9 +11,11 @@ float32 inputs: 1e-5 (K1) and 1e-4 absolute (K2, sums of up to 128 products
 in another order). K3 returns float32 and differs from its plain version
 only in the order of the f32 sums: 1e-5 relative to the largest output.
 Beyond agreement: K1 on every mask shape the engine builds and some it does
-not (holes, one live slot at the end), K2 at every main-path shape with 1,
-2, 9 and 16 rows, bitwise-equal repeated calls, and both kernels captured in
-one CUDA graph and replayed on new inputs.
+not (holes, one live slot at the end), and at B = 2, 4, 8 with a different
+mask per lane (each lane bitwise equal to its own B=1 launch); K2 at every
+main-path shape with 1, 2, 8, 9 and 16 rows; bitwise-equal repeated calls;
+and both kernels captured in one CUDA graph and replayed on new inputs, at
+B = 1 and at the shapes of an 8-lane pool.
 """
 import numpy as np
 import pytest
@@ -63,6 +65,33 @@ def test_decode_attention_kernel(cuda_device, S, kind):
     torch.testing.assert_close(out.float(), ref, atol=2e-2, rtol=2e-2)
 
 
+# one mask per lane of a batch (continuous batching): a fresh lane's prefix, a
+# left-padded prompt, a full cache, one live slot at the end, a released
+# lane's frozen range, a lane just inserted at slot 0, holes, a mature lane
+LANE_KINDS = [(0, 40), (56, 300), (0, 2048), "last", (5, 133), (0, 1), "holes", (200, 460)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B", [2, 4, 8])
+@pytest.mark.parametrize("S", [2048, 17])
+def test_decode_attention_kernel_batch(cuda_device, B, S):
+    """Lanes of different ages in one launch (grid (cluster, Hkv, B)): each
+    lane against the plain version, and against its own B=1 launch."""
+    g = torch.Generator().manual_seed(B)
+    q = torch.randn(B, 1, 16, 128, generator=g).to(cuda_device, torch.bfloat16)
+    k, v = (torch.randn(B, S, 8, 128, generator=g).to(cuda_device, torch.bfloat16) for _ in range(2))
+    kinds = LANE_KINDS if S == 2048 else [(0, 3), (0, 17), "last", (0, 9), (2, 17), (0, 1), (0, 5), (0, 16)]
+    mask = torch.cat([_mask(S, kind) for kind in kinds[:B]]).to(cuda_device)
+    before = attention.decode_attention.launches
+    out = attention.decode_attention(q, k, v, mask)
+    assert attention.decode_attention.launches == before + 1
+    ref = attention.decode_attention_plain(q.float(), k.float(), v.float(), mask)
+    torch.testing.assert_close(out.float(), ref, atol=2e-2, rtol=2e-2)
+    for b in range(B):
+        solo = attention.decode_attention(q[b:b + 1], k[b:b + 1], v[b:b + 1], mask[b:b + 1])
+        assert torch.equal(out[b:b + 1], solo), b
+
+
 @pytest.mark.cuda
 def test_decode_attention_kernel_float32_tiny_heads(cuda_device):
     """The tiny geometry of the card-vs-CPU reference run: float32, D = 32."""
@@ -89,7 +118,7 @@ def _gemv_inputs(device, M, I, O, seed=0):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [1, 2, 9, 16])
+@pytest.mark.parametrize("M", [1, 2, 8, 9, 16])
 @pytest.mark.parametrize("I, O", GEMV_SHAPES)
 def test_int8_gemv_kernel(cuda_device, M, I, O):
     x, q, scale = _gemv_inputs(cuda_device, M, I, O)
@@ -119,14 +148,26 @@ def test_kernels_are_deterministic(cuda_device):
     assert torch.equal(attention.decode_attention(qa, k, v, mask), attention.decode_attention(qa, k, v, mask))
 
 
+def _batch_attn_inputs(device, B, S, seed=0):
+    g = torch.Generator().manual_seed(seed)
+    return [torch.randn(*shape, generator=g).to(device, torch.bfloat16)
+            for shape in ((B, 1, 16, 128), (B, S, 8, 128), (B, S, 8, 128))]
+
+
+def _batch_mask(B, S, shift):
+    return torch.cat([_mask(S, LANE_KINDS[(b + shift) % len(LANE_KINDS)]) for b in range(B)])
+
+
 @pytest.mark.cuda
-def test_kernels_in_a_cuda_graph(cuda_device):
+@pytest.mark.parametrize("B, M", [(1, 1), (8, 8), (8, 16)], ids=["solo", "batch-M8", "batch-M16"])
+def test_kernels_in_a_cuda_graph(cuda_device, B, M):
     """K1 and K2 captured in one CUDA graph and replayed on new inputs copied
     into the captured buffers give what eager calls give: they keep no state
-    between launches."""
-    x, q, scale = _gemv_inputs(cuda_device, 1, 1024, 3072)
-    qa, k, v = _attn_inputs(cuda_device, 2048)
-    mask = _mask(2048, (0, 40)).to(cuda_device)
+    between launches. Also at the shapes of an 8-lane pool: K1 over 8 lanes
+    with different masks, K2 at 8 and 16 rows."""
+    x, q, scale = _gemv_inputs(cuda_device, M, 1024, 3072)
+    qa, k, v = _batch_attn_inputs(cuda_device, B, 2048)
+    mask = _batch_mask(B, 2048, 0).to(cuda_device) if B > 1 else _mask(2048, (0, 40)).to(cuda_device)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm up (builds, attributes, tensor maps) off the capture
@@ -138,9 +179,10 @@ def test_kernels_in_a_cuda_graph(cuda_device):
         y = quant.int8_gemv(x, q, scale)
         o = attention.decode_attention(qa, k, v, mask)
     for seed, kind in ((5, (56, 300)), (6, "holes")):
-        x2, _, _ = _gemv_inputs(cuda_device, 1, 1024, 3072, seed=seed)
-        q2, k2, v2 = _attn_inputs(cuda_device, 2048, seed=seed)
-        for dst, src in ((x, x2), (qa, q2), (k, k2), (v, v2), (mask, _mask(2048, kind).to(cuda_device))):
+        x2, _, _ = _gemv_inputs(cuda_device, M, 1024, 3072, seed=seed)
+        q2, k2, v2 = _batch_attn_inputs(cuda_device, B, 2048, seed=seed)
+        mask2 = _batch_mask(B, 2048, seed) if B > 1 else _mask(2048, kind)
+        for dst, src in ((x, x2), (qa, q2), (k, k2), (v, v2), (mask, mask2.to(cuda_device))):
             dst.copy_(src)
         graph.replay()
         torch.cuda.synchronize()
