@@ -25,7 +25,9 @@ Phases, each of which fails the run:
    version: error, device ms and GB/s of each, its bound and the library
    call's time;
 5. reference: the port on the card against the port on the CPU (plain
-   versions) at a tiny geometry in float32, greedy: x-vector streams (equal
+   versions) at a tiny geometry in float32, greedy, each model loaded from
+   an own-format checkpoint under build/ (`save_pretrained` of the seeded
+   tree) on both devices: x-vector streams (equal
    tokens); ICL voice clone from a seeded synthetic recording written under
    build/: x-vector (relative 1e-3), reference codes (equal, up to argmin
    ties), streamed tokens (equal) and audio (1e-3); a CustomVoice stream
@@ -35,20 +37,26 @@ Phases, each of which fails the run:
    short-reference ICL request, and a ContinuousBatcher with a late joiner
    and a reused slot: every lane's tokens equal its solo stream's on each
    device, and the card's equal the CPU's, audio within 1e-4;
-6. slice 0.6B Q8_0: `from_pretrained("Qwen/Qwen3-TTS-12Hz-0.6B-Base",
-   quant="Q8_0")` at full width (random weights from a seed), `warmup()`,
+6. cli: `python -m faster_qwen3_tts_tpu_torch.cli clone` on the tiny
+   checkpoint as a subprocess on the card (rc 0, a 24 kHz wav);
+7. checkpoint + slice 0.6B Q8_0: the 0.6B Base tree of `init_numpy(seed=0)`
+   (0.96 B parameters) written by `export_hf_layout` (float32, 3.86 GB)
+   under build/ and loaded by `from_pretrained(dir, quant="Q8_0",
+   strict=True)`: full coverage, every leaf bitwise equal to `materialize`
+   of the same tree; export, load phases and times; the directory is
+   deleted. On that model `warmup()`,
    then two streaming x-vector voice-clone requests (chunk 8, first chunk
    4, 32 frames); checks the audio, that K1 and K2 carried the run, and
    greedy determinism; prints TTFA and stream RTF per request; then one
    24-frame stream under torch.profiler: K1 and K2 device ms and launches
    per frame;
-7. slice ICL on the same Q8_0 model: `create_voice_clone_prompt` timed on a
+8. slice ICL on the same Q8_0 model: `create_voice_clone_prompt` timed on a
    4.0 s recording; ICL streams from `ref_audio` with a long reference
    (~56 frames: every chunk vocoded on the card) and a short one (~19
    frames: host decode with the reference prepended until 24 frames), one
    `xvec_only` stream, one non-streaming ICL request; checks sample counts,
    that K1 and K2 carried these requests, and greedy determinism;
-8. batches on the same Q8_0 model: eight solo greedy x-vector streams,
+9. batches on the same Q8_0 model: eight solo greedy x-vector streams,
    then `generate_voice_clone_streaming_batch` of the same requests at B =
    1, 2, 4, 8 (64 frames a lane): aggregate RTF, TTFA per lane, K1 and K2
    launches per decode step (which must not grow with B), the lanes' row
@@ -61,8 +69,14 @@ Phases, each of which fails the run:
    cancelled at its first audio and one with text over the pool's bucket:
    every stream must end once, those two with `cancelled` and `error`;
    TTFA from submit p50 / max, aggregate RTF, peak memory;
-9. slice BF16: one x-vector request in BF16 (K1 only) and a B = 8 batch;
-10. slice 1.7B Q8_0: `from_pretrained("Qwen/Qwen3-TTS-12Hz-1.7B-CustomVoice",
+10. serve on the same Q8_0 model: `server.make_server(model, continuous=8)`
+   on a thread, an x-vector and an ICL voice from the 4.0 s recording; 4
+   concurrent POSTs (2 wav, 1 pcm, 1 ICL), a bad chunk_size and an unknown
+   response_format (400), a client that closes after its first audio bytes
+   (its lane must be released), GET /health; every 200 body a 24 kHz wav or
+   PCM16 stream, K1 and K2 launched; POST to first audio byte per request;
+11. slice BF16: one x-vector request in BF16 (K1 only) and a B = 8 batch;
+12. slice 1.7B Q8_0: `from_pretrained("Qwen/Qwen3-TTS-12Hz-1.7B-CustomVoice",
    quant="Q8_0")`, `warmup()`, two CustomVoice streams (a plain speaker in
    English, a dialect speaker in Chinese) and one non-streaming request;
    on the same weights VoiceDesign (a stream with an instruction, one
@@ -82,6 +96,7 @@ import argparse
 import contextlib
 import gc
 import json
+import resource
 import statistics
 import subprocess
 import sys
@@ -118,6 +133,7 @@ def log(msg: str) -> None:
 
 
 _START = time.perf_counter()
+CARD = "no card"  # the card's name and power limit as nvidia-smi prints them (set in main)
 
 
 def phase(name: str) -> None:
@@ -603,12 +619,17 @@ def greedy_predictor():
 
 def _tiny_config_dir(name, **over):
     """TINY_CONFIG with top-level overrides and talker keys (`talker_config`),
-    as a config.json under build/ -> its directory."""
-    cfg = dict(TINY_CONFIG, **over)
-    cfg["talker_config"] = dict(TINY_CONFIG["talker_config"], **over.get("talker_config", {}))
+    as an own-format checkpoint under build/ (`save_pretrained` of
+    `init_numpy(cfg, seed=0)`: the weights the seeded init draws) -> its
+    directory."""
+    from faster_qwen3_tts_tpu_torch import weights
+    from faster_qwen3_tts_tpu_torch.config import config_from_dict
+
+    d = dict(TINY_CONFIG, **over)
+    d["talker_config"] = dict(TINY_CONFIG["talker_config"], **over.get("talker_config", {}))
+    cfg = config_from_dict(d)
     path = REPO / "build" / name
-    path.mkdir(parents=True, exist_ok=True)
-    (path / "config.json").write_text(json.dumps(cfg))
+    weights.save_pretrained(str(path), weights.init_numpy(cfg, seed=0), cfg)
     return path
 
 
@@ -780,14 +801,14 @@ def slice_icl_phase(model, report):
     torch.cuda.reset_peak_memory_stats()
     audio, sr = audio_lib.read_wav(long_ref)
     extract_ms = []
-    for _ in range(4):  # the first call also draws the encoders' weights and moves them to the card
+    for _ in range(4):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         (item,) = model.create_voice_clone_prompt((audio, sr), ref_text=REF_TEXT)
         torch.cuda.synchronize()
         extract_ms.append((time.perf_counter() - t0) * 1000.0)
     log(f"slice ICL: create_voice_clone_prompt on a 4.0 s recording: first call {extract_ms[0]:.1f} ms "
-        f"(encoder init included), then {', '.join(f'{t:.1f}' for t in extract_ms[1:])} ms; "
+        f"(the encoders came with the checkpoint), then {', '.join(f'{t:.1f}' for t in extract_ms[1:])} ms; "
         f"{item.ref_code.shape[0]} frames of codes")
 
     cases = [("long ICL", long_ref, False, FRAMES, 21), ("short ICL", short_ref, False, FRAMES, 22),
@@ -834,17 +855,21 @@ def slice_icl_phase(model, report):
 
 
 def slice_phase(quant, n_requests, report, icl=False):
-    """x-vector requests on the full-width model, then (icl) the ICL
+    """The full-width model (Q8_0: loaded from the checkpoint phase's
+    export; BF16: seeded init): x-vector requests, then (icl) the ICL
     requests, then the lockstep batches (and for Q8_0 the continuous
-    batcher) on the same model. -> launches of the solo, ICL and batch
-    paths."""
+    batcher and the server) on the same model. -> launches of the solo, ICL
+    and batch paths (the server's counted with the batches)."""
     import torch
 
     from faster_qwen3_tts_tpu_torch.model import FasterQwen3TTS
 
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    model = FasterQwen3TTS.from_pretrained(MODEL, device="cuda", quant=quant, seed=0)
+    if quant == "Q8_0":  # the checkpoint this slice serves: an HF-layout export of the seeded tree
+        model = checkpoint_phase(report)
+    else:
+        model = FasterQwen3TTS.from_pretrained(MODEL, device="cuda", quant=quant, seed=0)
     load_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     model.warmup(chunk_size=CHUNK, first_chunk_size=FIRST_CHUNK)
@@ -875,11 +900,83 @@ def slice_phase(quant, n_requests, report, icl=False):
     if quant == "Q8_0":
         phase(f"continuous {quant}")
         cont = continuous_phase(model, report, REPO / "build" / "chip_smoke_ref_4s.wav")
-        batch = {k: batch[k] + cont[k] for k in batch}
+        phase("serve 0.6B Q8_0")
+        served = serve_phase(model, report, REPO / "build" / "chip_smoke_ref_4s.wav")
+        batch = {k: batch[k] + cont[k] + served[k] for k in batch}
     del model
     gc.collect()  # each slice's peak memory is its own
     torch.cuda.empty_cache()
     return launches, icl_launches, batch
+
+
+def checkpoint_phase(report):
+    """The 0.6B Base tree of `init_numpy(seed=0)` (float32, 0.96 B parameters)
+    written by the port's `export_hf_layout` under build/, loaded strictly
+    by `from_pretrained(dir, quant="Q8_0", strict=True)`; every loaded leaf
+    must equal, bit for bit, `materialize` of the same tree. The directory
+    is deleted. -> the model."""
+    import shutil
+
+    import torch
+
+    from faster_qwen3_tts_tpu_torch import weights
+    from faster_qwen3_tts_tpu_torch.config import get_config
+    from faster_qwen3_tts_tpu_torch.model import FasterQwen3TTS
+    from faster_qwen3_tts_tpu_torch.utils import safetensors as st
+
+    cfg = get_config(MODEL)
+    path = REPO / "build" / "chip_smoke_hf_0.6b"
+    shutil.rmtree(path, ignore_errors=True)
+    t0 = time.perf_counter()
+    tree = weights.init_numpy(cfg, seed=0)
+    init_s = time.perf_counter() - t0
+    leaves = weights._leaves(tree)
+    n_params, n_leaves = sum(a.size for a in leaves), len(leaves)
+    del leaves
+    t0 = time.perf_counter()
+    weights.export_hf_layout(tree, cfg, str(path))
+    (path / "config.json").write_text(json.dumps(weights._config_to_dict(cfg)))
+    export_s = time.perf_counter() - t0
+    file_gb = (path / "model.safetensors").stat().st_size / 1e9
+    n_tensors = len(st.read_header(path / "model.safetensors")[0])
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = FasterQwen3TTS.from_pretrained(str(path), device="cuda", quant="Q8_0", strict=True)
+    load_s = time.perf_counter() - t0
+    card_gb, card_peak_gb = torch.cuda.memory_allocated() / 1e9, torch.cuda.max_memory_allocated() / 1e9
+    host_peak_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6  # kB: the process's peak so far
+    cov = model.load_coverage
+    full = all(int(v.split("/")[0]) == int(v.split("/")[1]) for k, v in cov.items()
+               if k in ("talker", "predictor", "codec"))
+    if not full or not all(cov[k].startswith("absent") for k in ("speaker_encoder", "codec_encoder")):
+        fail(f"checkpoint: coverage {cov}")
+    t0 = time.perf_counter()
+    ref = weights.materialize(tree, torch.bfloat16, "int8", "cuda")
+    ref_s = time.perf_counter() - t0
+    compared = 0
+    for sub in ("talker", "predictor", "codec"):
+        got, want = weights._leaves(model.params[sub]), weights._leaves(ref[sub])
+        if len(got) != len(want):
+            fail(f"checkpoint: {sub} has {len(got)} leaves, materialize gives {len(want)}")
+        for i, (a, b) in enumerate(zip(got, want)):
+            if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+                fail(f"checkpoint: {sub} leaf {i} ({tuple(a.shape)} {a.dtype}) differs from materialize")
+        compared += len(got)
+    del ref, tree
+    shutil.rmtree(path)
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = {"params": n_params, "leaves": n_leaves, "tensors": n_tensors, "file_gb": file_gb, "init_s": init_s,
+           "export_s": export_s, "load_s": load_s, "card_gb": card_gb, "card_peak_gb": card_peak_gb,
+           "host_peak_rss_gb": host_peak_gb, "load_phases": model.load_phases, "coverage": cov, "materialize_s": ref_s,
+           "leaves_bitwise_equal": compared, "card": CARD}
+    log(f"checkpoint 0.6B Base ({CARD}): init_numpy {init_s:.1f} s, export_hf_layout {export_s:.1f} s "
+        f"({n_params / 1e9:.3f} B parameters, {n_leaves} leaves, {n_tensors} tensors, {file_gb:.2f} GB float32); "
+        f"from_pretrained(strict, Q8_0) {load_s:.1f} s, phases {model.load_phases}, {card_gb:.2f} GB on the card "
+        f"(peak {card_peak_gb:.2f} GB), process peak RSS {host_peak_gb:.1f} GB; coverage {cov}; "
+        f"{compared} leaves bitwise equal to materialize of the same tree ({ref_s:.1f} s)")
+    report["checkpoint_0.6B"] = row
+    return model
 
 
 def run_non_streaming(model, method, args, seed, frames=24):
@@ -1322,6 +1419,154 @@ def continuous_phase(model, report, long_ref):
     return launches
 
 
+SERVE_FRAMES = 48  # frames a served request may take at most (the server's max_new_tokens)
+
+
+def _read_upto(resp, n):
+    """Read n bytes of a response body (fewer at its end)."""
+    buf = b""
+    while len(buf) < n:
+        part = resp.read(n - len(buf))
+        if not part:
+            break
+        buf += part
+    return buf
+
+
+def serve_phase(model, report, long_ref):
+    """The port's server on the loaded checkpoint: `make_server(model,
+    continuous=8)` on a thread, an x-vector voice and an ICL voice from the
+    4.0 s recording; 4 concurrent POSTs (2 wav, 1 pcm, 1 ICL wav), a bad
+    chunk_size and an unknown response_format (400 each), a client that
+    closes after its first audio bytes (its lane must be released), GET
+    /health. -> launches during the requests."""
+    import http.client
+    import socket
+    import threading
+    import urllib.request
+
+    import torch
+
+    from faster_qwen3_tts_tpu_torch import server
+
+    voices = {"xvec": {"ref_audio": str(long_ref), "xvec_only": True},
+              "icl": {"ref_audio": str(long_ref), "ref_text": REF_TEXT}}
+    srv = server.make_server(model, "127.0.0.1", 0, voices=voices, continuous=8, max_new_tokens=SERVE_FRAMES)
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    port = srv.server_address[1]
+
+    def request(body, abort=False):
+        fmt = body.get("response_format", "wav")
+        rec = {"voice": body.get("voice"), "format": fmt}
+        t0 = time.perf_counter()
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        conn.request("POST", "/v1/audio/speech", body=json.dumps(body), headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        rec["status"] = resp.status
+        if resp.status != 200:
+            rec["error"] = json.loads(resp.read())["error"]
+            conn.close()
+            return rec
+        head = 44 if fmt == "wav" else 0
+        first = _read_upto(resp, head + 2)  # the header, then the first sample
+        rec["first_audio_ms"] = (time.perf_counter() - t0) * 1000.0
+        if abort:
+            conn.sock.shutdown(socket.SHUT_RDWR)
+            conn.close()
+            return rec
+        data = first + resp.read()
+        conn.close()
+        rec.update(ms=(time.perf_counter() - t0) * 1000.0, bytes=len(data), audio_s=(len(data) - head) / 2 / 24000)
+        if fmt == "wav":
+            ok = (data[:4] == b"RIFF" and data[8:12] == b"WAVE" and int.from_bytes(data[24:28], "little") == 24000
+                  and int.from_bytes(data[34:36], "little") == 16)
+        else:
+            ok = True
+        pcm = data[head:]
+        if not ok or not pcm or len(pcm) % 2:
+            fail(f"serve: a {fmt} body of {len(data)} bytes is not a 24 kHz wav / PCM16 stream ({data[:44]!r})")
+        return rec
+
+    _reset_launches()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    bodies = [{"input": BATCH_TEXTS[0], "voice": "xvec"},
+              {"input": BATCH_TEXTS[1], "voice": "xvec"},
+              {"input": BATCH_TEXTS[2], "voice": "xvec", "response_format": "pcm"},
+              {"input": BATCH_TEXTS[3], "voice": "icl"}]
+    out = [None] * len(bodies)
+    threads = [threading.Thread(target=lambda i: out.__setitem__(i, request(bodies[i])), args=(i,))
+               for i in range(len(bodies))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if any(r is None or r["status"] != 200 for r in out):
+        fail(f"serve: concurrent requests answered {out}")
+    launches = _read_launches()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    bad = [request({"input": "x", "voice": "xvec", "chunk_size": 5}),
+           request({"input": "x", "voice": "xvec", "response_format": "ogg"})]
+    if [r["status"] for r in bad] != [400, 400]:
+        fail(f"serve: bad requests answered {bad}")
+    aborted = request({"input": BATCH_TEXTS[4], "voice": "xvec"}, abort=True)
+    deadline = time.monotonic() + 120
+    while (srv.continuous.cancelled_streams < 1 or srv.continuous.live_lanes()) and time.monotonic() < deadline:
+        time.sleep(0.01)
+    lanes, cancelled = srv.continuous.live_lanes(), srv.continuous.cancelled_streams
+    with urllib.request.urlopen(f"http://127.0.0.1:{port}/health", timeout=60) as r:
+        health = json.loads(r.read())
+    srv.shutdown()
+    srv.server_close()
+    th.join(timeout=60)
+    if cancelled < 1 or lanes:
+        fail(f"serve: after the client went away {cancelled} streams were cancelled, {lanes} lanes live")
+    if not health.get("continuous") or health.get("max_slots") != 8 or sorted(health["voices"]) != ["icl", "xvec"]:
+        fail(f"serve: health {health}")
+    if launches["K1"] == 0 or launches["K2"] == 0:
+        fail(f"serve: the requests did not go through both kernels: {launches}")
+    row = {"card": CARD, "requests": out, "wall_s": wall, "base_mem_gb": base_gb, "peak_mem_gb": peak_gb,
+           "bad_requests": bad, "aborted": aborted,
+           "cancelled_streams": cancelled, "live_lanes_after": lanes, "health": health, "launches": launches}
+    for r in out:
+        log(f"serve ({CARD}): {r['voice']} {r['format']}: POST to first audio byte {r['first_audio_ms']:.1f} ms, "
+            f"{r['audio_s']:.2f} s of audio in {r['ms'] / 1000:.2f} s")
+    log(f"serve: 4 concurrent requests in {wall:.2f} s, peak device memory {peak_gb:.2f} GB (before "
+        f"{base_gb:.2f} GB); launches {launches}; 400 for "
+        f"{[r['error'] for r in bad]}; aborted client after {aborted['first_audio_ms']:.1f} ms -> "
+        f"{cancelled} stream cancelled, {lanes} lanes live; health {health}")
+    report["serve_0.6B_Q8_0"] = row
+    return launches
+
+
+def cli_phase(report, tiny_dir):
+    """`python -m faster_qwen3_tts_tpu_torch.cli clone` on the tiny own-format
+    checkpoint, on the card, as a subprocess: rc 0 and a 24 kHz wav."""
+    from faster_qwen3_tts_tpu_torch.utils import audio as audio_lib
+
+    ref = write_recording(REPO / "build" / "chip_smoke_ref_4s.wav", 4.0, seed=11)
+    out = REPO / "build" / "cli.wav"
+    out.unlink(missing_ok=True)
+    cmd = [sys.executable, "-m", "faster_qwen3_tts_tpu_torch.cli", "clone", "Hello from the command line.",
+           "--model", str(tiny_dir), "--xvec-only", "--ref-audio", str(ref), "--streaming", "--max-new-tokens", "8",
+           "--seed", "0", "-o", str(out)]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=REPO, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        fail(f"cli: rc {proc.returncode}\n{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+    wav, sr = audio_lib.read_wav(out)
+    if sr != 24000 or not wav.size or not (abs(wav) <= 1.0).all():
+        fail(f"cli: {out} holds {wav.size} samples at {sr} Hz")
+    lines = [ln for ln in proc.stdout.splitlines() if ln.strip()]
+    log(f"cli: {' '.join(cmd[1:4])} ... rc 0 in {wall:.1f} s: {' | '.join(lines)}; {wav.size} samples at {sr} Hz")
+    report["cli"] = {"wall_s": wall, "stdout": lines, "samples": int(wav.size)}
+
+
 def _agreement(ref, toks):
     """Leading frames of `toks` [n, 16] against a solo stream's `ref`."""
     import numpy as np
@@ -1417,7 +1662,8 @@ def main() -> None:
                          capture_output=True, text=True, timeout=60).stdout.strip().splitlines()
     if not smi:
         fail("nvidia-smi printed no name and power limit")
-    card = smi[0]
+    global CARD
+    card = CARD = smi[0]
     log(f"device: {kind}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     log(card)  # name, power limit: as nvidia-smi prints them
     report = {"device": kind, "nvidia_smi": card, "torch": torch.__version__}
@@ -1445,7 +1691,9 @@ def main() -> None:
     reference_icl_phase(report, tiny_dir)
     reference_custom_phase(report)
     reference_batch_phase(report, tiny_dir)
-    phase("slice 0.6B Q8_0 + ICL")
+    phase("cli")
+    cli_phase(report, tiny_dir)
+    phase("checkpoint + slice 0.6B Q8_0 + ICL")
     q8, icl, q8_batch = slice_phase("Q8_0", 2, report, icl=True)
     phase("slice BF16")
     bf16, _, bf16_batch = slice_phase("BF16", 1, report)
@@ -1461,8 +1709,8 @@ def main() -> None:
     if jaxish:
         fail(f"the port loaded jax or the JAX package: {jaxish[:8]}")
     # launches of every slice path: 0.6B Q8_0 x-vector, Q8_0 ICL, Q8_0 lockstep
-    # and continuous batches, BF16 x-vector and lockstep batch, 1.7B Q8_0
-    # CustomVoice / VoiceDesign / Base; K3's probe
+    # and continuous batches and the server's requests, BF16 x-vector and
+    # lockstep batch, 1.7B Q8_0 CustomVoice / VoiceDesign / Base; K3's probe
     total = {k: q8[k] + icl[k] + q8_batch[k] + bf16[k] + bf16_batch[k] + q8_17b[k] for k in q8}
     total["K3"] = k3_launches
 

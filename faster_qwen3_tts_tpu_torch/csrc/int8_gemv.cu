@@ -60,6 +60,7 @@
 #include <cudaTypedefs.h>
 
 #include <cstdint>
+#include <functional>
 #include <mutex>
 #include <unordered_map>
 
@@ -256,15 +257,30 @@ __global__ void __launch_bounds__(kThreads) int8_gemv_kernel(
   }
 }
 
+// What a weight's tensor map depends on, compared whole: two weights (or two
+// views of one buffer) that differ in any of the three get maps of their own.
+struct MapKey {
+  uintptr_t ptr;
+  int I, O;
+  bool operator==(const MapKey& o) const { return ptr == o.ptr && I == o.I && O == o.O; }
+};
+struct MapKeyHash {
+  size_t operator()(const MapKey& k) const {
+    return std::hash<uintptr_t>()(k.ptr) ^ (std::hash<uint64_t>()(((uint64_t)k.I << 32) | (uint32_t)k.O) *
+                                            0x9E3779B97F4A7C15ull);
+  }
+};
+
 // The tensor map of a weight: the [I, O] int8 matrix, boxes of 64 x 128.
-// Built once per (pointer, shape) and cached; the map depends on nothing
-// else, so a reused address with the same shape gets the same, right map.
+// Built once per exact (pointer, I, O) and cached; the map depends on
+// nothing else, so a reused address with the same shape gets the same,
+// right map. The cache is shared by every thread that launches, behind
+// one lock.
 cudaError_t weight_map(const void* q, int I, int O, CUtensorMap* out) {
   static std::mutex mu;
-  static std::unordered_map<uint64_t, CUtensorMap> cache;
+  static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> cache;
   static PFN_cuTensorMapEncodeTiled_v12000 encode = nullptr;
-  const uint64_t key = reinterpret_cast<uint64_t>(q) ^ ((uint64_t)I << 48) ^ ((uint64_t)O << 32) ^
-                       ((uint64_t)I * 0x9E3779B97F4A7C15ull);
+  const MapKey key{reinterpret_cast<uintptr_t>(q), I, O};
   std::lock_guard<std::mutex> lock(mu);
   auto it = cache.find(key);
   if (it != cache.end()) {

@@ -2,8 +2,9 @@
 streaming and not.
 
 A subset of faster_qwen3_tts_tpu/model.py's public API over this port's
-engine, with the JAX package's signatures: `from_pretrained` (seeded random
-init at a published geometry, 0.6B or 1.7B; no download), `warmup`,
+engine, with the JAX package's signatures: `from_pretrained` (an own-format
+or upstream HF checkpoint directory, or seeded random init at a published
+geometry, 0.6B or 1.7B; no download), `warmup`,
 `create_voice_clone_prompt`, `generate_voice_clone[_streaming]` (Base
 models: a voice from a reference recording, `ref_audio` + `ref_text` for ICL
 mode or `xvec_only=True`, or from a precomputed `voice_clone_prompt`),
@@ -21,6 +22,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
+import os
 import time
 from pathlib import Path
 from typing import Any, Dict, Generator, List, Optional, Tuple, Union
@@ -30,7 +32,8 @@ import torch
 
 from faster_qwen3_tts_tpu_torch.config import Qwen3TTSConfig, get_config
 from faster_qwen3_tts_tpu_torch.utils import audio as audio_lib
-from faster_qwen3_tts_tpu_torch.utils.tokenizer import PromptTokenizer, load_tokenizer
+from faster_qwen3_tts_tpu_torch.utils.logging_utils import format_timing
+from faster_qwen3_tts_tpu_torch.utils.tokenizer import ByteTokenizer, PromptTokenizer, load_tokenizer
 
 from . import weights as weights_lib
 from .engine import generate as gen_lib
@@ -41,8 +44,9 @@ from .prompt import PromptBuilder
 
 logger = logging.getLogger(__name__)
 
-_DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16, "fp32": torch.float32,
-           "float32": torch.float32}
+# fp16 maps to bf16, as in the JAX package
+_DTYPES = {"bf16": torch.bfloat16, "bfloat16": torch.bfloat16, "fp16": torch.bfloat16,
+           "fp32": torch.float32, "float32": torch.float32}
 
 
 @dataclasses.dataclass
@@ -165,13 +169,25 @@ class FasterQwen3TTS:
         quant: str = "BF16",
         max_seq_len: int = 2048,
         seed: int = 0,
+        strict: Optional[bool] = None,
     ) -> "FasterQwen3TTS":
-        """Random-init a model at the geometry `config.get_config(model_name)`
-        names, from `seed` (no checkpoint is read or downloaded).
+        """Load a checkpoint directory, or random-init a published geometry.
+
+        model_name: a directory in the own format (`weights.save_pretrained`:
+        model.safetensors with '/' keys + config.json), a directory of
+        upstream HF safetensors (+ config.json; strict unless strict=False:
+        a missing or mismatched tensor raises `weights.StrictLoadError`, and
+        so does a directory with no safetensors at all), or a model id /
+        preset name (`config.get_config`), which random-inits from `seed`.
+        The tokenizer is read from the directory; without its assets, or
+        without `transformers` to read them, the byte tokenizer is used and
+        a warning says so. Nothing is downloaded.
 
         device "cuda" needs a card and raises without one; "cpu" runs the
         kernels' plain versions. quant "BF16" / "Q8_0" (weight-only int8 for
-        the talker and predictor projections)."""
+        the talker and predictor projections). The model's `load_phases`
+        holds the seconds of weights_read, quantize and device_transfer, and
+        `load_coverage` an HF checkpoint's per-submodel coverage."""
         device = torch.device(device)
         if device.type == "cuda":
             if not torch.cuda.is_available():
@@ -180,12 +196,48 @@ class FasterQwen3TTS:
             raise ValueError(f"unsupported device {device}")
         if isinstance(dtype, str):
             dtype = _DTYPES[dtype.lower()]
-        config = get_config(model_name)
-        logger.warning("Random-initialized weights for %s (seed %d).", model_name, seed)
-        params = weights_lib.init_all(
-            config, seed=seed, dtype=dtype, device=device, quant=quant_lib.resolve_quant_name(quant)
-        )
-        return cls(params, config, PromptTokenizer(load_tokenizer(None)), max_seq_len=max_seq_len)
+        mode = quant_lib.resolve_quant_name(quant)
+        load_phases: Dict[str, float] = {}
+        last = [time.perf_counter()]
+
+        def mark(name: str) -> None:
+            now = time.perf_counter()
+            load_phases[name] = round(now - last[0], 3)
+            last[0] = now
+
+        is_dir = os.path.isdir(model_name)
+        coverage: Dict[str, str] = {}
+        if is_dir and weights_lib.is_own_checkpoint(model_name):
+            tree, config = weights_lib.load_pretrained(model_name)
+        elif is_dir:
+            config = get_config(model_name)
+            tree = weights_lib.load_hf_checkpoint(
+                model_name, config, dtype=dtype, strict=True if strict is None else strict,
+                coverage=coverage)
+        else:
+            config = get_config(model_name)
+            logger.warning("No local checkpoint for %s; using random-initialized weights (seed %d).",
+                           model_name, seed)
+            tree = weights_lib.init_numpy(config, seed)
+        tokenizer = PromptTokenizer(load_tokenizer(model_name if is_dir else None))
+        if is_dir and isinstance(tokenizer.base, ByteTokenizer):
+            has_assets = any(os.path.exists(os.path.join(model_name, f))
+                             for f in ("tokenizer.json", "tokenizer_config.json", "vocab.json"))
+            logger.warning(
+                "%s: %s; falling back to the BYTE tokenizer: fine for random-init weights, wrong "
+                "for a real checkpoint.", model_name,
+                "its tokenizer assets need `transformers`, which is not installed" if has_assets
+                else "no tokenizer assets (tokenizer.json / vocab.json)")
+        mark("weights_read")
+        params = weights_lib.materialize(tree, dtype, mode, device, mark=mark)
+        del tree
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        mark("device_transfer")
+        model = cls(params, config, tokenizer, max_seq_len=max_seq_len)
+        model.load_phases = load_phases
+        model.load_coverage = coverage  # per submodel, for an HF checkpoint
+        return model
 
     def warmup(self, chunk_size: int = 8, first_chunk_size: int = 4) -> None:
         """Run one short greedy stream so that the kernels are built and
@@ -418,10 +470,7 @@ class FasterQwen3TTS:
         return outs, sr
 
     def _log_rtf(self, timing: Dict[str, Any]) -> None:
-        audio_s = timing["steps"] / self.config.frame_rate
-        total = timing["prefill_ms"] / 1000 + timing["decode_s"]
-        logger.info("Generated %.2fs audio in %.2fs (%.1fms/step, RTF: %.2f)", audio_s, total,
-                    timing["ms_per_step"], audio_s / total if total > 0 else 0)
+        logger.info("%s", format_timing(timing, self.config.frame_rate))
 
     # -- generation ----------------------------------------------------------
 

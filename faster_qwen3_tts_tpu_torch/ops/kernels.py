@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Optional
@@ -67,6 +68,7 @@ class KernelLibrary:
 
 
 _LIB: Optional[KernelLibrary] = None
+_LIB_LOCK = threading.Lock()  # the first launches may come from several threads (the server)
 
 
 def _nvcc() -> str:
@@ -89,9 +91,14 @@ def _source_hash() -> str:
 
 def library() -> KernelLibrary:
     """Build (once per source version) and load the kernel library."""
-    global _LIB
     if _LIB is not None:
         return _LIB
+    with _LIB_LOCK:
+        return _LIB if _LIB is not None else _build()
+
+
+def _build() -> KernelLibrary:
+    global _LIB
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     target = BUILD_DIR / f"libfq3t_kernels-{_source_hash()}.so"
     t0 = time.perf_counter()

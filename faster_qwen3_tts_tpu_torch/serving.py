@@ -130,6 +130,10 @@ class ContinuousBatcher:
         """No further submits: run(wait=True) drains and returns."""
         self._closed = True
 
+    def active(self) -> int:
+        """Lanes that hold a stream now (readable from any thread)."""
+        return sum(s is not None for s in self._slots)
+
     def cancel(self, sid: int) -> None:
         """Release a stream's lane at the next chunk boundary (the client
         went away). Unknown or finished sids are ignored. The pump yields

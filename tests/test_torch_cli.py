@@ -1,0 +1,97 @@
+"""The port's command line (faster_qwen3_tts_tpu_torch/cli.py): the parse and
+validation cases of tests/test_cli.py (less --backend, --aot-cache and
+bundle, which are not ported), the flags it passes to from_pretrained, and
+one `clone` run end to end on the CPU from a tiny own-format checkpoint."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from faster_qwen3_tts_tpu_torch import cli
+from faster_qwen3_tts_tpu_torch.cli import build_parser
+
+torch.set_num_threads(1)
+
+
+def test_clone_flags_parse():
+    args = build_parser().parse_args([
+        "clone", "hello world", "--ref-audio", "ref.wav", "--ref-text", "hi", "--quant", "Q8_0",
+        "--streaming", "--chunk-size", "4", "--xvec-only", "--language", "French"])
+    assert args.command == "clone" and args.quant == "Q8_0"
+    assert args.streaming and args.chunk_size == 4 and args.xvec_only
+    assert args.language == "French"
+    assert args.device == "cuda" and args.strict is None and args.append_silence
+
+
+def test_custom_and_design_flags():
+    ap = build_parser()
+    assert ap.parse_args(["custom", "--list-speakers"]).list_speakers
+    assert ap.parse_args(["design", "text", "--instruct", "warm narrator"]).instruct == "warm narrator"
+    s = ap.parse_args(["serve", "--mode", "custom", "--speaker", "aiden"])
+    assert s.mode == "custom" and s.speaker == "aiden"
+
+
+@pytest.mark.parametrize("argv", [["clone", "hi", "--backend", "jax"], ["clone", "hi", "--aot-cache", "d"],
+                                  ["clone", "hi", "--attn", "xla"], ["bundle", "out"]])
+def test_unported_flags_are_refused(argv):
+    with pytest.raises(SystemExit):
+        build_parser().parse_args(argv)
+
+
+def test_clone_requires_ref(capsys):
+    ap = build_parser()
+    assert cli.cmd_clone(ap.parse_args(["clone", "hello"])) == 2
+    assert "ref-audio" in capsys.readouterr().err
+    assert cli.cmd_clone(ap.parse_args(["clone", "hello", "--ref-audio", "x.wav"])) == 2  # ICL without ref text
+    assert "ref-text" in capsys.readouterr().err
+
+
+def test_design_requires_instruct():
+    with pytest.raises(SystemExit):
+        build_parser().parse_args(["design", "text"])
+
+
+@pytest.mark.parametrize("flag, strict", [([], None), (["--strict"], True), (["--no-strict"], False)])
+def test_load_flags_reach_from_pretrained(monkeypatch, flag, strict):
+    seen = {}
+
+    def fake(model, **kw):
+        seen.update(kw, model=model)
+        raise RuntimeError("stop before the model is built")
+
+    monkeypatch.setattr("faster_qwen3_tts_tpu_torch.model.FasterQwen3TTS.from_pretrained", fake)
+    args = build_parser().parse_args(["clone", "hi", "--ref-audio", "r.wav", "--xvec-only", "--model", "ckpt",
+                                      "--device", "cpu", "--dtype", "fp32", "--quant", "Q8_0", *flag])
+    with pytest.raises(RuntimeError, match="stop before"):
+        cli._load_model(args)
+    assert seen == {"model": "ckpt", "device": "cpu", "dtype": "fp32", "quant": "Q8_0", "max_seq_len": 2048,
+                    "strict": strict}
+
+
+def test_int4_is_not_ported():
+    args = build_parser().parse_args(["clone", "hi", "--ref-audio", "r.wav", "--xvec-only", "--quant", "Q4_K_M",
+                                      "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="not ported"):
+        cli._load_model(args)
+
+
+def test_clone_end_to_end_on_the_cpu(tmp_path, capsys):
+    """`clone --xvec-only --streaming` from a tiny own-format checkpoint
+    writes a 24 kHz wav of whole frames."""
+    from faster_qwen3_tts_tpu_torch import weights
+    from faster_qwen3_tts_tpu_torch.config import tiny_test_config
+    from faster_qwen3_tts_tpu_torch.utils import audio
+
+    cfg = dataclasses.replace(tiny_test_config(), tts_bos_token_id=300, tts_eos_token_id=301,
+                              tts_pad_token_id=302)
+    weights.save_pretrained(str(tmp_path / "ckpt"), weights.init_numpy(cfg, seed=0), cfg)
+    ref = tmp_path / "ref.wav"
+    audio.write_wav(ref, (0.3 * np.sin(np.arange(24000) / 20)).astype(np.float32), 24000)
+    out = tmp_path / "out.wav"
+    rc = cli.main(["clone", "Hello from the command line.", "--model", str(tmp_path / "ckpt"), "--xvec-only",
+                   "--ref-audio", str(ref), "--streaming", "--max-new-tokens", "8", "--seed", "0",
+                   "--device", "cpu", "--dtype", "fp32", "-o", str(out)])
+    assert rc == 0 and "TTFA" in capsys.readouterr().out
+    wav, sr = audio.read_wav(out)
+    assert sr == 24000 and 0 < wav.size <= 8 * 1920 and np.isfinite(wav).all()

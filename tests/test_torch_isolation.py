@@ -26,7 +26,9 @@ MODEL_NAMES = ["Qwen/Qwen3-TTS-12Hz-0.6B-Base", "Qwen/Qwen3-TTS-12Hz-1.7B-Base",
 def test_port_runs_without_jax_or_the_jax_package(tmp_path):
     """In a fresh interpreter: import every module of the port, then run tiny
     CPU generations (x-vector, ICL from a wav, CustomVoice, VoiceDesign)
-    built only from the port's config, tokenizer and audio helpers."""
+    built only from the port's config, tokenizer and audio helpers; load an
+    own-format and an HF checkpoint and bind the server. Neither jax, the
+    JAX package, safetensors, aiohttp nor ml_dtypes is loaded."""
     script = tmp_path / "run.py"
     script.write_text(
         "import dataclasses, importlib, pkgutil, sys\n"
@@ -42,6 +44,7 @@ def test_port_runs_without_jax_or_the_jax_package(tmp_path):
         "torch.set_num_threads(1)\n"
         "cfg = dataclasses.replace(tiny_test_config(), tts_bos_token_id=300,\n"
         "                          tts_eos_token_id=301, tts_pad_token_id=302)\n"
+        "m0 = weights.init_all(cfg, dtype=torch.float32, device='cpu')\n"
         "m = FasterQwen3TTS(weights.init_all(cfg, dtype=torch.float32, quant='int8', device='cpu'),\n"
         "                   cfg, PromptTokenizer(ByteTokenizer()), max_seq_len=64)\n"
         "prompt = {'ref_spk_embedding': [np.ones(2048, np.float32)]}\n"
@@ -64,8 +67,22 @@ def test_port_runs_without_jax_or_the_jax_package(tmp_path):
         "                   max_seq_len=64)\n"
         "(wav,), sr = d.generate_voice_design('Hi.', 'A calm voice.', 'English', max_new_tokens=6, seed=0)\n"
         "assert wav.size > 0 and sr == 24000\n"
+        "from faster_qwen3_tts_tpu_torch import cli, server\n"
+        "assert cli.build_parser().parse_args(['serve']).device == 'cuda'\n"
+        "import os, tempfile\n"
+        "d = tempfile.mkdtemp()\n"
+        "weights.save_pretrained(os.path.join(d, 'own'), weights.init_numpy(cfg, seed=0), cfg)\n"
+        "weights.export_hf_layout(weights.init_numpy(cfg, seed=0), cfg, os.path.join(d, 'hf'))\n"
+        "import json\n"
+        "json.dump(weights._config_to_dict(cfg), open(os.path.join(d, 'hf', 'config.json'), 'w'))\n"
+        "for sub in ('own', 'hf'):\n"
+        "    lm = FasterQwen3TTS.from_pretrained(os.path.join(d, sub), device='cpu', dtype='float32')\n"
+        "    assert torch.equal(lm.params['talker']['codec_head'], m0['talker']['codec_head'])\n"
+        "srv = server.make_server(m, '127.0.0.1', 0)\n"
+        "srv.server_close()\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
-        "             or k == 'faster_qwen3_tts_tpu' or k.startswith('faster_qwen3_tts_tpu.'))\n"
+        "             or k == 'faster_qwen3_tts_tpu' or k.startswith('faster_qwen3_tts_tpu.')\n"
+        "             or k.split('.')[0] in ('safetensors', 'aiohttp', 'ml_dtypes'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )

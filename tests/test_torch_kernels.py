@@ -15,7 +15,8 @@ not (holes, one live slot at the end), and at B = 2, 4, 8 with a different
 mask per lane (each lane bitwise equal to its own B=1 launch); K2 at every
 main-path shape with 1, 2, 8, 9 and 16 rows; bitwise-equal repeated calls;
 and both kernels captured in one CUDA graph and replayed on new inputs, at
-B = 1 and at the shapes of an 8-lane pool.
+B = 1 and at the shapes of an 8-lane pool. K2's tensor-map cache: views of
+one buffer with other shapes, reallocated addresses, two launching threads.
 """
 import numpy as np
 import pytest
@@ -136,6 +137,62 @@ def test_int8_gemv_kernel_float32(cuda_device):
     x = x.float()
     torch.testing.assert_close(quant.int8_gemv(x, q, scale), quant.int8_gemv_plain(x, q, scale),
                                atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_int8_gemv_tensor_maps_follow_pointer_and_shape(cuda_device):
+    """K2 caches one tensor map per weight: two views of one int8 buffer
+    (same pointer, other I and O) and two weights freed and reallocated in
+    turn (the allocator hands the address back) each stream their own
+    matrix."""
+    rng = np.random.default_rng(3)
+    buf = torch.tensor(rng.integers(-127, 128, size=2048 * 3072, dtype=np.int8)).to(cuda_device)
+    for I, O in ((1024, 3072), (2048, 1024), (3072, 2048), (1024, 2048)):
+        q = buf[:I * O].view(I, O)
+        assert q.data_ptr() == buf.data_ptr()
+        scale = torch.rand(1, O, device=cuda_device) * 0.01
+        x = torch.randn(1, I, device=cuda_device).to(torch.bfloat16)
+        torch.testing.assert_close(quant.int8_gemv(x, q, scale).float(), quant.int8_gemv_plain(x.float(), q, scale),
+                                   atol=2e-2, rtol=2e-2)
+    del buf
+    ptrs = []
+    for seed, (I, O) in enumerate(((2048, 1024), (1024, 2048), (2048, 1024), (1024, 3072))):
+        x, q, scale = _gemv_inputs(cuda_device, 2, I, O, seed=seed)
+        ptrs.append(q.data_ptr())
+        torch.testing.assert_close(quant.int8_gemv(x, q, scale).float(), quant.int8_gemv_plain(x.float(), q, scale),
+                                   atol=2e-2, rtol=2e-2)
+        del x, q, scale
+    assert len(set(ptrs)) < len(ptrs)  # the caching allocator handed an address back
+
+
+@pytest.mark.cuda
+def test_int8_gemv_from_two_threads(cuda_device):
+    """Two threads launching K2 at once, each on weights of its own shapes,
+    each against its plain version (the server's threads share the
+    library and its tensor-map cache)."""
+    import threading
+
+    cases = {t: [_gemv_inputs(cuda_device, 1 + t, I, O, seed=10 * t + i)
+                 for i, (I, O) in enumerate(GEMV_SHAPES[:6])] for t in range(2)}
+    refs = {t: [quant.int8_gemv_plain(x.float(), q, s) for x, q, s in cs] for t, cs in cases.items()}
+    errors = []
+
+    def work(t):
+        try:
+            stream = torch.cuda.Stream()
+            with torch.cuda.stream(stream):
+                for _ in range(20):
+                    for (x, q, s), ref in zip(cases[t], refs[t]):
+                        torch.testing.assert_close(quant.int8_gemv(x, q, s).float(), ref, atol=2e-2, rtol=2e-2)
+        except Exception as e:  # noqa: BLE001 -- reported by the main thread
+            errors.append(e)
+
+    threads = [threading.Thread(target=work, args=(t,)) for t in cases]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=120)
+    assert not errors, errors[0]
 
 
 @pytest.mark.cuda
