@@ -8,8 +8,9 @@
 Phases, each of which fails the run:
 1. device: a CUDA card must be visible; prints its name and power limit;
 2. build: compiles the port's CUDA kernels (K1 decode attention, K2 int8
-   GEMV, K3 weight streaming) from faster_qwen3_tts_tpu_torch/csrc with one
-   nvcc per source for sm_90a, and prints what ptxas says of each kernel;
+   GEMV, K4 int4 GEMV, K3 weight streaming) from faster_qwen3_tts_tpu_torch/csrc
+   with one nvcc per source for sm_90a, and prints what ptxas says of each
+   kernel;
 3. kernels: K1 and K2 against their plain PyTorch versions on the same
    inputs at the shapes of the 0.6B and 1.7B slices and of an 8-lane pool
    (K1 over 8 lanes of different ages, K2 at 8 and 16 rows), with the
@@ -18,7 +19,11 @@ Phases, each of which fails the run:
    call that computes the same function (the yardstick the port never
    calls: SDPA for K1, `torch._weight_int8pack_mm` for K2, and for scale
    the bf16 matmul), the bound (bytes over the HBM rate or operations over
-   the peak rate, whichever is larger) and the median eager call time;
+   the peak rate, whichever is larger) and the median eager call time; K4
+   the same way at every 0.6B and 1.7B shape with 1, 2, 8 and 16 rows
+   (yardsticks `torch._weight_int4pack_mm` on the same nibbles with bf16
+   scales and zeros, its error stated, and the bf16 matmul), one float32
+   case and one replay in a CUDA graph;
 4. probe: K3 streams the stacked int8 weights of the Pallas probe it
    replaces (L=28, I=2048, O=12288, the 1.7B gate+up stack, and L=28,
    I=1024, O=6144), timed with CUDA events, then held against its plain
@@ -36,7 +41,10 @@ Phases, each of which fails the run:
    vocoder): a lockstep batch of an x-vector, a long-reference and a
    short-reference ICL request, and a ContinuousBatcher with a late joiner
    and a reused slot: every lane's tokens equal its solo stream's on each
-   device, and the card's equal the CPU's, audio within 1e-4;
+   device, and the card's equal the CPU's, audio within 1e-4; the x-vector
+   stream also in Q4_K_M and Q8_4 (equal tokens, audio within 1e-3); then
+   `parity_mode=True` against the engine on the card for float32, Q8_0,
+   Q4_K_M and Q8_4 weights, greedy and sampled with one seed: equal tokens;
 6. cli: `python -m faster_qwen3_tts_tpu_torch.cli clone` on the tiny
    checkpoint as a subprocess on the card (rc 0, a 24 kHz wav);
 7. checkpoint + slice 0.6B Q8_0: the 0.6B Base tree of `init_numpy(seed=0)`
@@ -75,15 +83,23 @@ Phases, each of which fails the run:
    response_format (400), a client that closes after its first audio bytes
    (its lane must be released), GET /health; every 200 body a 24 kHz wav or
    PCM16 stream, K1 and K2 launched; POST to first audio byte per request;
-11. slice BF16: one x-vector request in BF16 (K1 only) and a B = 8 batch;
-12. slice 1.7B Q8_0: `from_pretrained("Qwen/Qwen3-TTS-12Hz-1.7B-CustomVoice",
+11. int4 slice: the same seeded 0.6B tree (one `init_numpy`) materialized
+    in float32, BF16, Q8_0, Q4_K_M and Q8_4: the quant_delta row (prefill
+    logit cosine and top-10 overlap against float32, projection bytes);
+    Q8_0, Q4_K_M and Q8_4 each serve a 32-frame x-vector stream, back to
+    back (TTFA, RTF, peak memory, K2 and K4 launches per decode step; K4
+    must launch), Q4_K_M and Q8_4 a profiled 24-frame stream; on Q8_4 a
+    16-frame greedy `parity_mode` stream against the engine's (frames that
+    agree, reported);
+12. slice BF16: one x-vector request in BF16 (K1 only) and a B = 8 batch;
+13. slice 1.7B Q8_0: `from_pretrained("Qwen/Qwen3-TTS-12Hz-1.7B-CustomVoice",
    quant="Q8_0")`, `warmup()`, two CustomVoice streams (a plain speaker in
    English, a dialect speaker in Chinese) and one non-streaming request;
    on the same weights VoiceDesign (a stream with an instruction, one
    non-streaming request) and a Base x-vector stream; checks sample counts,
    that K1 and K2 carried these requests, and greedy determinism; prints
    load and warmup time, TTFA and stream RTF per request, peak memory; then
-   a 24-frame CustomVoice stream under torch.profiler, as in 6.
+   a 24-frame CustomVoice stream under torch.profiler, as in 7.
 
 The run fails if jax or any module of the JAX package (faster_qwen3_tts_tpu)
 was loaded.
@@ -221,15 +237,15 @@ def tapped_codes(model, codes):
         del model._decode_audio
 
 
-def check_close(name, out, ref, details):
+def check_close(name, out, ref, details, atol=ATOL, rtol=RTOL):
     import torch
 
     err = (out.float() - ref.float()).abs()
-    bad = (err > ATOL + RTOL * ref.float().abs()).sum().item()
+    bad = (err > atol + rtol * ref.float().abs()).sum().item()
     max_err = err.max().item()
-    details.append({"case": name, "max_abs_err": max_err, "atol": ATOL, "rtol": RTOL})
+    details.append({"case": name, "max_abs_err": max_err, "atol": atol, "rtol": rtol})
     if bad or not torch.isfinite(out).all():
-        fail(f"{name}: {bad} elements outside atol {ATOL} / rtol {RTOL} (max abs err {max_err})")
+        fail(f"{name}: {bad} elements outside atol {atol} / rtol {rtol} (max abs err {max_err})")
     return max_err
 
 
@@ -389,8 +405,118 @@ def kernel_phase(report):
                 f"{timed['bf16_matmul_ms']:.5f}, bound {timed['bound_ms']:.5f} ({timed['bound_by']}); "
                 f"eager call ms: kernel {timed['eager_ms']:.4f}, plain {timed['plain_eager_ms']:.4f}")
         del qs, packed, wbf
-    report["kernel_cases"] = {"K1": k1_cases, "K2": k2_cases}
-    return k1_cases, k2_cases
+    k4_cases = k4_phase(g)
+    report["kernel_cases"] = {"K1": k1_cases, "K2": k2_cases, "K4": k4_cases}
+    return k1_cases, k2_cases, k4_cases
+
+
+# f32 activations: K4's f32 sums of up to 6144 products in another order than
+# the plain version's (about 1e-6 relative each)
+ATOL_F32, RTOL_F32 = 1e-4, 1e-5
+
+
+def _int4pack(packed, I, O):
+    """The same nibbles in the layout `torch._weight_int4pack_mm` takes, or
+    None where the card's PyTorch has no such conversion. Its uint8 input is
+    [O, I/2] with the even row in the high nibble, as here."""
+    import torch
+
+    tiles = next(t for t in (8, 4, 2) if I % (16 * t) == 0)
+    try:
+        return torch._convert_weight_to_int4pack(packed.t().contiguous(), tiles)
+    except (RuntimeError, NotImplementedError, AttributeError) as e:
+        log(f"K4 {I}x{O}: no int4pack conversion ({type(e).__name__}: {str(e).splitlines()[0][:160]})")
+        return None
+
+
+def k4_phase(g):
+    """K4 against its plain version at every 0.6B and 1.7B projection shape,
+    M = 1, 2, 8, 16 in bf16, one f32 case and one CUDA-graph replay. Device
+    us per call (graph replay over operand copies larger than L2) of K4, of
+    the plain version, of `torch._weight_int4pack_mm` on the same nibbles
+    (its scales and zeros are bf16: w = (q - 8) * scale + zero, so zero =
+    wmin + 8 scale rounded to bf16; its error against the plain version is
+    reported) and of the bf16 matmul; the bound in bytes: 0.5 B a weight plus
+    f32 scale and min per group of 32."""
+    import numpy as np
+    import torch
+
+    from faster_qwen3_tts_tpu_torch.ops import quant
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(1)
+    cases = []
+    for (I, O), what in K2_SHAPES.items():
+        ql = quant.quantize_linear4(rng.standard_normal((I, O)).astype("float32") * I**-0.5)
+        packed, scale, wmin = (torch.from_numpy(a).to(dev) for a in ql)
+        wbytes = packed.numel() + 2 * scale.numel() * 4
+        n = _copies(wbytes)
+        ops_ = [(packed, scale, wmin)] + [(packed.clone(), scale.clone(), wmin.clone()) for _ in range(n - 1)]
+        lib_w = _int4pack(packed, I, O)
+        lib_ws = None if lib_w is None else [lib_w] + [lib_w.clone() for _ in range(n - 1)]
+        # tinygemm's affine form, w = (q - 8) * scale + zero, in bf16
+        sz = torch.stack([scale, wmin + 8 * scale], dim=-1).to(torch.bfloat16).contiguous()
+        wbf = quant.dequantize(quant.QuantizedLinear4(packed, scale, wmin)).to(torch.bfloat16)
+        wbfs = [wbf] + [wbf.clone() for _ in range(max(2, n // 2) - 1)]
+        for M in (1, 2, 8, 16):
+            x = torch.randn(M, I, generator=g).to(dev, torch.bfloat16)
+            out = quant.int4_gemv(x, packed, scale, wmin)
+            torch.cuda.synchronize()
+            ref = quant.int4_gemv_plain(x.float(), packed, scale, wmin)
+            name = f"K4 M={M} I={I} O={O} ({what})"
+            err = check_close(name, out, ref, cases)
+            lib_err = None
+            if lib_ws is not None:
+                try:
+                    lib_err = (torch._weight_int4pack_mm(x, lib_w, 32, sz).float() - ref).abs().max().item()
+                except (RuntimeError, NotImplementedError) as e:
+                    log(f"{name}: no int4 library call ({type(e).__name__}: {str(e).splitlines()[0][:160]})")
+                    lib_ws = None
+            timed = {
+                "ms": device_ms(lambda i: quant.int4_gemv(x, *ops_[i]), n),
+                "plain_ms": device_ms(lambda i: quant.int4_gemv_plain(x, *ops_[i]), n),
+                "library_ms": None if lib_ws is None else library_time(
+                    name, lambda i: torch._weight_int4pack_mm(x, lib_ws[i], 32, sz), n),
+                "library_max_abs_err": lib_err,
+                "bf16_matmul_ms": device_ms(lambda i: torch.matmul(x, wbfs[i]), len(wbfs)),
+            }
+            timed["gb_s"] = wbytes / timed["ms"] / 1e6
+            # x, nibbles, scale and min, y; 2 flops per (row, weight) and the group terms
+            timed.update(bound(M * I * 2 + wbytes + M * O * 2, 2 * M * I * O, x.dtype))
+            cases[-1].update(timed, shape=(M, I, O))
+            log(f"{name}: max_abs_err {err:.3e} (atol {ATOL}, rtol {RTOL}); device ms per call: kernel "
+                f"{timed['ms']:.5f} ({timed['gb_s']:.0f} GB/s of weights, scales and mins), plain "
+                f"{timed['plain_ms']:.5f}, int4 library call {_fmt(timed['library_ms'])} (bf16 scale/zero, "
+                f"max abs err {lib_err if lib_err is None else f'{lib_err:.3e}'}), bf16 matmul "
+                f"{timed['bf16_matmul_ms']:.5f}, bound {timed['bound_ms']:.5f} ({timed['bound_by']})")
+        del ops_, lib_ws, wbfs
+    # float32 activations, as the tiny reference phases run them
+    ql = quant.quantize_linear4(rng.standard_normal((1024, 3072)).astype("float32") * 1024**-0.5)
+    packed, scale, wmin = (torch.from_numpy(a).to(dev) for a in ql)
+    x = torch.randn(3, 1024, generator=g).to(dev)
+    err = check_close("K4 f32 M=3 I=1024 O=3072", quant.int4_gemv(x, packed, scale, wmin),
+                      quant.int4_gemv_plain(x, packed, scale, wmin), cases, ATOL_F32, RTOL_F32)
+    log(f"K4 f32 M=3 I=1024 O=3072: max_abs_err {err:.3e} (atol {ATOL_F32}, rtol {RTOL_F32})")
+    # one launch captured in a CUDA graph, replayed on new inputs: the eager call's bits
+    x = torch.randn(1, 1024, generator=g).to(dev, torch.bfloat16)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        quant.int4_gemv(x, packed, scale, wmin)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = quant.int4_gemv(x, packed, scale, wmin)
+    x.copy_(torch.randn(1, 1024, generator=g).to(dev, torch.bfloat16))
+    graph.replay()
+    torch.cuda.synchronize()
+    same = bool(torch.equal(y, quant.int4_gemv(x, packed, scale, wmin)))
+    cases.append({"case": "K4 graph replay M=1 I=1024 O=3072", "max_abs_err": 0.0 if same else float("inf"),
+                  "bitwise_equal_to_eager": same})
+    log(f"K4 in a CUDA graph, replayed on new inputs: bitwise equal to the eager call: {same}")
+    if not same:
+        fail("K4 replayed in a CUDA graph differs from its eager call")
+    return cases
 
 
 def _events_ms(fn, reps: int, warm: int = 2) -> float:
@@ -487,7 +613,7 @@ def reference_phase(report, devices=("cpu", "cuda")):
 
     tiny_dir = _tiny_config_dir("chip_smoke_tiny")
     prompt = {"ref_spk_embedding": [np.random.default_rng(0).standard_normal(2048).astype(np.float32)]}
-    for quant in ("none", "Q8_0"):  # float32 weights, or their int8 quantization
+    for quant in ("none", "Q8_0", "Q4_K_M", "Q8_4"):  # float32 weights, or their quantizations
         runs = []
         for device in devices:
             model = FasterQwen3TTS.from_pretrained(str(tiny_dir), device=device, dtype="float32",
@@ -509,6 +635,49 @@ def reference_phase(report, devices=("cpu", "cuda")):
         if not same or not err <= 1e-3:
             fail(f"reference phase ({quant}): the card disagrees with the CPU plain path")
     return tiny_dir
+
+
+def reference_parity_phase(report, tiny_dir):
+    """`parity_mode=True` (the independent eager decode) against the engine
+    on the card at the tiny geometry in float32, for unquantized, Q8_0,
+    Q4_K_M and Q8_4 weights: greedy, and sampled with one seed (one
+    generator on the card, drawn in the engine's order). Token frames must
+    be equal. -> the engine's launches."""
+    import numpy as np
+
+    from faster_qwen3_tts_tpu_torch.model import FasterQwen3TTS
+
+    prompt = {"ref_spk_embedding": [np.random.default_rng(1).standard_normal(2048).astype(np.float32)]}
+    # no EOS before 24 frames (a tiny random model may end at once), so every frame is compared
+    kw = dict(voice_clone_prompt=prompt, max_new_tokens=24, min_new_tokens=24, chunk_size=CHUNK,
+              first_chunk_size=FIRST_CHUNK, seed=5)
+    rows, launches = [], {"K1": 0, "K2": 0, "K4": 0}
+    for quant in ("none", "Q8_0", "Q4_K_M", "Q8_4"):
+        model = FasterQwen3TTS.from_pretrained(str(tiny_dir), device="cuda", dtype="float32", quant=quant,
+                                               max_seq_len=256, seed=0)
+        for mode, extra in (("greedy", dict(do_sample=False, subtalker_dosample=False)), ("sampled", {})):
+            toks = {}
+            for parity in (False, True):
+                _reset_launches()
+                with tapped_frames(model, []) as frames:
+                    for _ in model.generate_voice_clone_streaming(
+                            "Hello from the parity phase.", "English", parity_mode=parity, **kw, **extra):
+                        pass
+                counted = _read_launches()
+                if parity and any(counted.values()):
+                    fail(f"reference parity ({quant}): the parity decode launched kernels {counted}")
+                if not parity:
+                    launches = {k: launches[k] + counted[k] for k in launches}
+                toks[parity] = np.concatenate(frames)
+            same = toks[False].shape == toks[True].shape and bool((toks[False] == toks[True]).all())
+            rows.append({"quant": quant, "mode": mode, "frames": int(toks[True].shape[0]), "tokens_equal": same})
+            log(f"reference parity ({quant}, tiny f32, {mode}): {toks[True].shape[0]} parity frames equal to "
+                f"the engine's on the card: {same}")
+            if not same:
+                fail(f"reference parity ({quant}, {mode}): parity_mode disagrees with the engine on the card")
+        del model
+    report["reference_parity"] = rows
+    return launches
 
 
 def write_recording(path: Path, secs: float, seed: int) -> Path:
@@ -732,13 +901,15 @@ def _reset_launches():
 
     attention.decode_attention.launches = 0
     quant_ops.int8_gemv.launches = 0
+    quant_ops.int4_gemv.launches = 0
 
 
 def _read_launches():
     from faster_qwen3_tts_tpu_torch.ops import attention
     from faster_qwen3_tts_tpu_torch.ops import quant as quant_ops
 
-    return {"K1": attention.decode_attention.launches, "K2": quant_ops.int8_gemv.launches}
+    return {"K1": attention.decode_attention.launches, "K2": quant_ops.int8_gemv.launches,
+            "K4": quant_ops.int4_gemv.launches}
 
 
 def _profile_row(prof, frames, wall_s):
@@ -753,7 +924,7 @@ def _profile_row(prof, frames, wall_s):
     total_us = sum(device_us(e) for e in events)
     row = {"frames": frames, "wall_ms_per_frame": wall_s * 1e3 / frames,
            "device_ms_per_frame": total_us / 1e3 / frames, "busy_share": total_us / 1e6 / wall_s}
-    for kname, needle in (("K1", "decode_attn_kernel"), ("K2", "int8_gemv_kernel")):
+    for kname, needle in (("K1", "decode_attn_kernel"), ("K2", "int8_gemv_kernel"), ("K4", "int4_gemv_kernel")):
         hits = [e for e in events if needle in e.key]
         row[kname] = {"ms_per_frame": sum(device_us(e) for e in hits) / 1e3 / frames,
                       "launches_per_frame": sum(e.count for e in hits) / frames,
@@ -761,9 +932,11 @@ def _profile_row(prof, frames, wall_s):
     return row
 
 
-def frame_profile(model, name, report, method="generate_voice_clone_streaming", args=(TEXT, "English")):
-    """K1 and K2 inside the frame: one 24-frame stream under torch.profiler ->
-    device ms and launches per frame of each kernel and of all kernels."""
+def frame_profile(model, name, report, method="generate_voice_clone_streaming", args=(TEXT, "English"),
+                  need=("K1", "K2")):
+    """The kernels inside the frame: one 24-frame stream under torch.profiler
+    -> device ms and launches per frame of K1, K2, K4 and of all kernels;
+    fails if a kernel of `need` is not in the trace."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -781,10 +954,11 @@ def frame_profile(model, name, report, method="generate_voice_clone_streaming", 
         f"device {row['device_ms_per_frame']:.3f} ms/frame; K1 {row['K1']['ms_per_frame']:.3f} ms/frame "
         f"({row['K1']['launches_per_frame']:.1f} launches, {row['K1']['us_per_launch']:.2f} us each); K2 "
         f"{row['K2']['ms_per_frame']:.3f} ms/frame ({row['K2']['launches_per_frame']:.1f} launches, "
-        f"{row['K2']['us_per_launch']:.2f} us each); counted launches {counted}; trace parsed in "
-        f"{parse_s:.1f} s")
-    if row["K1"]["launches_per_frame"] == 0 or row["K2"]["launches_per_frame"] == 0:
-        fail(f"frame profile {name}: the trace shows no K1 or K2 kernel")
+        f"{row['K2']['us_per_launch']:.2f} us each); K4 {row['K4']['ms_per_frame']:.3f} ms/frame "
+        f"({row['K4']['launches_per_frame']:.1f} launches, {row['K4']['us_per_launch']:.2f} us each); counted "
+        f"launches {counted}; trace parsed in {parse_s:.1f} s")
+    if any(row[k]["launches_per_frame"] == 0 for k in need):
+        fail(f"frame profile {name}: the trace lacks one of {need}")
     report.setdefault("frame_profile", {})[name] = row
 
 
@@ -854,7 +1028,7 @@ def slice_icl_phase(model, report):
     return launches
 
 
-def slice_phase(quant, n_requests, report, icl=False):
+def slice_phase(quant, n_requests, report, icl=False, tree=None, init_s=None):
     """The full-width model (Q8_0: loaded from the checkpoint phase's
     export; BF16: seeded init): x-vector requests, then (icl) the ICL
     requests, then the lockstep batches (and for Q8_0 the continuous
@@ -867,7 +1041,7 @@ def slice_phase(quant, n_requests, report, icl=False):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     if quant == "Q8_0":  # the checkpoint this slice serves: an HF-layout export of the seeded tree
-        model = checkpoint_phase(report)
+        model = checkpoint_phase(report, tree, init_s)
     else:
         model = FasterQwen3TTS.from_pretrained(MODEL, device="cuda", quant=quant, seed=0)
     load_s = time.perf_counter() - t0
@@ -909,8 +1083,9 @@ def slice_phase(quant, n_requests, report, icl=False):
     return launches, icl_launches, batch
 
 
-def checkpoint_phase(report):
-    """The 0.6B Base tree of `init_numpy(seed=0)` (float32, 0.96 B parameters)
+def checkpoint_phase(report, tree, init_s):
+    """The 0.6B Base tree of `init_numpy(seed=0)` (float32, 0.96 B parameters;
+    drawn once by `main` in `init_s` seconds and kept for the int4 slice)
     written by the port's `export_hf_layout` under build/, loaded strictly
     by `from_pretrained(dir, quant="Q8_0", strict=True)`; every loaded leaf
     must equal, bit for bit, `materialize` of the same tree. The directory
@@ -927,9 +1102,6 @@ def checkpoint_phase(report):
     cfg = get_config(MODEL)
     path = REPO / "build" / "chip_smoke_hf_0.6b"
     shutil.rmtree(path, ignore_errors=True)
-    t0 = time.perf_counter()
-    tree = weights.init_numpy(cfg, seed=0)
-    init_s = time.perf_counter() - t0
     leaves = weights._leaves(tree)
     n_params, n_leaves = sum(a.size for a in leaves), len(leaves)
     del leaves
@@ -962,7 +1134,7 @@ def checkpoint_phase(report):
             if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
                 fail(f"checkpoint: {sub} leaf {i} ({tuple(a.shape)} {a.dtype}) differs from materialize")
         compared += len(got)
-    del ref, tree
+    del ref
     shutil.rmtree(path)
     gc.collect()
     torch.cuda.empty_cache()
@@ -977,6 +1149,149 @@ def checkpoint_phase(report):
         f"{compared} leaves bitwise equal to materialize of the same tree ({ref_s:.1f} s)")
     report["checkpoint_0.6B"] = row
     return model
+
+
+@contextlib.contextmanager
+def tapped_steps(rec):
+    """For the block, count in rec["steps"] the engine's decode steps and in
+    rec["K1"] / ["K2"] / ["K4"] the kernel launches made inside them (not
+    those of prompt building or the prefill)."""
+    from faster_qwen3_tts_tpu_torch.engine import core
+
+    real = core.decode_chunk
+    rec.update(steps=0, K1=0, K2=0, K4=0)
+
+    def counting(*a, **k):
+        before = _read_launches()
+        state, packed = real(*a, **k)
+        for key, n in _read_launches().items():
+            rec[key] += n - before[key]
+        rec["steps"] += packed.shape[0]
+        return state, packed
+
+    core.decode_chunk = counting
+    try:
+        yield rec
+    finally:
+        core.decode_chunk = real
+
+
+def _tree_gb(node) -> float:
+    """Bytes of every tensor of a parameter tree, in GB."""
+    import torch
+
+    if isinstance(node, dict):
+        return sum(_tree_gb(v) for v in node.values())
+    if isinstance(node, (list, tuple)):
+        return sum(_tree_gb(v) for v in node)
+    return node.numel() * node.element_size() / 1e9 if isinstance(node, torch.Tensor) else 0.0
+
+
+# launches a 0.6B decode step should make, counted from the shapes: 28 talker and
+# 75 predictor layer passes of 7 projections, 15 lm_heads, 15 mtp_proj, codec_head
+K4_EXPECTED = {"Q8_0": {"K2": 752, "K4": 0}, "Q4_K_M": {"K2": 0, "K4": 752}, "Q8_4": {"K2": 197, "K4": 555}}
+
+
+def slice_int4_phase(report, tree):
+    """The 0.6B Base tree that the checkpoint phase exported (one
+    `init_numpy(seed=0)`), materialized on the card in float32, BF16, Q8_0,
+    Q4_K_M and Q8_4 in turn: the quant_delta row (each mode's talker prefill
+    logits against float32: cosine and top-10 overlap, on each model's own
+    prompt) and the projection bytes; then, for Q8_0, Q4_K_M and Q8_4,
+    `warmup()` and one x-vector stream of 32 frames, back to back so that
+    their RTFs share the host's state (TTFA, RTF, peak memory, K2 and K4
+    launches per decode step; the run fails if an int4 stream never
+    launched K4), for Q4_K_M and Q8_4 a 24-frame stream under
+    torch.profiler, and for Q8_4 a 16-frame greedy
+    `parity_mode` stream held against the engine's (reported, not asserted:
+    a bf16 engine and the f32 parity decode part early on random weights).
+    -> launches of the Q4_K_M and Q8_4 streams."""
+    import torch
+
+    from faster_qwen3_tts_tpu_torch import weights
+    from faster_qwen3_tts_tpu_torch.config import get_config
+    from faster_qwen3_tts_tpu_torch.engine import core
+    from faster_qwen3_tts_tpu_torch.engine import generate as gen_lib
+    from faster_qwen3_tts_tpu_torch.model import FasterQwen3TTS
+    from faster_qwen3_tts_tpu_torch.ops.sampling import SamplingParams
+    from faster_qwen3_tts_tpu_torch.utils.tokenizer import PromptTokenizer, load_tokenizer
+
+    cfg = get_config(MODEL)
+    tokenizer = PromptTokenizer(load_tokenizer(None))
+    voice = _xvec_prompt(0)
+    launches = {"K1": 0, "K2": 0, "K4": 0}
+    delta, rows, ref_logits = {}, {}, None
+    for quant, mode, dtype in (("F32", "none", torch.float32), ("BF16", "none", torch.bfloat16),
+                               ("Q8_0", "int8", torch.bfloat16), ("Q4_K_M", "int4", torch.bfloat16),
+                               ("Q8_4", "mixed", torch.bfloat16)):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        params = weights.materialize(tree, dtype, mode, "cuda")
+        torch.cuda.synchronize()
+        materialize_s = time.perf_counter() - t0
+        model = FasterQwen3TTS(params, cfg, tokenizer)
+        card_gb = (torch.cuda.memory_allocated() - base) / 1e9
+        proj_gb = _tree_gb(params["talker"]["layers"]) + _tree_gb(params["predictor"]["layers"]) + sum(
+            _tree_gb(params[a][b]) for a, b in (("talker", "codec_head"), ("talker", "text_proj"),
+                                                ("predictor", "lm_heads"), ("predictor", "mtp_proj")))
+        # the talker prefill of one x-vector prompt, built by this model's own prompt builder
+        tie, tam, tth, tpe, _ = model._prepare_generation(TEXT, language="English", voice_clone_prompt=voice)
+        sess = gen_lib.GenerationSession(params, cfg, tie, tam, tth, tpe, model.max_seq_len,
+                                         SamplingParams(do_sample=False), gen_lib.predictor_sampling(False), 2,
+                                         seed=0)
+        _, logits = core.start_state(params["talker"], cfg.talker, sess.tie, sess.mask, sess.generator,
+                                     model.max_seq_len, sess.sampling, 2)
+        logits = logits[0].float().cpu()
+        if ref_logits is None:
+            ref_logits = logits
+        cos = float(torch.nn.functional.cosine_similarity(logits, ref_logits, dim=0))
+        top = len(set(torch.topk(logits, 10).indices.tolist()) & set(torch.topk(ref_logits, 10).indices.tolist()))
+        delta[quant] = {"prefill_logit_cosine": cos, "top10_overlap": top / 10, "card_gb": card_gb,
+                        "projection_gb": proj_gb, "materialize_s": materialize_s}
+        log(f"quant_delta 0.6B {quant} ({CARD}): prefill logits against float32: cosine {cos:.6f}, top-10 "
+            f"overlap {top}/10; projections {proj_gb:.3f} GB, {card_gb:.2f} GB on the card, materialize "
+            f"{materialize_s:.1f} s")
+        if mode != "none":
+            t0 = time.perf_counter()
+            model.warmup(chunk_size=CHUNK, first_chunk_size=FIRST_CHUNK)
+            warmup_s = time.perf_counter() - t0
+            _reset_launches()
+            with tapped_steps({}) as steps:
+                req, _ = run_request(model, seed=1)
+            counted = _read_launches()
+            per_step = {k: steps[k] / max(1, steps["steps"]) for k in ("K1", "K2", "K4")}
+            if mode != "int8":
+                launches = {k: launches[k] + counted[k] for k in launches}
+            log(f"slice 0.6B {quant}: warmup {warmup_s:.1f} s; {req['frames']} frames, TTFA {req['ttfa_ms']:.1f} ms, "
+                f"stream RTF {req['stream_rtf']:.3f}; launches {counted}, per decode step (of {steps['steps']}) "
+                f"K1 {per_step['K1']:.1f}, K2 {per_step['K2']:.1f}, K4 {per_step['K4']:.1f} (expected "
+                f"{K4_EXPECTED[quant]}); peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
+            need = {"int8": ("K1", "K2"), "int4": ("K1", "K4"), "mixed": ("K1", "K2", "K4")}[mode]
+            if any(counted[k] == 0 for k in need):
+                fail(f"the 0.6B {quant} stream did not go through its kernels {need}: {counted}")
+            if mode != "int8":  # the Q8_0 slice's own profile is phase 7's
+                frame_profile(model, f"0.6B {quant} x-vector", report, need=need)
+            row = {"materialize_s": materialize_s, "warmup_s": warmup_s, "request": req, "launches": counted,
+                   "decode_steps": steps["steps"], "launches_per_step": per_step, "card_gb": card_gb,
+                   "projection_gb": proj_gb, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+            if mode == "mixed":
+                _, tok_eng = run_request(model, seed=3, greedy=True, frames=16)
+                par, tok_par = run_request(model, seed=3, greedy=True, frames=16, voice_clone_prompt=voice,
+                                           parity_mode=True)
+                row["parity"] = dict(_agreement(tok_eng, tok_par), wall_s=par["wall_s"])
+                log(f"slice 0.6B {quant} parity_mode (f32 eager) against the engine (bf16), greedy: "
+                    f"{row['parity']['equal_frames']}/{row['parity']['frames']} frames equal, "
+                    f"{row['parity']['equal_codebook0']} codebook-0 tokens equal, first difference (frame, "
+                    f"codebook) {row['parity']['first_difference']}; 16 frames in {par['wall_s']:.1f} s")
+            rows[quant] = row
+        del model, params, sess
+        gc.collect()
+        torch.cuda.empty_cache()
+    report["quant_delta_0.6B"] = delta
+    report["slice_int4_0.6B"] = rows
+    return launches
 
 
 def run_non_streaming(model, method, args, seed, frames=24):
@@ -1679,7 +1994,7 @@ def main() -> None:
     report["build_s"] = lib.build_seconds
 
     phase("kernels")
-    k1_cases, k2_cases = kernel_phase(report)
+    k1_cases, k2_cases, k4_cases = kernel_phase(report)
     phase("probe")
     k3_cases, k3_launches = probe_phase(report, k2_cases)
     if args.kernels_only:
@@ -1691,12 +2006,25 @@ def main() -> None:
     reference_icl_phase(report, tiny_dir)
     reference_custom_phase(report)
     reference_batch_phase(report, tiny_dir)
+    parity_launches = reference_parity_phase(report, tiny_dir)
     phase("cli")
     cli_phase(report, tiny_dir)
     phase("checkpoint + slice 0.6B Q8_0 + ICL")
-    q8, icl, q8_batch = slice_phase("Q8_0", 2, report, icl=True)
+    from faster_qwen3_tts_tpu_torch import weights
+    from faster_qwen3_tts_tpu_torch.config import get_config
+
+    t0 = time.perf_counter()
+    tree = weights.init_numpy(get_config(MODEL), seed=0)  # the one 0.6B tree: Q8_0 export, then int4
+    init_s = time.perf_counter() - t0
+    q8, icl, q8_batch = slice_phase("Q8_0", 2, report, icl=True, tree=tree, init_s=init_s)
+    phase("slice 0.6B Q4_K_M + Q8_4 + quant_delta")
+    q4 = slice_int4_phase(report, tree)
+    del tree
+    gc.collect()
     phase("slice BF16")
     bf16, _, bf16_batch = slice_phase("BF16", 1, report)
+    if q4["K4"] == 0 or parity_launches["K4"] == 0:
+        fail(f"the int4 paths did not launch K4: 0.6B {q4}, tiny {parity_launches}")
     if q8["K1"] == 0 or q8["K2"] == 0 or q8_batch["K1"] == 0 or q8_batch["K2"] == 0:
         fail(f"the Q8_0 slice did not go through both kernels: {q8}, batches {q8_batch}")
     if bf16["K1"] == 0 or bf16_batch["K1"] == 0:
@@ -1709,9 +2037,12 @@ def main() -> None:
     if jaxish:
         fail(f"the port loaded jax or the JAX package: {jaxish[:8]}")
     # launches of every slice path: 0.6B Q8_0 x-vector, Q8_0 ICL, Q8_0 lockstep
-    # and continuous batches and the server's requests, BF16 x-vector and
-    # lockstep batch, 1.7B Q8_0 CustomVoice / VoiceDesign / Base; K3's probe
-    total = {k: q8[k] + icl[k] + q8_batch[k] + bf16[k] + bf16_batch[k] + q8_17b[k] for k in q8}
+    # and continuous batches and the server's requests, 0.6B Q4_K_M and Q8_4
+    # x-vector, BF16 x-vector and lockstep batch, 1.7B Q8_0 CustomVoice /
+    # VoiceDesign / Base, the tiny engine streams held against parity_mode;
+    # K3's probe
+    paths = (q8, icl, q8_batch, q4, bf16, bf16_batch, q8_17b, parity_launches)
+    total = {k: sum(p.get(k, 0) for p in paths) for k in ("K1", "K2", "K4")}
     total["K3"] = k3_launches
 
     def entry(name, source, replaces, cases, launches, pick):
@@ -1721,8 +2052,9 @@ def main() -> None:
                 "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                 "bound_by": c["bound_by"], "library_ms": c["library_ms"]}
 
-    # ms: K1 at 133 live talker slots, K2 at the 1.7B gate/up (M = 1), K3 at 704 MB
+    # ms: K1 at 133 live talker slots, K2 and K4 at the 1.7B gate/up (M = 1), K3 at 704 MB
     gate_up = next(i for i, c in enumerate(k2_cases) if c["shape"] == (1, 2048, 6144))
+    gate_up4 = next(i for i, c in enumerate(k4_cases) if c.get("shape") == (1, 2048, 6144))
     record = {"kernels": [
         entry("decode_attention", "faster_qwen3_tts_tpu_torch/csrc/decode_attention.cu",
               "faster_qwen3_tts_tpu/ops/decode_attn_pallas.py:84 (git ce388ee^)", k1_cases,
@@ -1732,6 +2064,9 @@ def main() -> None:
               gate_up),
         entry("weight_stream", "faster_qwen3_tts_tpu_torch/csrc/weight_stream.cu",
               "benchmarks/pallas_bw_probe.py:73 (git 4565532)", k3_cases, total["K3"], 0),
+        # K4 replaces no Pallas kernel: its spec is the XLA-computed `_dot4`
+        entry("int4_gemv", "faster_qwen3_tts_tpu_torch/csrc/int4_gemv.cu",
+              "faster_qwen3_tts_tpu/ops/quant.py:87", k4_cases, total["K4"], gate_up4),
     ]}
     report["record"] = record
     write_report(args.report, report)

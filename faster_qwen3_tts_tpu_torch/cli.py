@@ -34,7 +34,8 @@ logger = logging.getLogger(__name__)
 def _add_global_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--model", default="Qwen/Qwen3-TTS-12Hz-0.6B-Base",
                    help="model id (random init), own-format checkpoint dir, or HF checkpoint dir")
-    p.add_argument("--quant", default="BF16", help="BF16 (default) or Q8_0/int8; Q4_K_M is not ported")
+    p.add_argument("--quant", default="BF16",
+                   help="BF16 (default), Q8_0 (int8), Q4_K_M (int4) or Q8_4 (talker int8, predictor int4)")
     p.add_argument("--dtype", default="bf16", choices=["bf16", "fp16", "fp32"])
     p.add_argument("--device", default="cuda", help="cuda (default) or cpu")
     p.add_argument("--strict", action=argparse.BooleanOptionalAction, default=None,

@@ -14,9 +14,11 @@ mode or `xvec_only=True`, or from a precomputed `voice_clone_prompt`),
 VoiceDesign put the whole text into the prefill unless `non_streaming_mode`
 is False. Many streams share one engine batch through
 `generate_voice_clone_streaming_batch` (lockstep) and `continuous_batcher`
-(`serving.ContinuousBatcher`: requests join a running pool). `parity_mode`
-and the native-backend cached-reference kwargs are not ported (ROADMAP
-queue A).
+(`serving.ContinuousBatcher`: requests join a running pool). Weights load in
+BF16 / F32, Q8_0 (int8), Q4_K_M (int4) or Q8_4 (talker int8, predictor
+int4). `parity_mode=True` on the voice-clone methods runs the independent
+eager decode of `engine/parity.py` instead of the engine. The
+native-backend cached-reference kwargs are not ported (ROADMAP queue A).
 """
 from __future__ import annotations
 
@@ -184,8 +186,10 @@ class FasterQwen3TTS:
         a warning says so. Nothing is downloaded.
 
         device "cuda" needs a card and raises without one; "cpu" runs the
-        kernels' plain versions. quant "BF16" / "Q8_0" (weight-only int8 for
-        the talker and predictor projections). The model's `load_phases`
+        kernels' plain versions. quant: the JAX package's names, "BF16" /
+        "F32" (none), "Q8_0" / "int8" (weight-only int8 for the talker and
+        predictor projections), "Q4_K_M" / "int4" (group-wise int4) or
+        "Q8_4" / "mixed" (talker int8, predictor int4). The model's `load_phases`
         holds the seconds of weights_read, quantize and device_transfer, and
         `load_coverage` an HF checkpoint's per-submodel coverage."""
         device = torch.device(device)
@@ -475,19 +479,15 @@ class FasterQwen3TTS:
     # -- generation ----------------------------------------------------------
 
     @staticmethod
-    def _reject_unported(parity_mode: bool, ref_spk=None, ref_rvq=None, ref_spk_emb=None,
-                         ref_codes=None) -> None:
+    def _reject_unported(ref_spk=None, ref_rvq=None, ref_spk_emb=None, ref_codes=None) -> None:
         """The cached-reference kwargs belong to the native backend; the JAX
         package accepts them in its signature and rejects them at call time,
-        and so does the port. parity_mode's eager engine is not ported."""
+        and so does the port."""
         if any(v is not None for v in (ref_spk, ref_rvq, ref_spk_emb, ref_codes)):
             raise NotImplementedError(
                 "ref_spk/ref_rvq cached references require backend='native'. "
                 "Use voice_clone_prompt for precomputed prompts."
             )
-        if parity_mode:
-            raise NotImplementedError(
-                "parity_mode (engine/parity.py) is not ported to the PyTorch package yet (ROADMAP queue A)")
 
     def generate_voice_clone(
         self,
@@ -514,20 +514,27 @@ class FasterQwen3TTS:
         voice_clone_prompt=None,
         seed: Optional[int] = None,
     ) -> Tuple[List[np.ndarray], int]:
-        """Voice-clone TTS -> ([waveform], sample_rate)."""
-        self._reject_unported(parity_mode, ref_spk, ref_rvq, ref_spk_emb, ref_codes)
+        """Voice-clone TTS -> ([waveform], sample_rate).
+
+        parity_mode: the independent eager decode (`engine/parity.py`)
+        instead of the engine, as in the JAX package."""
+        self._reject_unported(ref_spk, ref_rvq, ref_spk_emb, ref_codes)
         nsm = self._resolve_non_streaming_mode(non_streaming_mode, default=False)
         tie, tam, tth, tpe, ref_codes = self._prepare_generation(
             text=text, ref_audio=ref_audio, ref_text=ref_text, language=language, xvec_only=xvec_only,
             non_streaming_mode=nsm, append_silence=append_silence,
             voice_clone_prompt=voice_clone_prompt, instruct=instruct,
         )
-        codec_ids, timing = gen_lib.fast_generate(
-            self.params, self.config, tie, tam, tth, tpe, max_seq_len=self.max_seq_len,
-            max_new_tokens=max_new_tokens, min_new_tokens=min_new_tokens,
-            temperature=temperature, top_k=top_k, top_p=top_p, do_sample=do_sample,
-            repetition_penalty=repetition_penalty, seed=seed, device_chunk=self.device_chunk,
-        )
+        kw = dict(max_seq_len=self.max_seq_len, max_new_tokens=max_new_tokens,
+                  min_new_tokens=min_new_tokens, temperature=temperature, top_k=top_k, top_p=top_p,
+                  do_sample=do_sample, repetition_penalty=repetition_penalty, seed=seed)
+        if parity_mode:
+            from .engine import parity as parity_lib
+
+            codec_ids, timing = parity_lib.parity_generate(self.params, self.config, tie, tam, tth, tpe, **kw)
+        else:
+            codec_ids, timing = gen_lib.fast_generate(self.params, self.config, tie, tam, tth, tpe,
+                                                      device_chunk=self.device_chunk, **kw)
         if codec_ids is None:
             logger.warning("Generation returned no tokens")
             return [np.zeros(1, np.float32)], self.sample_rate
@@ -568,27 +575,35 @@ class FasterQwen3TTS:
     ) -> Generator[Tuple[np.ndarray, int, Dict[str, Any]], None, None]:
         """Streaming voice clone: yields (audio_chunk, sample_rate, timing)
         per chunk; chunks are sample-contiguous (up to the proportional cut
-        of a short ICL reference)."""
-        self._reject_unported(parity_mode, ref_spk, ref_rvq, ref_spk_emb, ref_codes)
+        of a short ICL reference). parity_mode: the frames come from the
+        independent eager decode (`engine/parity.py`) and every chunk is
+        vocoded on the host, as in the JAX package."""
+        self._reject_unported(ref_spk, ref_rvq, ref_spk_emb, ref_codes)
         nsm = self._resolve_non_streaming_mode(non_streaming_mode, default=False)
         tie, tam, tth, tpe, ref_codes = self._prepare_generation(
             text=text, ref_audio=ref_audio, ref_text=ref_text, language=language, xvec_only=xvec_only,
             non_streaming_mode=nsm, append_silence=append_silence,
             voice_clone_prompt=voice_clone_prompt, instruct=instruct,
         )
-        stream = gen_lib.fast_generate_streaming_fused(
-            self.params, self.config, tie, tam, tth, tpe, max_seq_len=self.max_seq_len,
-            max_new_tokens=max_new_tokens, min_new_tokens=min_new_tokens,
-            temperature=temperature, top_k=top_k, top_p=top_p, do_sample=do_sample,
-            repetition_penalty=repetition_penalty, chunk_size=chunk_size, seed=seed,
-            first_chunk_size=first_chunk_size, subtalker_dosample=subtalker_dosample,
-            subtalker_top_k=subtalker_top_k, subtalker_top_p=subtalker_top_p,
-            subtalker_temperature=subtalker_temperature,
-            # x-vector streams and ICL streams with >= 24 reference frames
-            # vocode every chunk on the device; a shorter reference keeps the
-            # host decode that prepends it until 24 frames were generated
-            fuse_first_chunk=ref_codes is None, ref_codes=ref_codes,
-        )
+        kw = dict(max_seq_len=self.max_seq_len, max_new_tokens=max_new_tokens,
+                  min_new_tokens=min_new_tokens, temperature=temperature, top_k=top_k, top_p=top_p,
+                  do_sample=do_sample, repetition_penalty=repetition_penalty, chunk_size=chunk_size,
+                  seed=seed, first_chunk_size=first_chunk_size, subtalker_dosample=subtalker_dosample,
+                  subtalker_top_k=subtalker_top_k, subtalker_top_p=subtalker_top_p,
+                  subtalker_temperature=subtalker_temperature)
+        if parity_mode:
+            from .engine import parity as parity_lib
+
+            stream = ((frames, None, timing) for frames, timing in parity_lib.parity_generate_streaming(
+                self.params, self.config, tie, tam, tth, tpe, **kw))
+        else:
+            stream = gen_lib.fast_generate_streaming_fused(
+                self.params, self.config, tie, tam, tth, tpe,
+                # x-vector streams and ICL streams with >= 24 reference frames
+                # vocode every chunk on the device; a shorter reference keeps
+                # the host decode that prepends it until 24 frames were generated
+                fuse_first_chunk=ref_codes is None, ref_codes=ref_codes, **kw,
+            )
         yield from self._stream_decode(stream, ref_codes)
 
     def _make_stream_vocoder(self, ref_codes: Optional[np.ndarray]) -> _StreamVocoder:

@@ -15,7 +15,7 @@ import torch
 import torch.nn.functional as F
 
 from ..ops.attention import decode_attention, prefill_attention, prefill_mask
-from ..ops.quant import QuantizedLinear, dot
+from ..ops.quant import QuantizedLinear, QuantizedLinear4, dot
 
 
 @dataclasses.dataclass
@@ -96,8 +96,8 @@ def unstack_layers(stacked: Dict[str, object]) -> List[Dict[str, object]]:
     """Stacked per-layer params -> one dict of views per layer."""
 
     def pick(w, i):
-        if isinstance(w, QuantizedLinear):
-            return QuantizedLinear(w.q[i], w.scale[i])
+        if isinstance(w, (QuantizedLinear, QuantizedLinear4)):
+            return type(w)(*(f[i] for f in w))
         return w[i]
 
     n = _num_layers(stacked)
@@ -106,7 +106,7 @@ def unstack_layers(stacked: Dict[str, object]) -> List[Dict[str, object]]:
 
 def _num_layers(stacked) -> int:
     w = stacked["wq"]
-    return (w.q if isinstance(w, QuantizedLinear) else w).shape[0]
+    return (w[0] if isinstance(w, (QuantizedLinear, QuantizedLinear4)) else w).shape[0]
 
 
 def _qkv(lp, x: torch.Tensor, shape: LayerShape):

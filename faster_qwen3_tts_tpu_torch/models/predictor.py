@@ -14,7 +14,7 @@ import torch
 
 from faster_qwen3_tts_tpu_torch.config import PredictorConfig
 
-from ..ops.quant import QuantizedLinear, dot
+from ..ops.quant import QuantizedLinear, QuantizedLinear4, dot
 from ..ops.sampling import SamplingParams, sample_logits
 from . import layers
 from .layers import KVCache, LayerShape
@@ -52,8 +52,10 @@ def embed_frame_sum(params, codebook_tokens: torch.Tensor) -> torch.Tensor:
 def _head_logits(params, cb_index: int, h: torch.Tensor) -> torch.Tensor:
     """lm_head[cb_index] over h [B, pred_hidden] -> [B, V] f32."""
     heads = params["lm_heads"]
-    w = QuantizedLinear(heads.q[cb_index], heads.scale[cb_index]) if isinstance(
-        heads, QuantizedLinear) else heads[cb_index]
+    if isinstance(heads, (QuantizedLinear, QuantizedLinear4)):
+        w = type(heads)(*(f[cb_index] for f in heads))
+    else:
+        w = heads[cb_index]
     return dot(h, w).float()
 
 

@@ -24,7 +24,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "fq3t_torch"
-SOURCES = ("decode_attention.cu", "int8_gemv.cu", "weight_stream.cu")
+SOURCES = ("decode_attention.cu", "int8_gemv.cu", "int4_gemv.cu", "weight_stream.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -39,6 +39,7 @@ _SIGNATURES = {
         [_int, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _float, _int, _int, _vp], _int,
     ),
     "fq3t_int8_gemv": ([_int, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int, _vp], _int),
+    "fq3t_int4_gemv": ([_int, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int, _int, _vp], _int),
     "fq3t_weight_stream": ([_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _vp], _int),
     "fq3t_weight_stream_block_cols": ([], _int),
     "fq3t_weight_stream_row_step": ([], _int),

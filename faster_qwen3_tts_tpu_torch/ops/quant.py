@@ -1,15 +1,16 @@
-"""Weight-only int8 quantization and the projection product, with K2.
+"""Weight-only int8 and int4 quantization and the projection product, with
+K2 and K4.
 
-Counterpart of faster_qwen3_tts_tpu/ops/quant.py for the Q8_0 mode: the same
-per-output-channel absmax scheme, computed by the same host numpy code, so
-both packages hold bit-identical int8 weights. `dot` routes by shape: a
-product with at most `GEMV_MAX_ROWS` rows (every decode projection) goes to
-the int8 GEMV kernel K2; a larger one (the talker prefill, prompt text
-projection) is a matrix product that the JAX package leaves to XLA and this
-port leaves to `torch.matmul`.
+Counterpart of faster_qwen3_tts_tpu/ops/quant.py: Q8_0 (int8, per-output-
+channel absmax), Q4_K_M (int4, group-wise scale and min, two nibbles a
+byte) and Q8_4 (talker int8, predictor int4), computed by the same host
+numpy code, so both packages hold bit-identical quantized weights. `dot`
+routes by shape: a product with at most `GEMV_MAX_ROWS` rows (every decode
+projection) goes to the int8 GEMV kernel K2 or the int4 GEMV kernel K4; a
+larger one (the talker prefill, prompt text projection) is a plain matrix
+product, which the JAX package leaves to XLA.
 
-Int4 (Q4_K_M / Q8_4) and the fused wqkv / w_gateup layout are not ported yet:
-`QuantizedLinear4` exists only so that parameter trees convert.
+The fused wqkv / w_gateup layout (`fuse_layer_weights`) is not ported.
 """
 from __future__ import annotations
 
@@ -33,11 +34,21 @@ class QuantizedLinear(NamedTuple):
 
 
 class QuantizedLinear4(NamedTuple):
-    """Group-wise int4 container (layout of the JAX package); no product yet."""
+    """Weight-only int4 linear with group-wise asymmetric (scale, min)
+    quantization, the Q4_K_M-class mode: w ~= nibble * scale + wmin.
+
+    packed: uint8 [..., in/2, out], two 4-bit values a byte along the
+            reduction dim (high nibble = even row, low nibble = odd row);
+    scale:  f32 [..., in/group, out];
+    wmin:   f32 [..., in/group, out] (the group's minimum)."""
 
     packed: torch.Tensor
     scale: torch.Tensor
     wmin: torch.Tensor
+
+    @property
+    def group(self) -> int:
+        return 2 * self.packed.shape[-2] // self.scale.shape[-2]
 
 
 def quantize_linear(w) -> QuantizedLinear:
@@ -50,46 +61,114 @@ def quantize_linear(w) -> QuantizedLinear:
     return QuantizedLinear(q=q, scale=scale.astype(np.float32))
 
 
+def quantize_linear4(w, group: int = 32) -> QuantizedLinear4:
+    """Host numpy asymmetric int4 quantization with group-wise scale and min,
+    the JAX package's code line for line (a layer whose input width is not a
+    multiple of `group` is one group). Returns numpy leaves."""
+    wf = np.asarray(w, np.float32)
+    I, O = wf.shape[-2], wf.shape[-1]
+    if I % group:
+        group = I  # tiny layers: one group
+    g = wf.reshape(*wf.shape[:-2], I // group, group, O)
+    wmin = np.min(g, axis=-2)  # [..., n_groups, O]
+    scale = (np.max(g, axis=-2) - wmin) / 15.0
+    scale = np.maximum(scale, 1e-12)
+    q = np.clip(np.round((g - wmin[..., None, :]) / scale[..., None, :]), 0, 15)
+    q = q.astype(np.uint8).reshape(*wf.shape[:-2], I, O)
+    hi, lo = q[..., 0::2, :], q[..., 1::2, :]
+    packed = ((hi << 4) | lo).astype(np.uint8)
+    return QuantizedLinear4(packed=packed, scale=scale.astype(np.float32), wmin=wmin.astype(np.float32))
+
+
+def dequantize(w) -> torch.Tensor:
+    """QuantizedLinear / QuantizedLinear4 / plain weight -> float32 tensor on
+    the weight's device (the parity path, quality checks); the JAX package's
+    arithmetic, so the values are the same bits."""
+    if isinstance(w, QuantizedLinear):
+        return torch.as_tensor(w.q).float() * torch.as_tensor(w.scale).float()
+    if isinstance(w, QuantizedLinear4):
+        p = torch.as_tensor(w.packed)
+        q = torch.stack([p >> 4, p & 0xF], dim=-2).reshape(*p.shape[:-2], 2 * p.shape[-2], p.shape[-1])
+        I, O = q.shape[-2:]
+        scale = torch.as_tensor(w.scale).float()
+        wmin = torch.as_tensor(w.wmin).float()
+        n_groups = scale.shape[-2]
+        g = q.reshape(*q.shape[:-2], n_groups, I // n_groups, O).float()
+        return (g * scale[..., None, :] + wmin[..., None, :]).reshape(q.shape)
+    return torch.as_tensor(w).float()
+
+
 _LAYER_WEIGHTS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+# mode -> (talker, predictor) quantizer; "mixed" is Q8_4: the predictor
+# streams its weights 15 times a frame, so int4 there cuts the largest byte
+# term while the talker stays int8
+_MODES = {"int8": (quantize_linear, quantize_linear), "int4": (quantize_linear4, quantize_linear4),
+          "mixed": (quantize_linear, quantize_linear4)}
 
 
 def quantize_model_params(params: dict, mode: str = "int8") -> dict:
-    """Quantize the talker and predictor projections of a host numpy tree
-    (int8 only). Embeddings, norms, the speaker projection and the codec keep
-    their dtype, as in the JAX package."""
-    if mode != "int8":
-        raise NotImplementedError(f"quant mode {mode!r} is not ported yet (int8 only)")
+    """Quantize the talker and predictor projections of a host numpy tree:
+    mode "int8" (Q8_0), "int4" (Q4_K_M) or "mixed" (Q8_4). Embeddings, norms,
+    the speaker projection and the codec keep their dtype, as in the JAX
+    package."""
+    quantize_talker, quantize_pred = _MODES[mode]
 
-    def quant_layers(layers: dict) -> dict:
+    def quant_layers(layers: dict, quantize) -> dict:
         new = dict(layers)
         for k in _LAYER_WEIGHTS:
-            new[k] = quantize_linear(layers[k])
+            new[k] = quantize(layers[k])
         return new
 
     out = dict(params)
     t = dict(params["talker"])
-    t["layers"] = quant_layers(t["layers"])
-    t["codec_head"] = quantize_linear(t["codec_head"])
-    t["text_proj"] = {"w": quantize_linear(t["text_proj"]["w"]), "b": t["text_proj"]["b"]}
+    t["layers"] = quant_layers(t["layers"], quantize_talker)
+    t["codec_head"] = quantize_talker(t["codec_head"])
+    t["text_proj"] = {"w": quantize_talker(t["text_proj"]["w"]), "b": t["text_proj"]["b"]}
     out["talker"] = t
     p = dict(params["predictor"])
-    p["layers"] = quant_layers(p["layers"])
-    p["lm_heads"] = quantize_linear(p["lm_heads"])
-    p["mtp_proj"] = {"w": quantize_linear(p["mtp_proj"]["w"]), "b": p["mtp_proj"]["b"]}
+    p["layers"] = quant_layers(p["layers"], quantize_pred)
+    p["lm_heads"] = quantize_pred(p["lm_heads"])
+    p["mtp_proj"] = {"w": quantize_pred(p["mtp_proj"]["w"]), "b": p["mtp_proj"]["b"]}
     out["predictor"] = p
     return out
 
 
+def infer_quant_mode(params: dict) -> str:
+    """The `quantize_model_params` mode of a tree, from its leaf types;
+    raises on a combination that function never produces."""
+
+    def kind(x) -> str:
+        if isinstance(x, QuantizedLinear):
+            return "int8"
+        if isinstance(x, QuantizedLinear4):
+            return "int4"
+        return "none"
+
+    kt = kind(params["talker"]["layers"]["wq"])
+    kp = kind(params["predictor"]["layers"]["wq"])
+    if kt == kp:
+        return kt
+    if (kt, kp) == ("int8", "int4"):
+        return "mixed"
+    raise ValueError(f"unrecognized quantization layout: talker={kt}, predictor={kp}")
+
+
 def resolve_quant_name(quant: str) -> str:
-    """Map the public quant names onto modes ("none" or "int8" here)."""
+    """Map the public quant names onto modes, as the JAX package does."""
     key = (quant or "BF16").lower()
     if key in ("bf16", "f32", "fp32", "none", "float32", "bfloat16"):
         return "none"
     if key in ("q8_0", "int8", "q8"):
         return "int8"
-    if key in ("q4_k_m", "q4_k", "int4", "q4", "q4_0", "q8_4", "mixed"):
-        raise NotImplementedError(f"quant {quant!r} is not ported yet; use BF16 or Q8_0")
-    raise ValueError(f"Unsupported quant {quant!r}. Expected BF16/F32 or Q8_0/int8.")
+    if key in ("q4_k_m", "q4_k", "int4", "q4", "q4_0"):
+        return "int4"
+    if key in ("q8_4", "mixed"):
+        return "mixed"
+    raise ValueError(
+        f"Unsupported quant {quant!r}. Expected BF16/F32, Q8_0/int8, Q4_K_M/int4, "
+        "or Q8_4/mixed (talker int8 + predictor int4)."
+    )
 
 
 def int8_gemv_plain(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -185,14 +264,124 @@ def _int8_matmul(x: torch.Tensor, w: QuantizedLinear) -> torch.Tensor:
     return (y * w.scale.reshape(w.scale.shape[-1])).to(x.dtype)
 
 
+def int4_gemv_plain(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
+                    wmin: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of K4, the JAX package's `_dot4` formulation:
+    per group, x_even @ hi + x_odd @ lo, times the group's scale, plus the
+    group's sum of x times its min; f32 accumulation, rounded once to
+    x.dtype. packed [I/2, O] uint8, scale / wmin [I/group, O]."""
+    I2, O = packed.shape[-2:]
+    n_groups = scale.shape[-2]
+    G2 = I2 // n_groups  # packed rows per group
+    lead = x.shape[:-1]
+    xf = x.float()
+    xr = xf.reshape(*lead, I2, 2)  # [..., j, 0] = x[2j], [..., j, 1] = x[2j + 1]
+    x_even = xr[..., 0].reshape(*lead, n_groups, G2)
+    x_odd = xr[..., 1].reshape(*lead, n_groups, G2)
+    hi = (packed >> 4).reshape(n_groups, G2, O).float()
+    lo = (packed & 0xF).reshape(n_groups, G2, O).float()
+    yg = torch.einsum("...gi,gio->...go", x_even, hi) + torch.einsum("...gi,gio->...go", x_odd, lo)
+    y = torch.einsum("...go,go->...o", yg, scale.float())
+    xsum = xf.reshape(*lead, n_groups, -1).sum(dim=-1)
+    y = y + torch.einsum("...g,go->...o", xsum, wmin.float())
+    return y.to(x.dtype)
+
+
+# launch geometry of K4 (csrc/int4_gemv.cu)
+_K4_COLS = 128        # output columns per tile: 8 threads x 16 packed bytes
+_K4_WARPS = 8         # 256 threads
+
+
+class Int4GemvPlan(NamedTuple):
+    """One K4 launch: grid (tiles * cluster, row groups), clusters of
+    `cluster` CTAs along x, each reducing `groups_per_cta` quantization
+    groups of I, with `smem` bytes of dynamic shared memory; `mr` rows of x
+    per CTA."""
+
+    grid: Tuple[int, int]
+    cluster: int
+    groups_per_cta: int
+    smem: int
+    mr: int
+
+
+def _int4_plan(M: int, I: int, O: int, group: int) -> Int4GemvPlan:
+    """K4's launch for x [M, I] and a [I/2, O] packed weight in groups of
+    `group` rows. The cluster of each 128-column tile splits I into whole
+    groups, as many slabs as fill the card about twice (tiles x row groups x
+    cluster <= 264 CTAs, cluster <= 8). Shared memory is
+    csrc/int4_gemv.cu's `smem_bytes`, which the launch checks. Raises
+    ValueError on a shape the kernel does not take."""
+    if (not 1 <= M <= GEMV_MAX_ROWS or I < 2 or O < 16 or O % 16 or group < 2 or group % 2
+            or I % group):
+        raise ValueError(f"int4_gemv: no K4 launch for M={M} I={I} O={O} group={group}")
+    mr = M if M <= 2 else _MAX_ROWS
+    tiles, row_groups, n_groups = -(-O // _K4_COLS), -(-M // mr), I // group
+    cluster = max(1, min(_MAX_CLUSTER, n_groups, _TARGET_CTAS // (tiles * row_groups)))
+    per = -(-n_groups // cluster)
+    cluster = -(-n_groups // per)
+    smem = (mr * per * group + mr * per + _K4_WARPS * mr * _K4_COLS + mr * _K4_COLS + _MAX_CLUSTER) * 4
+    if smem > _MAX_SMEM:
+        raise ValueError(f"int4_gemv: {smem} bytes of shared memory for I={I}")
+    return Int4GemvPlan((tiles * cluster, row_groups), cluster, per, smem, mr)
+
+
+def int4_gemv(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor, wmin: torch.Tensor) -> torch.Tensor:
+    """The int4 product of `int4_gemv_plain` for x [..., I] (at most 16
+    rows), packed uint8 [I/2, O], scale and wmin f32 [I/group, O]. A CUDA
+    tensor launches K4 (csrc/int4_gemv.cu: one launch, a cluster of CTAs
+    per column tile summing through distributed shared memory) and counts it
+    in `int4_gemv.launches`; a CPU tensor takes the plain version."""
+    if x.device.type == "cpu":
+        return int4_gemv_plain(x, packed, scale, wmin)
+    I2, O = packed.shape
+    I = 2 * I2
+    lead = x.shape[:-1]
+    M = x.numel() // x.shape[-1]
+    if (x.shape[-1] != I or M > GEMV_MAX_ROWS or scale.dim() != 2 or scale.shape[-1] != O
+            or wmin.shape != scale.shape or I % scale.shape[0]):
+        raise ValueError(f"int4_gemv shapes: x {tuple(x.shape)}, packed {tuple(packed.shape)}, "
+                         f"scale {tuple(scale.shape)}, wmin {tuple(wmin.shape)}")
+    if packed.dtype != torch.uint8 or scale.dtype != torch.float32 or wmin.dtype != torch.float32:
+        raise TypeError("int4_gemv takes uint8 packed, float32 scale and float32 wmin")
+    x2 = x.reshape(M, I).contiguous()
+    kernels.require_cuda(x2, packed, scale, wmin)
+    if O % 16 or any(t.data_ptr() % 16 for t in (packed, scale, wmin)):
+        raise ValueError("int4_gemv needs O % 16 == 0 and 16-byte aligned packed, scale and wmin")
+    group = I // scale.shape[0]
+    plan = _int4_plan(M, I, O, group)
+    lib = kernels.library()
+    y = torch.empty((M, O), dtype=x.dtype, device=x.device)
+    lib.call(
+        "fq3t_int4_gemv",
+        kernels.dtype_code(x), x2.data_ptr(), packed.data_ptr(), scale.data_ptr(), wmin.data_ptr(),
+        y.data_ptr(), M, I, O, group, plan.groups_per_cta, plan.cluster, plan.smem,
+        kernels.stream_handle(x.device),
+    )
+    int4_gemv.launches += 1
+    return y.reshape(*lead, O)
+
+
+int4_gemv.launches = 0
+
+
+def _int4_matmul(x: torch.Tensor, w: QuantizedLinear4) -> torch.Tensor:
+    """Many-row int4 product (prefill, prompt text): the plain grouped
+    product, as the JAX package leaves `_dot4` to XLA."""
+    return int4_gemv_plain(x, w.packed, w.scale, w.wmin)
+
+
 def dot(x: torch.Tensor, w) -> torch.Tensor:
     """x @ w with f32 accumulation, result in x.dtype; w is a plain tensor
-    [in, out] or a QuantizedLinear."""
+    [in, out], a QuantizedLinear or a QuantizedLinear4."""
+    rows = x.numel() // x.shape[-1]
     if isinstance(w, QuantizedLinear):
-        if x.numel() // x.shape[-1] <= GEMV_MAX_ROWS:
+        if rows <= GEMV_MAX_ROWS:
             return int8_gemv(x, w.q, w.scale)
         return _int8_matmul(x, w)
     if isinstance(w, QuantizedLinear4):
-        raise NotImplementedError("int4 weights are not ported yet")
+        if rows <= GEMV_MAX_ROWS:
+            return int4_gemv(x, w.packed, w.scale, w.wmin)
+        return _int4_matmul(x, w)
     # cuBLAS and the CPU accumulate in f32 and round the output once
     return torch.matmul(x, w.to(x.dtype))

@@ -23,11 +23,12 @@ The host reads the device once per chunk (the packed tokens and, when a
 lane is vocoded on the device, every lane's audio); lane insert and release
 are device writes. There is no dispatch-ahead.
 
-Kernels: at B lanes the talker's projections and codec head run K2 at M = B
-rows and the predictor's first pass at M = 2B; both go to K2 up to 16 rows,
-so up to 8 slots. With max_slots > 8 the predictor's first pass (and with
-max_slots > 16 every projection) has more than 16 rows and takes the
-many-row product `ops.quant._int8_matmul`, as a prefill does. K1 runs every
+Kernels: at B lanes the talker's projections and codec head run K2 (K4
+for int4 weights) at M = B rows and the predictor's first pass at M = 2B;
+both go to the kernel up to 16 rows, so up to 8 slots. With max_slots > 8
+the predictor's first pass (and with max_slots > 16 every projection) has
+more than 16 rows and takes the many-row product
+(`ops.quant._int8_matmul` / `_int4_matmul`), as a prefill does. K1 runs every
 lane of the pool in one launch, done lanes included.
 """
 from __future__ import annotations

@@ -17,7 +17,8 @@ ends in the same `materialize`:
   tensors (non-strict) are drawn as its `_finalize` draws them on the host.
   `export_hf_layout` writes a tree back out in that layout.
 - `materialize(tree, dtype, quant, device)`: round the talker and predictor
-  to `dtype`, optional host int8 quantization, `params_from_numpy` (torch,
+  to `dtype`, optional host quantization (int8, int4 or mixed; scales and
+  mins stay float32), `params_from_numpy` (torch,
   the conv layouts of `_LAYOUTS`), cast, move to `device`. Rounding float32
   to bfloat16 is round-to-nearest-even in both torch and ml_dtypes, so every
   leaf equals the JAX package's. `init_all` = materialize(init_numpy(...)).
@@ -401,8 +402,9 @@ def materialize(tree: Dict[str, Any], dtype=torch.bfloat16, quant: str = "none",
                 mark: Optional[Callable[[str], None]] = None) -> Dict[str, Any]:
     """A host tree in the JAX layouts (float32 numpy: `init_numpy`,
     `load_pretrained`, `load_hf_checkpoint`) -> the port's tree on `device`:
-    talker and predictor rounded to `dtype` (int8 projections when quant ==
-    "int8"), the codec and the encoders in float32. A random tree and a
+    talker and predictor rounded to `dtype` (their projections quantized
+    when quant is "int8", "int4" or "mixed": `quant.quantize_model_params`,
+    scales and mins kept in float32), the codec and the encoders in float32. A random tree and a
     loaded one are quantized and laid out by this same code. `mark(name)`
     is called after the "quantize" step, so that a caller can time it apart
     from the conversion and the transfer."""
@@ -434,7 +436,7 @@ def _to_device(node, device):
         return {k: _to_device(v, device) for k, v in node.items()}
     if isinstance(node, list):
         return [_to_device(v, device) for v in node]
-    if isinstance(node, tuple):  # QuantizedLinear nodes, the speaker encoder's (w, b) pairs
+    if isinstance(node, tuple):  # QuantizedLinear(4) nodes, the speaker encoder's (w, b) pairs
         items = [_to_device(x, device) for x in node]
         return type(node)(*items) if hasattr(node, "_fields") else tuple(items)
     return node.to(device)

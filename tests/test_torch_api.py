@@ -113,14 +113,16 @@ def test_non_streaming_generate_and_codec_decode_match_jax(models, xvec_prompt):
 
 
 def test_unported_prompts_raise(models, xvec_prompt):
-    """parity_mode and the native backend's cached-reference kwargs are
-    rejected at call time, as the JAX package rejects the latter."""
+    """parity_mode=True yields audio from the independent decode on both
+    voice-clone methods; the native backend's cached-reference kwargs are
+    rejected at call time, as the JAX package rejects them."""
     _, port = models
     kw = dict(voice_clone_prompt=xvec_prompt, max_new_tokens=4)
-    with pytest.raises(NotImplementedError, match="parity_mode"):
-        next(port.generate_voice_clone_streaming("Hi.", "English", parity_mode=True, **kw))
-    with pytest.raises(NotImplementedError, match="parity_mode"):
-        port.generate_voice_clone("Hi.", "English", parity_mode=True, **kw)
+    chunks = list(port.generate_voice_clone_streaming("Hi.", "English", parity_mode=True, seed=0, **kw))
+    assert chunks and all(sr == 24000 and a.dtype == np.float32 and np.isfinite(a).all() for a, sr, _ in chunks)
+    assert sum(a.size for a, _, _ in chunks) > 0
+    (wav,), sr = port.generate_voice_clone("Hi.", "English", parity_mode=True, seed=0, **kw)
+    assert sr == 24000 and wav.size > 0 and np.isfinite(wav).all()
     for name in ("ref_spk", "ref_rvq", "ref_spk_emb", "ref_codes"):
         with pytest.raises(NotImplementedError, match="native"):
             next(port.generate_voice_clone_streaming("Hi.", "English", **{name: np.zeros(4)}, **kw))

@@ -69,11 +69,21 @@ def test_load_flags_reach_from_pretrained(monkeypatch, flag, strict):
                     "strict": strict}
 
 
-def test_int4_is_not_ported():
-    args = build_parser().parse_args(["clone", "hi", "--ref-audio", "r.wav", "--xvec-only", "--quant", "Q4_K_M",
-                                      "--device", "cpu"])
-    with pytest.raises(NotImplementedError, match="not ported"):
-        cli._load_model(args)
+def test_int4_is_not_ported(monkeypatch):
+    """The int4 names (once refused here) reach `from_pretrained` unchanged."""
+    seen = []
+
+    def fake(model, **kw):
+        seen.append(kw["quant"])
+        raise RuntimeError("stop before the model is built")
+
+    monkeypatch.setattr("faster_qwen3_tts_tpu_torch.model.FasterQwen3TTS.from_pretrained", fake)
+    for name in ("Q4_K_M", "Q8_4"):
+        args = build_parser().parse_args(["clone", "hi", "--ref-audio", "r.wav", "--xvec-only", "--quant", name,
+                                          "--device", "cpu"])
+        with pytest.raises(RuntimeError, match="stop before"):
+            cli._load_model(args)
+    assert seen == ["Q4_K_M", "Q8_4"]
 
 
 def test_clone_end_to_end_on_the_cpu(tmp_path, capsys):

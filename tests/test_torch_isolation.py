@@ -25,7 +25,8 @@ MODEL_NAMES = ["Qwen/Qwen3-TTS-12Hz-0.6B-Base", "Qwen/Qwen3-TTS-12Hz-1.7B-Base",
 
 def test_port_runs_without_jax_or_the_jax_package(tmp_path):
     """In a fresh interpreter: import every module of the port, then run tiny
-    CPU generations (x-vector, ICL from a wav, CustomVoice, VoiceDesign)
+    CPU generations (x-vector, ICL from a wav, int4 and mixed weights through
+    the engine and the parity decode, CustomVoice, VoiceDesign)
     built only from the port's config, tokenizer and audio helpers; load an
     own-format and an HF checkpoint and bind the server. Neither jax, the
     JAX package, safetensors, aiohttp nor ml_dtypes is loaded."""
@@ -55,6 +56,14 @@ def test_port_runs_without_jax_or_the_jax_package(tmp_path):
         "n = sum(len(a) for a, _, _ in m.generate_voice_clone_streaming(\n"
         "    'Hi.', 'English', sys.argv[1], 'Ref.', max_new_tokens=6, chunk_size=4, seed=0))\n"
         "assert n > 0 and m._voice_prompt_cache\n"
+        "for mode in ('int4', 'mixed'):\n"
+        "    m4 = FasterQwen3TTS(weights.init_all(cfg, dtype=torch.float32, quant=mode, device='cpu'),\n"
+        "                        cfg, PromptTokenizer(ByteTokenizer()), max_seq_len=64)\n"
+        "    for parity_mode in (False, True):\n"
+        "        n = sum(len(a) for a, _, _ in m4.generate_voice_clone_streaming(\n"
+        "            'Hi.', 'English', voice_clone_prompt=prompt, max_new_tokens=6, chunk_size=4, seed=0,\n"
+        "            parity_mode=parity_mode))\n"
+        "        assert n > 0\n"
         "cv = get_config('1.7b-custom').talker\n"
         "c = FasterQwen3TTS(m.params, dataclasses.replace(\n"
         "    cfg, model_type='custom_voice', model_size='1b7', talker=dataclasses.replace(\n"

@@ -1,4 +1,4 @@
-"""K1, K2 and K3 on the card against their plain PyTorch versions.
+"""K1, K2, K3 and K4 on the card against their plain PyTorch versions.
 
 These need an NVIDIA GPU (CUDA kernels have no CPU mode) and skip without
 one. The file imports no jax, so it runs on a machine without it:
@@ -17,6 +17,8 @@ main-path shape with 1, 2, 8, 9 and 16 rows; bitwise-equal repeated calls;
 and both kernels captured in one CUDA graph and replayed on new inputs, at
 B = 1 and at the shapes of an 8-lane pool. K2's tensor-map cache: views of
 one buffer with other shapes, reallocated addresses, two launching threads.
+K4 (int4 GEMV) at every main-path shape with 1, 2, 8, 9 and 16 rows, bf16
+(2e-2) and float32 (1e-4) activations, its refusals, and a graph replay.
 """
 import numpy as np
 import pytest
@@ -258,6 +260,89 @@ def test_weight_stream_kernel(cuda_device, L, I, O):
     ref = ws.weight_stream_plain(x, w)
     assert ws.weight_stream.launches == before + 1
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-5 * ref.abs().max().item())
+
+
+# K4: every int4 projection shape of the 0.6B and 1.7B models (GEMV_SHAPES),
+# an input width that is one group (48: the tiny-layer fallback) and groups
+# that do not fill a cluster evenly (160 rows: 5 groups)
+GEMV4_SHAPES = GEMV_SHAPES + [(48, 32)]
+
+
+def _gemv4_inputs(device, M, I, O, seed=0, dtype=torch.bfloat16):
+    w = (np.random.default_rng(seed).standard_normal((I, O)) * 0.05).astype(np.float32)
+    ql = quant.quantize_linear4(w)
+    packed, scale, wmin = (torch.tensor(a).to(device) for a in ql)
+    x = torch.randn(M, I, generator=torch.Generator().manual_seed(seed + 1)).to(device, dtype)
+    return x, packed, scale, wmin
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 2, 8, 9, 16])
+@pytest.mark.parametrize("I, O", GEMV4_SHAPES)
+def test_int4_gemv_kernel(cuda_device, M, I, O):
+    x, packed, scale, wmin = _gemv4_inputs(cuda_device, M, I, O)
+    before = quant.int4_gemv.launches
+    out = quant.int4_gemv(x, packed, scale, wmin)
+    assert quant.int4_gemv.launches == before + 1
+    ref = quant.int4_gemv_plain(x.float(), packed, scale, wmin)
+    torch.testing.assert_close(out.float(), ref, atol=2e-2, rtol=2e-2)
+    assert torch.equal(out, quant.int4_gemv(x, packed, scale, wmin))  # sums in a fixed order
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M, I, O", [(3, 128, 64), (1, 1024, 3072), (16, 2048, 1024)])
+def test_int4_gemv_kernel_float32(cuda_device, M, I, O):
+    """float32 activations, as in the card-vs-CPU reference run: f32 sums of
+    up to 6144 products in another order."""
+    x, packed, scale, wmin = _gemv4_inputs(cuda_device, M, I, O, dtype=torch.float32)
+    torch.testing.assert_close(quant.int4_gemv(x, packed, scale, wmin),
+                               quant.int4_gemv_plain(x, packed, scale, wmin), atol=1e-4, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_int4_gemv_refuses_what_k4_does_not_take(cuda_device):
+    x, packed, scale, wmin = _gemv4_inputs(cuda_device, 2, 128, 64)
+    before = quant.int4_gemv.launches
+    with pytest.raises(ValueError):  # O % 16 != 0
+        quant.int4_gemv(x, packed[:, :40].contiguous(), scale[:, :40].contiguous(), wmin[:, :40].contiguous())
+    with pytest.raises(ValueError):  # more than 16 rows
+        quant.int4_gemv(torch.randn(17, 128, device=cuda_device).to(torch.bfloat16), packed, scale, wmin)
+    with pytest.raises(ValueError, match="CUDA"):  # a CPU weight with a CUDA activation
+        quant.int4_gemv(x, packed.cpu(), scale, wmin)
+    with pytest.raises(TypeError):
+        quant.int4_gemv(x, packed.to(torch.int8), scale, wmin)
+    assert quant.int4_gemv.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 16])
+def test_int4_gemv_in_a_cuda_graph(cuda_device, M):
+    """K4 captured in a CUDA graph and replayed on new inputs copied into the
+    captured buffers gives what an eager call gives."""
+    x, packed, scale, wmin = _gemv4_inputs(cuda_device, M, 1024, 3072)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        quant.int4_gemv(x, packed, scale, wmin)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = quant.int4_gemv(x, packed, scale, wmin)
+    for seed in (5, 6):
+        for dst, src in zip((x, packed, scale, wmin), _gemv4_inputs(cuda_device, M, 1024, 3072, seed=seed)):
+            dst.copy_(src)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(y, quant.int4_gemv(x, packed, scale, wmin))
+
+
+def test_int4_gemv_refuses_tensors_that_are_neither_cpu_nor_cuda():
+    before = quant.int4_gemv.launches
+    meta = torch.device("meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        quant.int4_gemv(torch.empty(1, 64, device=meta), torch.empty(32, 64, dtype=torch.uint8, device=meta),
+                        torch.empty(2, 64, device=meta), torch.empty(2, 64, device=meta))
+    assert quant.int4_gemv.launches == before
 
 
 def test_wrappers_refuse_tensors_that_are_neither_cpu_nor_cuda():

@@ -1,7 +1,7 @@
-"""K1's and K2's launch plans (the arithmetic kept in Python, beside the
-kernels' wrappers) at every main-path shape and at edge shapes. Runs on the
-CPU: the plans are what the wrappers hand to csrc/decode_attention.cu and
-csrc/int8_gemv.cu."""
+"""K1's, K2's and K4's launch plans (the arithmetic kept in Python, beside
+the kernels' wrappers) at every main-path shape and at edge shapes. Runs on
+the CPU: the plans are what the wrappers hand to csrc/decode_attention.cu,
+csrc/int8_gemv.cu and csrc/int4_gemv.cu."""
 import pytest
 
 from faster_qwen3_tts_tpu_torch.ops import attention, quant
@@ -54,6 +54,44 @@ def test_gemv_plan_fills_the_card_on_the_main_path(M, I, O):
 def test_gemv_plan_refuses(M, I, O):
     with pytest.raises(ValueError):
         quant._gemv_plan(M, I, O, 2)
+
+
+# (I, O, group): the int4 shapes of every projection (group 32), a layer that
+# is one group (48 rows), groups that split unevenly, a very long reduction
+EDGE_GEMV4 = [(96, 128, 32), (64, 32, 32), (48, 32, 48), (160, 48, 32), (2, 16, 2), (32768, 128, 32),
+              (256, 96, 64)]
+
+
+@pytest.mark.parametrize("M", [1, 2, 9, 16])
+@pytest.mark.parametrize("I, O, group", [(I, O, 32) for I, O in MAIN_GEMV] + EDGE_GEMV4)
+def test_int4_plan(M, I, O, group):
+    p = quant._int4_plan(M, I, O, group)
+    tiles, n_groups = -(-O // 128), I // group
+    mr = M if M <= 2 else 4
+    assert p.mr == mr and 1 <= p.cluster <= 8
+    assert p.grid == (tiles * p.cluster, -(-M // mr))
+    # every CTA of a cluster owns whole groups, the last at least one
+    assert p.groups_per_cta * p.cluster >= n_groups > p.groups_per_cta * (p.cluster - 1)
+    # about two CTAs an SM at most, unless one CTA a tile is already more
+    assert p.cluster == 1 or tiles * p.grid[1] * p.cluster <= 2 * SMS
+    # csrc/int4_gemv.cu smem_bytes: warp partials, cluster partials, x's slice, group sums
+    assert p.smem == (8 * mr * 128 + mr * 128 + 8 + mr * p.groups_per_cta * group + mr * p.groups_per_cta) * 4
+    assert p.smem <= SMEM_LIMIT
+
+
+@pytest.mark.parametrize("M", [1, 16])
+@pytest.mark.parametrize("I, O", [(1024, 1024), (1024, 3072), (2048, 1024)])
+def test_int4_plan_fills_the_card_on_the_main_path(M, I, O):
+    """At O = 1024 there are 8 column tiles: the split of I fills the card."""
+    p = quant._int4_plan(M, I, O, 32)
+    assert p.grid[0] * p.grid[1] >= 64
+
+
+@pytest.mark.parametrize("M, I, O, group", [(17, 1024, 1024, 32), (0, 1024, 1024, 32), (1, 1024, 40, 32),
+                                            (1, 66, 32, 33), (1, 96, 32, 64), (1, 1024, 8, 32)])
+def test_int4_plan_refuses(M, I, O, group):
+    with pytest.raises(ValueError):
+        quant._int4_plan(M, I, O, group)
 
 
 # (B, S_max, Hq, Hkv, D): the talker and predictor caches of both sizes, a
