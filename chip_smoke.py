@@ -20,7 +20,8 @@ Phases, each of which fails the run:
    calls: SDPA for K1, `torch._weight_int8pack_mm` for K2, and for scale
    the bf16 matmul), the bound (bytes over the HBM rate or operations over
    the peak rate, whichever is larger) and the median eager call time; K4
-   the same way at every 0.6B and 1.7B shape with 1, 2, 8 and 16 rows
+   the same way at every 0.6B and 1.7B shape with 1, 2, 8 and 16 rows, each
+   with the path its plan took (CUDA or tensor cores, tile, cluster, CTAs)
    (yardsticks `torch._weight_int4pack_mm` on the same nibbles with bf16
    scales and zeros, its error stated, and the bf16 matmul), one float32
    case and one replay in a CUDA graph;
@@ -88,9 +89,10 @@ Phases, each of which fails the run:
     logit cosine and top-10 overlap against float32, projection bytes);
     Q8_0, Q4_K_M and Q8_4 each serve a 32-frame x-vector stream, back to
     back (TTFA, RTF, peak memory, K2 and K4 launches per decode step; K4
-    must launch), Q4_K_M and Q8_4 a profiled 24-frame stream; on Q8_4 a
-    16-frame greedy `parity_mode` stream against the engine's (frames that
-    agree, reported);
+    must launch), Q4_K_M and Q8_4 a profiled 24-frame stream (K4's device us
+    a launch printed beside K2's from the Q8_0 and Q8_4 profiles of the same
+    run); on Q8_4 a 16-frame greedy `parity_mode` stream against the
+    engine's (frames that agree, reported);
 12. slice BF16: one x-vector request in BF16 (K1 only) and a B = 8 batch;
 13. slice 1.7B Q8_0: `from_pretrained("Qwen/Qwen3-TTS-12Hz-1.7B-CustomVoice",
    quant="Q8_0")`, `warmup()`, two CustomVoice streams (a plain speaker in
@@ -112,6 +114,7 @@ import argparse
 import contextlib
 import gc
 import json
+import math
 import resource
 import statistics
 import subprocess
@@ -463,8 +466,13 @@ def k4_phase(g):
             out = quant.int4_gemv(x, packed, scale, wmin)
             torch.cuda.synchronize()
             ref = quant.int4_gemv_plain(x.float(), packed, scale, wmin)
+            plan = quant._int4_plan(M, I, O, 32)  # an older tree's plan (timed in turns) lacks mma and cols
+            path = (f"{'tensor cores' if getattr(plan, 'mma', False) else 'CUDA cores'}, "
+                    f"{getattr(plan, 'cols', 128)}-column tiles, cluster {plan.cluster}, "
+                    f"{math.prod(plan.grid)} CTAs")
             name = f"K4 M={M} I={I} O={O} ({what})"
             err = check_close(name, out, ref, cases)
+            cases[-1]["path"] = path
             lib_err = None
             if lib_ws is not None:
                 try:
@@ -484,7 +492,7 @@ def k4_phase(g):
             # x, nibbles, scale and min, y; 2 flops per (row, weight) and the group terms
             timed.update(bound(M * I * 2 + wbytes + M * O * 2, 2 * M * I * O, x.dtype))
             cases[-1].update(timed, shape=(M, I, O))
-            log(f"{name}: max_abs_err {err:.3e} (atol {ATOL}, rtol {RTOL}); device ms per call: kernel "
+            log(f"{name} [{path}]: max_abs_err {err:.3e} (atol {ATOL}, rtol {RTOL}); device ms per call: kernel "
                 f"{timed['ms']:.5f} ({timed['gb_s']:.0f} GB/s of weights, scales and mins), plain "
                 f"{timed['plain_ms']:.5f}, int4 library call {_fmt(timed['library_ms'])} (bf16 scale/zero, "
                 f"max abs err {lib_err if lib_err is None else f'{lib_err:.3e}'}), bf16 matmul "
@@ -1289,6 +1297,13 @@ def slice_int4_phase(report, tree):
         del model, params, sess
         gc.collect()
         torch.cuda.empty_cache()
+    profiles = report.get("frame_profile", {})
+    q8, q4, q84 = (profiles.get(f"0.6B {q} x-vector") for q in ("Q8_0", "Q4_K_M", "Q8_4"))
+    if q8 and q4 and q84:
+        log(f"slice 0.6B, us per launch inside the frame ({CARD}): K4 {q4['K4']['us_per_launch']:.2f} (Q4_K_M), "
+            f"{q84['K4']['us_per_launch']:.2f} (Q8_4) beside K2 {q8['K2']['us_per_launch']:.2f} (Q8_0), "
+            f"{q84['K2']['us_per_launch']:.2f} (Q8_4); kernel ms a frame Q8_0 {q8['device_ms_per_frame']:.2f}, "
+            f"Q4_K_M {q4['device_ms_per_frame']:.2f}, Q8_4 {q84['device_ms_per_frame']:.2f}")
     report["quant_delta_0.6B"] = delta
     report["slice_int4_0.6B"] = rows
     return launches

@@ -39,7 +39,7 @@ _SIGNATURES = {
         [_int, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _float, _int, _int, _vp], _int,
     ),
     "fq3t_int8_gemv": ([_int, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int, _vp], _int),
-    "fq3t_int4_gemv": ([_int, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _int, _int, _vp], _int),
+    "fq3t_int4_gemv": ([_int, _vp, _vp, _vp, _vp, _vp] + [_int] * 12 + [_vp], _int),
     "fq3t_weight_stream": ([_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _vp], _int),
     "fq3t_weight_stream_block_cols": ([], _int),
     "fq3t_weight_stream_row_step": ([], _int),

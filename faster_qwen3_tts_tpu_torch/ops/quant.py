@@ -14,6 +14,7 @@ The fused wqkv / w_gateup layout (`fuse_layer_weights`) is not ported.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -288,50 +289,116 @@ def int4_gemv_plain(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor,
 
 
 # launch geometry of K4 (csrc/int4_gemv.cu)
-_K4_COLS = 128        # output columns per tile: 8 threads x 16 packed bytes
-_K4_WARPS = 8         # 256 threads
+_SMS = 132                # an H100's SMs
+_K4_COLS = (128, 64, 32)  # column tiles (one TMA swizzle mode each), widest first
+_K4_WARPS = 8             # 256 threads
+_K4_PAIR_SMEM = _MAX_SMEM // 2 - 1024  # a CTA's share when two run on an SM
+_K4_MMA_MIN_ROWS = 2      # bf16 rows from which K4 runs on the tensor cores (measured: PERF.md)
 
 
 class Int4GemvPlan(NamedTuple):
-    """One K4 launch: grid (tiles * cluster, row groups), clusters of
-    `cluster` CTAs along x, each reducing `groups_per_cta` quantization
-    groups of I, with `smem` bytes of dynamic shared memory; `mr` rows of x
-    per CTA."""
+    """One K4 launch: grid (cluster, column tiles, row groups); each CTA
+    takes `cols` output columns, `mr` rows of x and `groups_per_cta`
+    quantization groups of I (the `cluster` CTAs of a column tile split I),
+    copied whole into `smem` bytes of dynamic shared memory, x at `xs_pitch`
+    elements a row; each of its warps along I reduces `gpw` of the groups;
+    `mma`: the tensor-core path."""
 
-    grid: Tuple[int, int]
+    grid: Tuple[int, int, int]
     cluster: int
     groups_per_cta: int
     smem: int
     mr: int
+    cols: int
+    gpw: int
+    xs_pitch: int
+    mma: bool
 
 
-def _int4_plan(M: int, I: int, O: int, group: int) -> Int4GemvPlan:
-    """K4's launch for x [M, I] and a [I/2, O] packed weight in groups of
-    `group` rows. The cluster of each 128-column tile splits I into whole
-    groups, as many slabs as fill the card about twice (tiles x row groups x
-    cluster <= 264 CTAs, cluster <= 8). Shared memory is
-    csrc/int4_gemv.cu's `smem_bytes`, which the launch checks. Raises
-    ValueError on a shape the kernel does not take."""
-    if (not 1 <= M <= GEMV_MAX_ROWS or I < 2 or O < 16 or O % 16 or group < 2 or group % 2
-            or I % group):
-        raise ValueError(f"int4_gemv: no K4 launch for M={M} I={I} O={O} group={group}")
-    mr = M if M <= 2 else _MAX_ROWS
-    tiles, row_groups, n_groups = -(-O // _K4_COLS), -(-M // mr), I // group
-    cluster = max(1, min(_MAX_CLUSTER, n_groups, _TARGET_CTAS // (tiles * row_groups)))
+def _k4_warps_along_i(mma: bool, cols: int) -> int:
+    return _K4_WARPS // (cols // 32) if mma else _K4_WARPS
+
+
+def _int4_smem(plan: Int4GemvPlan, group: int, elt: int) -> int:
+    """csrc/int4_gemv.cu's `layout(...).total`: the slab's packed rows, its
+    groups' scale and min rows, x's slice, the warps' partial sums, the
+    cluster's, the merge's mbarrier and the alignment of the base to 1024
+    bytes."""
+    def up(v: int, a: int) -> int:
+        return -(-v // a) * a
+
+    per = plan.groups_per_cta
+    slots = -(-plan.mr * plan.cols // plan.cluster)
+    return (up(per * (group // 2) * plan.cols, 1024) + 2 * per * plan.cols * 4
+            + up(plan.mr * plan.xs_pitch * elt, 128) + _k4_warps_along_i(plan.mma, plan.cols) * plan.mr * plan.cols * 4
+            + up(plan.cluster * slots * 4, 16) + 16 + 1024)
+
+
+def _int4_candidate(M: int, I: int, O: int, group: int, elt: int, mma: bool, mr: int, cols: int,
+                    cluster: int):
+    """The launch with `cols`-column tiles and at most `cluster` CTAs a tile,
+    or None where its slab does not fit in shared memory."""
+    n_groups = I // group
     per = -(-n_groups // cluster)
     cluster = -(-n_groups // per)
-    smem = (mr * per * group + mr * per + _K4_WARPS * mr * _K4_COLS + mr * _K4_COLS + _MAX_CLUSTER) * 4
-    if smem > _MAX_SMEM:
-        raise ValueError(f"int4_gemv: {smem} bytes of shared memory for I={I}")
-    return Int4GemvPlan((tiles * cluster, row_groups), cluster, per, smem, mr)
+    gpw = -(-per // _k4_warps_along_i(mma, cols))
+    words = -(-per * group * elt // 16) * 4  # x's row in 32-bit words, 16-byte aligned
+    words += (4 - words % 32) % 32           # = 4 mod 32: the tensor-core path's x reads hit 32 banks
+    plan = Int4GemvPlan((cluster, -(-O // cols), -(-M // mr)), cluster, per, 0, mr, cols, gpw,
+                        words * 4 // elt, mma)
+    smem = _int4_smem(plan, group, elt)
+    return None if smem > _MAX_SMEM else plan._replace(smem=smem)
+
+
+@functools.lru_cache(maxsize=None)  # a decode step asks for the same few launches hundreds of times
+def _int4_plan(M: int, I: int, O: int, group: int, elt: int = 2) -> Int4GemvPlan:
+    """K4's launch for x [M, I] of `elt`-byte elements (2: bf16, 4: f32) and
+    a [I/2, O] packed weight in groups of `group` rows.
+
+    Path: the tensor cores for bf16 x from `_K4_MMA_MIN_ROWS` rows when the
+    group is a multiple of 16 (one weight pass for up to 16 rows), else the
+    CUDA cores (up to 4 rows a CTA). Tiles: among column widths of 128, 64
+    and 32 and clusters of 1-8 CTAs splitting I, the launches whose slabs fit
+    in shared memory; of those, one whose CTAs are all resident at once
+    (within a CTA's share of an SM when there are more CTAs than SMs), then
+    one with at least 132 CTAs (every SM busy), then the fewest CTAs a
+    cluster (its barrier costs ~0.5 us), then the widest tile. Where no slab
+    of 16 rows of x fits (a very long I), the tensor cores take 8 rows a
+    CTA. A CTA holds its whole slab, so I is bounded (at group 32: 65536 at
+    one row, 40960 at 16). Shared memory is csrc/int4_gemv.cu's layout,
+    which the launch checks. Raises ValueError on a shape the kernel does
+    not take."""
+    if (not 1 <= M <= GEMV_MAX_ROWS or I < 2 or O < 16 or O % 16 or group < 2 or group % 2
+            or I % group or elt not in (2, 4)):
+        raise ValueError(f"int4_gemv: no K4 launch for M={M} I={I} O={O} group={group}")
+    mma = elt == 2 and group % 16 == 0 and M >= _K4_MMA_MIN_ROWS
+    rows = ((8 if M <= 8 else 16), 8) if mma else ((M if M <= 2 else _MAX_ROWS),)
+    for mr in rows:
+        best, best_key = None, None
+        for cols in _K4_COLS:
+            for cluster in range(1, min(_MAX_CLUSTER, I // group) + 1):
+                plan = _int4_candidate(M, I, O, group, elt, mma, mr, cols, cluster)
+                if plan is None or plan.cluster != cluster:
+                    continue
+                ctas = plan.grid[0] * plan.grid[1] * plan.grid[2]
+                resident = ctas <= _SMS or (ctas <= 2 * _SMS and plan.smem <= _K4_PAIR_SMEM)
+                key = (not resident, ctas < _SMS, cluster, -cols)
+                if best_key is None or key < best_key:
+                    best, best_key = plan, key
+        if best is not None:
+            return best
+    raise ValueError(f"int4_gemv: no K4 launch fits shared memory for I={I} group={group}")
 
 
 def int4_gemv(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor, wmin: torch.Tensor) -> torch.Tensor:
     """The int4 product of `int4_gemv_plain` for x [..., I] (at most 16
     rows), packed uint8 [I/2, O], scale and wmin f32 [I/group, O]. A CUDA
-    tensor launches K4 (csrc/int4_gemv.cu: one launch, a cluster of CTAs
-    per column tile summing through distributed shared memory) and counts it
-    in `int4_gemv.launches`; a CPU tensor takes the plain version."""
+    tensor launches K4 (csrc/int4_gemv.cu: one launch; every weight byte
+    copied into shared memory at the start, one round trip; CUDA cores or,
+    for 2-16 bf16 rows, the tensor cores; a cluster of CTAs per column tile
+    summing through distributed shared memory where the column tiles alone
+    do not fill the card) and counts it in `int4_gemv.launches`; a CPU
+    tensor takes the plain version."""
     if x.device.type == "cpu":
         return int4_gemv_plain(x, packed, scale, wmin)
     I2, O = packed.shape
@@ -349,14 +416,14 @@ def int4_gemv(x: torch.Tensor, packed: torch.Tensor, scale: torch.Tensor, wmin: 
     if O % 16 or any(t.data_ptr() % 16 for t in (packed, scale, wmin)):
         raise ValueError("int4_gemv needs O % 16 == 0 and 16-byte aligned packed, scale and wmin")
     group = I // scale.shape[0]
-    plan = _int4_plan(M, I, O, group)
+    plan = _int4_plan(M, I, O, group, x2.element_size())
     lib = kernels.library()
     y = torch.empty((M, O), dtype=x.dtype, device=x.device)
     lib.call(
         "fq3t_int4_gemv",
         kernels.dtype_code(x), x2.data_ptr(), packed.data_ptr(), scale.data_ptr(), wmin.data_ptr(),
-        y.data_ptr(), M, I, O, group, plan.groups_per_cta, plan.cluster, plan.smem,
-        kernels.stream_handle(x.device),
+        y.data_ptr(), M, I, O, group, plan.groups_per_cta, plan.cluster, plan.cols, plan.gpw, plan.xs_pitch,
+        plan.mr, int(plan.mma), plan.smem, kernels.stream_handle(x.device),
     )
     int4_gemv.launches += 1
     return y.reshape(*lead, O)

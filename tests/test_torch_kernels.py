@@ -17,8 +17,10 @@ main-path shape with 1, 2, 8, 9 and 16 rows; bitwise-equal repeated calls;
 and both kernels captured in one CUDA graph and replayed on new inputs, at
 B = 1 and at the shapes of an 8-lane pool. K2's tensor-map cache: views of
 one buffer with other shapes, reallocated addresses, two launching threads.
-K4 (int4 GEMV) at every main-path shape with 1, 2, 8, 9 and 16 rows, bf16
-(2e-2) and float32 (1e-4) activations, its refusals, and a graph replay.
+K4 (int4 GEMV) at every main-path shape with 1, 2, 3, 4, 5, 8, 9 and 16
+rows (1 and 2: either side of the switch to the tensor cores), other group
+sizes and a very long reduction, bf16 (2e-2) and float32 (1e-4)
+activations, its refusals, and a graph replay.
 """
 import numpy as np
 import pytest
@@ -268,16 +270,16 @@ def test_weight_stream_kernel(cuda_device, L, I, O):
 GEMV4_SHAPES = GEMV_SHAPES + [(48, 32)]
 
 
-def _gemv4_inputs(device, M, I, O, seed=0, dtype=torch.bfloat16):
+def _gemv4_inputs(device, M, I, O, seed=0, dtype=torch.bfloat16, group=32):
     w = (np.random.default_rng(seed).standard_normal((I, O)) * 0.05).astype(np.float32)
-    ql = quant.quantize_linear4(w)
+    ql = quant.quantize_linear4(w, group)
     packed, scale, wmin = (torch.tensor(a).to(device) for a in ql)
     x = torch.randn(M, I, generator=torch.Generator().manual_seed(seed + 1)).to(device, dtype)
     return x, packed, scale, wmin
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("M", [1, 2, 8, 9, 16])
+@pytest.mark.parametrize("M", [1, 2, 3, 4, 5, 8, 9, 16])  # 1 / 2: the last CUDA-core and first mma row counts
 @pytest.mark.parametrize("I, O", GEMV4_SHAPES)
 def test_int4_gemv_kernel(cuda_device, M, I, O):
     x, packed, scale, wmin = _gemv4_inputs(cuda_device, M, I, O)
@@ -289,8 +291,27 @@ def test_int4_gemv_kernel(cuda_device, M, I, O):
     assert torch.equal(out, quant.int4_gemv(x, packed, scale, wmin))  # sums in a fixed order
 
 
+# (M, I, O, group): ten groups of 48 on the tensor cores (16 and 4 rows) and
+# on the CUDA cores (1 row); groups of 2 and of 6 (not a multiple of 16: CUDA
+# cores at every row count); a very long reduction on both paths (16 rows of
+# x do not fit beside it: two CTAs of 8 rows)
+K4_GROUP_CASES = [(16, 480, 64, 48), (4, 480, 64, 48), (1, 480, 64, 48), (16, 64, 32, 2), (7, 96, 48, 6),
+                  (1, 32768, 128, 32), (16, 32768, 128, 32)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("M, I, O", [(3, 128, 64), (1, 1024, 3072), (16, 2048, 1024)])
+@pytest.mark.parametrize("M, I, O, group", K4_GROUP_CASES)
+def test_int4_gemv_kernel_other_groups(cuda_device, M, I, O, group):
+    x, packed, scale, wmin = _gemv4_inputs(cuda_device, M, I, O, group=group)
+    assert I // scale.shape[0] == group
+    out = quant.int4_gemv(x, packed, scale, wmin)
+    ref = quant.int4_gemv_plain(x.float(), packed, scale, wmin)
+    torch.testing.assert_close(out.float(), ref, atol=2e-2, rtol=2e-2)
+    assert torch.equal(out, quant.int4_gemv(x, packed, scale, wmin))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M, I, O", [(3, 128, 64), (1, 1024, 3072), (16, 2048, 1024), (16, 6144, 2048)])
 def test_int4_gemv_kernel_float32(cuda_device, M, I, O):
     """float32 activations, as in the card-vs-CPU reference run: f32 sums of
     up to 6144 products in another order."""

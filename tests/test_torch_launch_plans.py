@@ -62,29 +62,74 @@ EDGE_GEMV4 = [(96, 128, 32), (64, 32, 32), (48, 32, 48), (160, 48, 32), (2, 16, 
               (256, 96, 64)]
 
 
+def _k4_smem(p, group, elt):
+    """csrc/int4_gemv.cu's shared-memory layout, written out: the slab's
+    packed rows, its groups' scale and min rows, x's slice, the warps'
+    partial sums, the cluster's, the merge's mbarrier and 1024 bytes to
+    align the base."""
+    def up(v, a):
+        return -(-v // a) * a
+
+    warps = 8 // (p.cols // 32) if p.mma else 8
+    per = p.groups_per_cta
+    return (up(per * (group // 2) * p.cols, 1024) + 2 * per * p.cols * 4 + up(p.mr * p.xs_pitch * elt, 128)
+            + warps * p.mr * p.cols * 4 + up(p.cluster * -(-p.mr * p.cols // p.cluster) * 4, 16) + 16 + 1024)
+
+
 @pytest.mark.parametrize("M", [1, 2, 9, 16])
 @pytest.mark.parametrize("I, O, group", [(I, O, 32) for I, O in MAIN_GEMV] + EDGE_GEMV4)
-def test_int4_plan(M, I, O, group):
-    p = quant._int4_plan(M, I, O, group)
-    tiles, n_groups = -(-O // 128), I // group
-    mr = M if M <= 2 else 4
-    assert p.mr == mr and 1 <= p.cluster <= 8
-    assert p.grid == (tiles * p.cluster, -(-M // mr))
+@pytest.mark.parametrize("elt", [2, 4])
+def test_int4_plan(M, I, O, group, elt):
+    p = quant._int4_plan(M, I, O, group, elt)
+    n_groups, half = I // group, group // 2
+    # the path: the tensor cores for bf16 from 2 rows with groups of 16k, all
+    # rows in one CTA (8 a CTA only where 16 rows of x do not fit: I = 32768)
+    assert p.mma == (elt == 2 and group % 16 == 0 and M >= 2)
+    if p.mma:
+        assert p.mr == (8 if M <= 8 else 16) or (p.mr == 8 and I == 32768)
+    else:
+        assert p.mr == (M if M <= 2 else 4)
+    assert p.cols in (32, 64, 128) and 1 <= p.cluster <= 8
+    assert p.grid == (p.cluster, -(-O // p.cols), -(-M // p.mr))
     # every CTA of a cluster owns whole groups, the last at least one
     assert p.groups_per_cta * p.cluster >= n_groups > p.groups_per_cta * (p.cluster - 1)
-    # about two CTAs an SM at most, unless one CTA a tile is already more
-    assert p.cluster == 1 or tiles * p.grid[1] * p.cluster <= 2 * SMS
-    # csrc/int4_gemv.cu smem_bytes: warp partials, cluster partials, x's slice, group sums
-    assert p.smem == (8 * mr * 128 + mr * 128 + 8 + mr * p.groups_per_cta * group + mr * p.groups_per_cta) * 4
-    assert p.smem <= SMEM_LIMIT
+    # each warp along I reduces gpw of the CTA's groups (a tensor-core warp's
+    # groups start on an 8-row swizzle atom: 16k-row groups)
+    warps = 8 // (p.cols // 32) if p.mma else 8
+    assert warps * p.gpw >= p.groups_per_cta > warps * (p.gpw - 1)
+    assert not p.mma or half % 8 == 0
+    # x's staged rows: the slab's elements, 16-byte aligned, 4 mod 32 words (no bank conflicts on the mma path)
+    assert p.xs_pitch >= p.groups_per_cta * group and p.xs_pitch * elt % 16 == 0
+    assert p.xs_pitch * elt // 4 % 32 == 4
+    assert p.smem == _k4_smem(p, group, elt) <= SMEM_LIMIT
 
 
-@pytest.mark.parametrize("M", [1, 16])
-@pytest.mark.parametrize("I, O", [(1024, 1024), (1024, 3072), (2048, 1024)])
+@pytest.mark.parametrize("M", [1, 2, 8, 16])
+@pytest.mark.parametrize("I, O", MAIN_GEMV)
 def test_int4_plan_fills_the_card_on_the_main_path(M, I, O):
-    """At O = 1024 there are 8 column tiles: the split of I fills the card."""
+    """Every decode projection gets at least 132 CTAs (O = 1024 included:
+    32-column tiles in clusters of 5), all resident at once (two an SM at
+    most, within half an SM's shared memory each), with all rows of x in one
+    row group."""
     p = quant._int4_plan(M, I, O, 32)
-    assert p.grid[0] * p.grid[1] >= 64
+    ctas = p.grid[0] * p.grid[1] * p.grid[2]
+    assert SMS <= ctas <= 2 * SMS and p.grid[2] == 1
+    assert ctas == SMS or p.smem <= SMEM_LIMIT // 2 - 1024
+    # no cluster (no barrier) where 32-column tiles alone fill the card and fit two an SM
+    solo = quant._int4_candidate(M, I, O, 32, 2, p.mma, p.mr, 32, 1)
+    if -(-O // 32) >= SMS and solo is not None and solo.smem <= SMEM_LIMIT // 2 - 1024:
+        assert p.cluster == 1
+
+
+@pytest.mark.parametrize("M, elt, group, mma", [(1, 2, 32, False), (2, 2, 32, True), (3, 2, 32, True),
+                                                (16, 2, 32, True), (16, 2, 48, True), (16, 2, 2, False),
+                                                (16, 2, 6, False), (16, 4, 32, False), (5, 4, 48, False)])
+def test_int4_plan_picks_the_path(M, elt, group, mma):
+    """The tensor cores take bf16 x from 2 rows when the group is a multiple
+    of 16; f32 x and other groups stay on the CUDA cores, 4 rows a CTA."""
+    p = quant._int4_plan(M, 480 if group in (48, 6) else 1024, 1024, group, elt)
+    assert p.mma == mma
+    assert p.grid[2] == (1 if mma else -(-M // p.mr))
 
 
 @pytest.mark.parametrize("M, I, O, group", [(17, 1024, 1024, 32), (0, 1024, 1024, 32), (1, 1024, 40, 32),
