@@ -53,43 +53,54 @@ Phases, each of which fails the run:
    under build/ and loaded by `from_pretrained(dir, quant="Q8_0",
    strict=True)`: full coverage, every leaf bitwise equal to `materialize`
    of the same tree; export, load phases and times; the directory is
-   deleted. On that model `warmup()`,
+   deleted. On that model `warmup()` (the graphs of the JAX warmup's
+   set: its phases, captures, seconds and graph memory are printed),
    then two streaming x-vector voice-clone requests (chunk 8, first chunk
-   4, 32 frames); checks the audio, that K1 and K2 carried the run, and
-   greedy determinism; prints TTFA and stream RTF per request; then one
-   24-frame stream under torch.profiler: K1 and K2 device ms and launches
-   per frame;
+   4, 32 frames) that must run no frame eagerly; checks the audio, that K1
+   and K2 carried the run, and greedy determinism; prints TTFA and stream
+   RTF per request; then one 24-frame stream under torch.profiler: K1 and
+   K2 device ms and launches per frame (over graph replays);
+7b. graphs on the same Q8_0 model: from one start state, 32 replays of the
+   captured frame against eager `core.decode_chunk` (packed rows, pos, done
+   and KV cache exact), greedy and sampled with one seed; a (8, 24) window
+   replay against eager `_vocode_window` (1e-5); the captured frame's ms
+   (CUDA events) against the eager frame's and the kernels' ms a frame and
+   busy share (torch.profiler over the replays);
 8. slice ICL on the same Q8_0 model: `create_voice_clone_prompt` timed on a
    4.0 s recording; ICL streams from `ref_audio` with a long reference
    (~56 frames: every chunk vocoded on the card) and a short one (~19
    frames: host decode with the reference prepended until 24 frames), one
    `xvec_only` stream, one non-streaming ICL request; checks sample counts,
    that K1 and K2 carried these requests, and greedy determinism;
-9. batches on the same Q8_0 model: eight solo greedy x-vector streams,
-   then `generate_voice_clone_streaming_batch` of the same requests at B =
-   1, 2, 4, 8 (64 frames a lane): aggregate RTF, TTFA per lane, K1 and K2
+9. batches on the same Q8_0 model: the lockstep graphs captured first
+   (B = 8 under a tally of K1's lanes and K2's rows), eight solo greedy
+   x-vector streams, then `generate_voice_clone_streaming_batch` of the
+   same requests at B = 1, 2, 4, 8 (64 frames a lane, no eager frame): aggregate RTF, TTFA per lane, K1 and K2
    launches per decode step (which must not grow with B), the lanes' row
    and lane counts at K2 and K1 (B = 8 must launch K1 at 8 lanes and K2 at
    8 and 16 rows), each lane's agreement with its solo stream, the B = 8
    batch in reverse lane order (each request's tokens must not change), and
    a B = 8 run under torch.profiler (K1 and K2 device ms and launches per
-   step, busy share); then a ContinuousBatcher (8 slots) answering 12
+   step, busy share); then the pool's graphs captured (`warmup(pool_slots=8)`)
+   and a ContinuousBatcher (8 slots, no eager frame) answering 12
    requests (8 x-vector, 4 ICL) submitted from a thread every 150 ms, one
    cancelled at its first audio and one with text over the pool's bucket:
    every stream must end once, those two with `cancelled` and `error`;
    TTFA from submit p50 / max, aggregate RTF, peak memory;
-10. serve on the same Q8_0 model: `server.make_server(model, continuous=8)`
-   on a thread, an x-vector and an ICL voice from the 4.0 s recording; 4
+10. serve on the same Q8_0 model: `server.warm(model, continuous=8)` (what
+   `--warmup` runs), `server.make_server(model, continuous=8)` on a thread, an x-vector and an ICL voice from the 4.0 s recording; 4
    concurrent POSTs (2 wav, 1 pcm, 1 ICL), a bad chunk_size and an unknown
    response_format (400), a client that closes after its first audio bytes
    (its lane must be released), GET /health; every 200 body a 24 kHz wav or
-   PCM16 stream, K1 and K2 launched; POST to first audio byte per request;
+   PCM16 stream, K1 and K2 launched, no eager frame; POST to first audio
+   byte per request;
 11. int4 slice: the same seeded 0.6B tree (one `init_numpy`) materialized
     in float32, BF16, Q8_0, Q4_K_M and Q8_4: the quant_delta row (prefill
     logit cosine and top-10 overlap against float32, projection bytes);
     Q8_0, Q4_K_M and Q8_4 each serve a 32-frame x-vector stream, back to
     back (TTFA, RTF, peak memory, K2 and K4 launches per decode step; K4
-    must launch), Q4_K_M and Q8_4 a profiled 24-frame stream (K4's device us
+    must launch; no eager frame), Q4_K_M the graphs check of 7b (greedy),
+    Q4_K_M and Q8_4 a profiled 24-frame stream (K4's device us
     a launch printed beside K2's from the Q8_0 and Q8_4 profiles of the same
     run); on Q8_4 a 16-frame greedy `parity_mode` stream against the
     engine's (frames that agree, reported);
@@ -103,7 +114,11 @@ Phases, each of which fails the run:
    load and warmup time, TTFA and stream RTF per request, peak memory; then
    a 24-frame CustomVoice stream under torch.profiler, as in 7.
 
-The run fails if jax or any module of the JAX package (faster_qwen3_tts_tpu)
+Kernel launches are counted replay-aware: each wrapper counts its eager
+launches and those it records into a graph at capture; `engine.graphs`
+counts what replays launched (a graph's launches at capture times its
+replays); a path fails if one of its kernels launched no time. The run
+fails if jax or any module of the JAX package (faster_qwen3_tts_tpu)
 was loaded.
 The second-to-last line is the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`. Any failure exits non-zero before them.
@@ -904,20 +919,46 @@ def run_request(model, seed, greedy=False, frames=FRAMES, method="generate_voice
 
 
 def _reset_launches():
+    from faster_qwen3_tts_tpu_torch.engine import graphs
     from faster_qwen3_tts_tpu_torch.ops import attention
     from faster_qwen3_tts_tpu_torch.ops import quant as quant_ops
 
     attention.decode_attention.launches = 0
     quant_ops.int8_gemv.launches = 0
     quant_ops.int4_gemv.launches = 0
+    graphs.reset_replayed()
 
 
 def _read_launches():
+    """Kernel launches since `_reset_launches`: the wrappers' counts (eager
+    launches, and launches recorded into a graph at its capture) plus the
+    launches that graph replays made (each graph's count at capture times its
+    replays)."""
+    from faster_qwen3_tts_tpu_torch.engine import graphs
     from faster_qwen3_tts_tpu_torch.ops import attention
     from faster_qwen3_tts_tpu_torch.ops import quant as quant_ops
 
-    return {"K1": attention.decode_attention.launches, "K2": quant_ops.int8_gemv.launches,
-            "K4": quant_ops.int4_gemv.launches}
+    return {"K1": attention.decode_attention.launches + graphs.replayed["K1"],
+            "K2": quant_ops.int8_gemv.launches + graphs.replayed["K2"],
+            "K4": quant_ops.int4_gemv.launches + graphs.replayed["K4"]}
+
+
+def _eager_frames():
+    """Frames run eagerly on the card so far (capture warm-ups included)."""
+    from faster_qwen3_tts_tpu_torch.engine import core
+
+    return core._decode_frame.eager_cuda
+
+
+@contextlib.contextmanager
+def no_eager_frames(what):
+    """Fail if a frame ran eagerly on the card inside the block (after a
+    warmup that captured its keys, every frame must be a replay)."""
+    before = _eager_frames()
+    yield
+    ran = _eager_frames() - before
+    if ran:
+        fail(f"{what}: {ran} frames ran eagerly on the card after warmup")
 
 
 def _profile_row(prof, frames, wall_s):
@@ -931,7 +972,8 @@ def _profile_row(prof, frames, wall_s):
     events = prof.key_averages()
     total_us = sum(device_us(e) for e in events)
     row = {"frames": frames, "wall_ms_per_frame": wall_s * 1e3 / frames,
-           "device_ms_per_frame": total_us / 1e3 / frames, "busy_share": total_us / 1e6 / wall_s}
+           "device_ms_per_frame": total_us / 1e3 / frames, "busy_share": total_us / 1e6 / wall_s,
+           "device_ops_per_frame": sum(e.count for e in events if device_us(e) > 0) / frames}
     for kname, needle in (("K1", "decode_attn_kernel"), ("K2", "int8_gemv_kernel"), ("K4", "int4_gemv_kernel")):
         hits = [e for e in events if needle in e.key]
         row[kname] = {"ms_per_frame": sum(device_us(e) for e in hits) / 1e3 / frames,
@@ -970,6 +1012,130 @@ def frame_profile(model, name, report, method="generate_voice_clone_streaming", 
     report.setdefault("frame_profile", {})[name] = row
 
 
+GRAPH_FRAMES = 32  # frames of the replayed chunk held against the eager engine
+
+
+def graphs_phase(model, name, report, modes=("greedy", "sampled")):
+    """The captured decode at full width against the eager engine. From one
+    start state (the session's prefill into its leased set, and the eager
+    `core.start_state` with the same seed: their tokens and caches must be
+    equal), one chunk of 32 replays of the frame graph against eager
+    `core.decode_chunk`: packed rows (tokens, valid and done flags) exact,
+    greedy and (modes) sampled with one seed; one (8, 24) window replay
+    against eager `_vocode_window` (max abs diff 1e-5). Then, on the same set,
+    the ms a frame of 32 replays (CUDA events) beside the eager frame's (host
+    clock, synchronized), the kernels' device ms a frame and the device's
+    busy share from torch.profiler over 32 replays, and the window's replay
+    against its eager run."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from faster_qwen3_tts_tpu_torch.engine import core, fused_stream, graphs
+    from faster_qwen3_tts_tpu_torch.engine import generate as gen_lib
+    from faster_qwen3_tts_tpu_torch.ops.sampling import SamplingParams
+
+    params, cfg, n = model.params, model.config, GRAPH_FRAMES
+    tie, tam, tth, tpe, _ = model._prepare_generation(TEXT, language="English", voice_clone_prompt=_xvec_prompt(0))
+    samplings = {"greedy": (SamplingParams(do_sample=False), gen_lib.predictor_sampling(False)),
+                 "sampled": (SamplingParams(), gen_lib.predictor_sampling())}
+    row = {"card": CARD, "frames": n}
+    for mode in modes:
+        ts, ps = samplings[mode]
+        sess = gen_lib.GenerationSession(params, cfg, tie, tam, tth, tpe, model.max_seq_len, ts, ps, 2, seed=13)
+        try:
+            sess.prefill()
+            gset = sess.graphs
+            gen = torch.Generator(device="cuda").manual_seed(13)
+            state, _ = core.start_state(params["talker"], cfg.talker, sess.tie, sess.mask, gen, model.max_seq_len,
+                                        ts, 2)
+            if not (torch.equal(state.token, gset.state.token) and torch.equal(state.cache.k, gset.state.cache.k)
+                    and torch.equal(state.pos, gset.state.pos)):
+                fail(f"graphs {name} ({mode}): the session's start state differs from the eager one")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, eager = core.decode_chunk(params["talker"], params["predictor"], cfg.talker, cfg.predictor,
+                                             state, sess.tth, sess.tpe, n, ts, ps, 2)
+            torch.cuda.synchronize()
+            eager_ms = (time.perf_counter() - t0) * 1e3 / n
+            replayed = sess.decode_chunk_async(n)
+            equal = bool(torch.equal(eager, replayed))
+            same_state = bool(torch.equal(state.pos, gset.state.pos) and torch.equal(state.done, gset.state.done)
+                              and torch.equal(state.cache.k, gset.state.cache.k))
+            valid = int(eager[:, 0, -2].sum())
+            log(f"graphs {name} ({mode}, seed 13): {n} replayed frames against eager core.decode_chunk: rows "
+                f"equal {equal}, state (pos, done, KV cache) equal {same_state}; {valid} valid frames")
+            if not equal or not same_state:
+                diff = (eager != replayed).nonzero()
+                fail(f"graphs {name} ({mode}): the replayed chunk differs from eager (first rows {diff[:4].tolist()})")
+            row[mode] = {"rows_equal": equal, "state_equal": same_state, "valid_frames": valid,
+                         "eager_ms_per_frame": eager_ms}
+            if mode != modes[0]:
+                continue
+            # the window: its replay against its eager run on the same static buffers
+            frames_b = eager[:, :, :cfg.talker.num_code_groups].transpose(0, 1).cpu().numpy()
+            gset.set_history(frames_b, gen_lib.CONTEXT_FRAMES)
+            audio = gset.vocode(params, CHUNK, gen_lib.CONTEXT_FRAMES).clone()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = fused_stream._vocode_window(params["codec"], cfg.talker, cfg.codec,
+                                               gset.hist(gen_lib.CONTEXT_FRAMES), gset.packed[:CHUNK], CHUNK,
+                                               gen_lib.CONTEXT_FRAMES)
+            torch.cuda.synchronize()
+            window_eager_ms = (time.perf_counter() - t0) * 1e3
+            w_err = float((audio.float() - want.float()).abs().max())
+            if audio.shape != want.shape or not w_err <= 1e-5 or not torch.isfinite(audio).all():
+                fail(f"graphs {name}: the window replay differs from eager _vocode_window by {w_err}")
+            # times of the captured frame and window on this set
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev[0].record()
+            sess.decode_chunk_async(n)
+            ev[1].record()
+            host_ms = (time.perf_counter() - t0) * 1e3 / n  # the host's cost to queue a frame
+            ev[1].synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3 / n
+            ev[2].record()
+            gset.vocode(params, CHUNK, gen_lib.CONTEXT_FRAMES)
+            ev[3].record()
+            ev[3].synchronize()
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sess.decode_chunk_async(n)
+                torch.cuda.synchronize()
+                prof_wall = time.perf_counter() - t0
+            prof_row = _profile_row(prof, n, prof_wall)
+            row.update(window_max_abs_err=w_err, window_tolerance=1e-5, frame_ms=ev[0].elapsed_time(ev[1]) / n,
+                       frame_wall_ms=wall_ms, frame_host_ms=host_ms, window_ms=ev[2].elapsed_time(ev[3]),
+                       window_eager_ms=window_eager_ms, profile=prof_row,
+                       frame_launches=dict(gset.frame_launches))
+            log(f"graphs {name} ({CARD}): captured frame {row['frame_ms']:.3f} ms (CUDA events over {n} replays; "
+                f"host queues one in {host_ms:.3f} ms) against the eager frame's {eager_ms:.1f} ms; kernels "
+                f"{prof_row['device_ms_per_frame']:.3f} ms a frame in {prof_row['device_ops_per_frame']:.0f} device ops (profiler "
+                f"over {n} replays, wall "
+                f"{prof_row['wall_ms_per_frame']:.3f} ms a frame, device busy {prof_row['busy_share']:.1%}); K1 "
+                f"{prof_row['K1']['launches_per_frame']:.0f}, K2 {prof_row['K2']['launches_per_frame']:.0f}, K4 "
+                f"{prof_row['K4']['launches_per_frame']:.0f} launches a frame (at capture "
+                f"{gset.frame_launches}); window (8, 24) replay {row['window_ms']:.3f} ms against eager "
+                f"{window_eager_ms:.1f} ms, max abs diff {w_err:.2e} (tolerance 1e-5)")
+            need = [k for k, v in gset.frame_launches.items() if v]
+            if not need or any(prof_row[k]["launches_per_frame"] == 0 for k in need):
+                fail(f"graphs {name}: the profile of the replays lacks one of {need}")
+        finally:
+            sess.close()
+    mem = graphs.registry_for(params).memory()
+    row.update(graph_static_gb=mem["static_bytes"] / 1e9,
+               graph_pool_gb=None if mem["pool_bytes"] is None else mem["pool_bytes"] / 1e9,
+               sets=len(graphs.registry_for(params).sets), peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"graphs {name} ({CARD}): {row['sets']} graph sets of this model so far, static buffers "
+        f"{row['graph_static_gb']:.3f} GB, graph pool {_fmt(row['graph_pool_gb'])} GB, peak device memory "
+        f"{row['peak_mem_gb']:.2f} GB")
+    report.setdefault("graphs", {})[name] = row
+    return row
+
+
 def slice_icl_phase(model, report):
     """ICL voice clone from reference recordings on the full-width model."""
     import numpy as np
@@ -997,27 +1163,28 @@ def slice_icl_phase(model, report):
              ("xvec_only", short_ref, True, FRAMES, 23)]
     _reset_launches()
     requests = []
-    for name, ref, xvec_only, frames, seed in cases:
-        prompt = dict(ref_audio=str(ref), ref_text=REF_TEXT, xvec_only=xvec_only)
-        # first request for the voice: extraction, then the voice-prompt cache is warm
-        cold, _ = run_request(model, seed, frames=FIRST_CHUNK, **prompt)
-        req, _ = run_request(model, seed, frames=frames, **prompt)
-        req.update(name=name, cold_voice_ttfa_ms=cold["ttfa_ms"])
-        requests.append(req)
-        log(f"slice ICL {name}: {req['ref_frames']} reference frames, {req['frames']} frames, TTFA "
-            f"{req['ttfa_ms']:.1f} ms (first request for the voice {cold['ttfa_ms']:.1f} ms), "
-            f"stream RTF {req['stream_rtf']:.3f}")
+    with no_eager_frames("slice ICL requests"):
+        for name, ref, xvec_only, frames, seed in cases:
+            prompt = dict(ref_audio=str(ref), ref_text=REF_TEXT, xvec_only=xvec_only)
+            # first request for the voice: extraction, then the voice-prompt cache is warm
+            cold, _ = run_request(model, seed, frames=FIRST_CHUNK, **prompt)
+            req, _ = run_request(model, seed, frames=frames, **prompt)
+            req.update(name=name, cold_voice_ttfa_ms=cold["ttfa_ms"])
+            requests.append(req)
+            log(f"slice ICL {name}: {req['ref_frames']} reference frames, {req['frames']} frames, TTFA "
+                f"{req['ttfa_ms']:.1f} ms (first request for the voice {cold['ttfa_ms']:.1f} ms), "
+                f"stream RTF {req['stream_rtf']:.3f}")
 
-    with tapped_codes(model, []) as codec_ids:
-        t0 = time.perf_counter()
-        (wav,), sr = model.generate_voice_clone(TEXT, "English", ref_audio=str(long_ref),
-                                                ref_text=REF_TEXT, max_new_tokens=24, seed=24)
-        wall = time.perf_counter() - t0
-    up = model.config.codec.total_upsample
-    n = codec_ids[0].shape[0]
-    if sr != 24000 or not np.isfinite(wav).all() or abs(wav.size - n * up) > 2 * up:
-        fail(f"non-streaming ICL: {wav.size} samples for {n} frames at {sr} Hz")
-    nonstream = {"frames": int(n), "samples": int(wav.size), "wall_s": wall, "rtf": wav.size / sr / wall}
+        with tapped_codes(model, []) as codec_ids:
+            t0 = time.perf_counter()
+            (wav,), sr = model.generate_voice_clone(TEXT, "English", ref_audio=str(long_ref),
+                                                    ref_text=REF_TEXT, max_new_tokens=24, seed=24)
+            wall = time.perf_counter() - t0
+        up = model.config.codec.total_upsample
+        n = codec_ids[0].shape[0]
+        if sr != 24000 or not np.isfinite(wav).all() or abs(wav.size - n * up) > 2 * up:
+            fail(f"non-streaming ICL: {wav.size} samples for {n} frames at {sr} Hz")
+        nonstream = {"frames": int(n), "samples": int(wav.size), "wall_s": wall, "rtf": wav.size / sr / wall}
     log(f"slice ICL non-streaming: {n} frames in {wall:.2f} s, RTF {nonstream['rtf']:.3f}")
     launches = _read_launches()
     log(f"slice ICL: launches during the ICL requests {launches}")
@@ -1054,16 +1221,18 @@ def slice_phase(quant, n_requests, report, icl=False, tree=None, init_s=None):
         model = FasterQwen3TTS.from_pretrained(MODEL, device="cuda", quant=quant, seed=0)
     load_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    model.warmup(chunk_size=CHUNK, first_chunk_size=FIRST_CHUNK)
+    model.warmup()
     warmup_s = time.perf_counter() - t0
-    log(f"slice {quant}: loaded in {load_s:.1f} s, warmup {warmup_s:.1f} s")
+    log(f"slice {quant} ({CARD}): loaded in {load_s:.1f} s, warmup {warmup_s:.1f} s (the JAX warmup's set: "
+        f"{model.warmup_phases})")
     _reset_launches()
     requests = []
-    for i in range(n_requests):
-        req, _ = run_request(model, seed=i + 1)
-        requests.append(req)
-        log(f"slice {quant} request {i}: {req['frames']} frames, TTFA {req['ttfa_ms']:.1f} ms, "
-            f"stream RTF {req['stream_rtf']:.3f}")
+    with no_eager_frames(f"slice {quant} requests"):
+        for i in range(n_requests):
+            req, _ = run_request(model, seed=i + 1)
+            requests.append(req)
+            log(f"slice {quant} request {i} ({CARD}): {req['frames']} frames, TTFA {req['ttfa_ms']:.1f} ms, "
+                f"stream RTF {req['stream_rtf']:.3f}")
     launches = _read_launches()
     log(f"slice {quant}: launches during the requests {launches}")
     _, tok_a = run_request(model, seed=7, greedy=True, frames=24)
@@ -1073,8 +1242,10 @@ def slice_phase(quant, n_requests, report, icl=False, tree=None, init_s=None):
     log(f"slice {quant}: two greedy runs gave equal tokens ({tok_a.shape[0]} frames)")
     if quant == "Q8_0":
         frame_profile(model, "0.6B Q8_0 x-vector", report)
-    report[f"slice_{quant}"] = {"load_s": load_s, "warmup_s": warmup_s, "requests": requests,
-                                "launches": launches,
+        phase("graphs 0.6B Q8_0")
+        graphs_phase(model, "0.6B Q8_0", report)
+    report[f"slice_{quant}"] = {"load_s": load_s, "warmup_s": warmup_s, "warmup_phases": model.warmup_phases,
+                                "requests": requests, "launches": launches,
                                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     icl_launches = slice_icl_phase(model, report) if icl else None
     phase(f"batch {quant}")
@@ -1161,27 +1332,28 @@ def checkpoint_phase(report, tree, init_s):
 
 @contextlib.contextmanager
 def tapped_steps(rec):
-    """For the block, count in rec["steps"] the engine's decode steps and in
-    rec["K1"] / ["K2"] / ["K4"] the kernel launches made inside them (not
-    those of prompt building or the prefill)."""
-    from faster_qwen3_tts_tpu_torch.engine import core
+    """For the block, count in rec["steps"] the engine's decode steps (the
+    graph sets' chunks) and in rec["K1"] / ["K2"] / ["K4"] the kernel
+    launches made inside them (their replays; not those of prompt building or
+    the prefill)."""
+    from faster_qwen3_tts_tpu_torch.engine import graphs
 
-    real = core.decode_chunk
+    real = graphs.GraphSet.run_chunk
     rec.update(steps=0, K1=0, K2=0, K4=0)
 
-    def counting(*a, **k):
+    def counting(gset, *a, **k):
         before = _read_launches()
-        state, packed = real(*a, **k)
+        packed = real(gset, *a, **k)
         for key, n in _read_launches().items():
             rec[key] += n - before[key]
         rec["steps"] += packed.shape[0]
-        return state, packed
+        return packed
 
-    core.decode_chunk = counting
+    graphs.GraphSet.run_chunk = counting
     try:
         yield rec
     finally:
-        core.decode_chunk = real
+        graphs.GraphSet.run_chunk = real
 
 
 def _tree_gb(node) -> float:
@@ -1249,7 +1421,7 @@ def slice_int4_phase(report, tree):
         sess = gen_lib.GenerationSession(params, cfg, tie, tam, tth, tpe, model.max_seq_len,
                                          SamplingParams(do_sample=False), gen_lib.predictor_sampling(False), 2,
                                          seed=0)
-        _, logits = core.start_state(params["talker"], cfg.talker, sess.tie, sess.mask, sess.generator,
+        _, logits = core.start_state(params["talker"], cfg.talker, sess.tie, sess.mask, None,
                                      model.max_seq_len, sess.sampling, 2)
         logits = logits[0].float().cpu()
         if ref_logits is None:
@@ -1263,10 +1435,10 @@ def slice_int4_phase(report, tree):
             f"{materialize_s:.1f} s")
         if mode != "none":
             t0 = time.perf_counter()
-            model.warmup(chunk_size=CHUNK, first_chunk_size=FIRST_CHUNK)
+            model.warmup()
             warmup_s = time.perf_counter() - t0
             _reset_launches()
-            with tapped_steps({}) as steps:
+            with tapped_steps({}) as steps, no_eager_frames(f"slice 0.6B {quant}"):
                 req, _ = run_request(model, seed=1)
             counted = _read_launches()
             per_step = {k: steps[k] / max(1, steps["steps"]) for k in ("K1", "K2", "K4")}
@@ -1281,7 +1453,10 @@ def slice_int4_phase(report, tree):
                 fail(f"the 0.6B {quant} stream did not go through its kernels {need}: {counted}")
             if mode != "int8":  # the Q8_0 slice's own profile is phase 7's
                 frame_profile(model, f"0.6B {quant} x-vector", report, need=need)
-            row = {"materialize_s": materialize_s, "warmup_s": warmup_s, "request": req, "launches": counted,
+            if mode == "int4":
+                graphs_phase(model, f"0.6B {quant}", report, modes=("greedy",))
+            row = {"materialize_s": materialize_s, "warmup_s": warmup_s, "warmup_phases": model.warmup_phases,
+                   "request": req, "launches": counted,
                    "decode_steps": steps["steps"], "launches_per_step": per_step, "card_gb": card_gb,
                    "projection_gb": proj_gb, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
             if mode == "mixed":
@@ -1343,12 +1518,12 @@ def slice_17b_phase(report):
     t0 = time.perf_counter()
     model = FasterQwen3TTS.from_pretrained(MODEL_17B, device="cuda", quant="Q8_0", seed=0)
     load_s = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    model.warmup(chunk_size=CHUNK, first_chunk_size=FIRST_CHUNK)
-    warmup_s = time.perf_counter() - t0
     weights_gb = torch.cuda.memory_allocated() / 1e9
-    log(f"slice 1.7B Q8_0: loaded in {load_s:.1f} s ({weights_gb:.2f} GB on the card), warmup "
-        f"{warmup_s:.1f} s")
+    t0 = time.perf_counter()
+    model.warmup()
+    warmup_s = time.perf_counter() - t0
+    log(f"slice 1.7B Q8_0 ({CARD}): loaded in {load_s:.1f} s ({weights_gb:.2f} GB on the card), warmup "
+        f"{warmup_s:.1f} s ({model.warmup_phases})")
     design = FasterQwen3TTS(model.params, get_config("1.7b-design"), model.tokenizer)
     base = FasterQwen3TTS(model.params, get_config("1.7b"), model.tokenizer)
     prefills = {}
@@ -1364,6 +1539,7 @@ def slice_17b_phase(report):
                                              SamplingParams(0.9, 50, 1.0, True, 1.05),
                                              gen_lib.predictor_sampling(), 2, seed=0)
             sess.prefill()
+            sess.close()  # its graph set goes back for the requests below
             times.append(sess.prefill_ms)
         prefills[name] = {"rows": int(prompt[0].shape[1]), "ms": statistics.median(times)}
         log(f"slice 1.7B prefill, {name}: {prompt[0].shape[1]} rows, {prefills[name]['ms']:.1f} ms")
@@ -1376,18 +1552,19 @@ def slice_17b_phase(report):
                      ("VoiceDesign", design, vd, (TEXT, DESIGN, "English"), 37)]
     _reset_launches()
     requests = []
-    for name, m, method, args, seed in streams:
-        req, _ = run_request(m, seed, method=f"{method}_streaming", args=args)
-        req["name"] = name
-        requests.append(req)
-        log(f"slice 1.7B {name}: {req['frames']} frames, TTFA {req['ttfa_ms']:.1f} ms, "
-            f"stream RTF {req['stream_rtf']:.3f}")
-    for name, m, method, args, seed in non_streaming:
-        req = run_non_streaming(m, method, args, seed)
-        req["name"] = f"{name} non-streaming"
-        requests.append(req)
-        log(f"slice 1.7B {req['name']}: {req['frames']} frames in {req['wall_s']:.2f} s, "
-            f"RTF {req['rtf']:.3f}")
+    with no_eager_frames("slice 1.7B requests"):
+        for name, m, method, args, seed in streams:
+            req, _ = run_request(m, seed, method=f"{method}_streaming", args=args)
+            req["name"] = name
+            requests.append(req)
+            log(f"slice 1.7B {name} ({CARD}): {req['frames']} frames, TTFA {req['ttfa_ms']:.1f} ms, "
+                f"stream RTF {req['stream_rtf']:.3f}")
+        for name, m, method, args, seed in non_streaming:
+            req = run_non_streaming(m, method, args, seed)
+            req["name"] = f"{name} non-streaming"
+            requests.append(req)
+            log(f"slice 1.7B {req['name']}: {req['frames']} frames in {req['wall_s']:.2f} s, "
+                f"RTF {req['rtf']:.3f}")
     launches = _read_launches()
     log(f"slice 1.7B: launches during the requests {launches}")
     if launches["K1"] == 0 or launches["K2"] == 0:
@@ -1402,7 +1579,8 @@ def slice_17b_phase(report):
                   args=(TEXT, "aiden", "English"))
     peak = torch.cuda.max_memory_allocated() / 1e9
     log(f"slice 1.7B: peak device memory {peak:.2f} GB")
-    report["slice_1.7B_Q8_0"] = {"load_s": load_s, "warmup_s": warmup_s, "weights_gb": weights_gb,
+    report["slice_1.7B_Q8_0"] = {"load_s": load_s, "warmup_s": warmup_s, "warmup_phases": model.warmup_phases,
+                                 "weights_gb": weights_gb,
                                  "prefill": prefills, "requests": requests, "launches": launches,
                                  "peak_mem_gb": peak}
     del model, design, base
@@ -1619,7 +1797,9 @@ def reference_batch_phase(report, tiny_dir, devices=("cpu", "cuda")):
 
 def lockstep_run(model, requests, frames, greedy=True):
     """One lockstep batch of `frames` frames a lane through
-    `generate_voice_clone_streaming_batch` -> (record, lane tokens)."""
+    `generate_voice_clone_streaming_batch` -> (record, lane tokens). No EOS
+    before BATCH_FRAMES frames (one min_new_tokens, so one graph key a batch
+    size, warmed by `slice_batch_phase`)."""
     import numpy as np
     import torch
 
@@ -1634,7 +1814,7 @@ def lockstep_run(model, requests, frames, greedy=True):
     with tapped_lanes({}) as rec:
         for s, audio, sr, t in model.generate_voice_clone_streaming_batch(
                 requests, chunk_size=CHUNK, first_chunk_size=FIRST_CHUNK, max_new_tokens=frames,
-                min_new_tokens=frames, seed=1, **kw):
+                min_new_tokens=BATCH_FRAMES, seed=1, **kw):
             first.setdefault(s, (time.perf_counter() - t0) * 1000.0)
             chunks[s].append(audio)
         torch.cuda.synchronize()
@@ -1692,6 +1872,9 @@ def continuous_phase(model, report, long_ref):
     reqs[5] = dict(reqs[5], text="word " * 400)  # 2000 trailing rows, the pool's bucket is 256
     reqs += [{"text": BATCH_TEXTS[i], "ref_audio": str(long_ref), "ref_text": REF_TEXT} for i in range(4)]
     cancel_sid, bad_sid = 2, 5
+    t0 = time.perf_counter()
+    model.warmup(chunk_sizes=(CHUNK,), pool_slots=8)  # the pool's graphs, as `server.py --warmup` captures them
+    pool_warm_s = time.perf_counter() - t0
     cb = model.continuous_batcher(max_slots=8, chunk_size=CHUNK, first_chunk_size=FIRST_CHUNK,
                                   max_new_tokens=40, seed=0)
     torch.cuda.synchronize()
@@ -1709,7 +1892,7 @@ def continuous_phase(model, report, long_ref):
     th = threading.Thread(target=feeder, daemon=True)
     th.start()
     finals, samples, first = {}, {}, {}
-    with shape_tally({}) as tally:
+    with shape_tally({}) as tally, no_eager_frames("continuous"):
         for sid, audio, sr, t in cb.run(wait=True):
             samples[sid] = samples.get(sid, 0) + audio.size
             if audio.size and sid not in first:
@@ -1734,13 +1917,15 @@ def continuous_phase(model, report, long_ref):
     if bad:
         fail(f"continuous: streams {bad} ended without audio or with an error")
     ttfa = sorted(first.values())
-    row = {"requests": len(reqs), "wall_s": wall, "audio_s": sum(samples.values()) / 24000,
+    row = {"card": CARD, "pool_warmup_s": pool_warm_s, "requests": len(reqs), "wall_s": wall,
+           "audio_s": sum(samples.values()) / 24000,
            "aggregate_rtf": sum(samples.values()) / 24000 / wall, "ttfa_from_submit_ms": first,
            "ttfa_p50_ms": statistics.median(ttfa), "ttfa_max_ms": max(ttfa), "launches": launches,
            "shapes": tally, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
            "base_mem_gb": base_mem / 1e9, "after_mem_gb": after_mem / 1e9,
            "final_keys": {sid: sorted(t) for sid, t in finals.items() if sid in (0, cancel_sid, bad_sid)}}
-    log(f"continuous 0.6B Q8_0: {len(reqs)} requests every 150 ms, 8 slots: {row['audio_s']:.2f} s of audio "
+    log(f"continuous 0.6B Q8_0 ({CARD}): pool graphs captured in {pool_warm_s:.1f} s; {len(reqs)} requests "
+        f"every 150 ms, 8 slots: {row['audio_s']:.2f} s of audio "
         f"in {wall:.2f} s, aggregate RTF {row['aggregate_rtf']:.3f}; TTFA from submit p50 "
         f"{row['ttfa_p50_ms']:.1f} ms, max {row['ttfa_max_ms']:.1f} ms; stream {cancel_sid} cancelled, "
         f"stream {bad_sid} error; launches {launches}, by shape {tally}; peak memory {row['peak_mem_gb']:.2f} GB "
@@ -1781,6 +1966,9 @@ def serve_phase(model, report, long_ref):
 
     voices = {"xvec": {"ref_audio": str(long_ref), "xvec_only": True},
               "icl": {"ref_audio": str(long_ref), "ref_text": REF_TEXT}}
+    t0 = time.perf_counter()
+    server.warm(model, continuous=8)  # what `--warmup` runs
+    warm_s = time.perf_counter() - t0
     srv = server.make_server(model, "127.0.0.1", 0, voices=voices, continuous=8, max_new_tokens=SERVE_FRAMES)
     th = threading.Thread(target=srv.serve_forever, daemon=True)
     th.start()
@@ -1830,10 +2018,11 @@ def serve_phase(model, report, long_ref):
     out = [None] * len(bodies)
     threads = [threading.Thread(target=lambda i: out.__setitem__(i, request(bodies[i])), args=(i,))
                for i in range(len(bodies))]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join(timeout=600)
+    with no_eager_frames("serve"):
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
     wall = time.perf_counter() - t0
     if any(r is None or r["status"] != 200 for r in out):
         fail(f"serve: concurrent requests answered {out}")
@@ -1859,13 +2048,15 @@ def serve_phase(model, report, long_ref):
         fail(f"serve: health {health}")
     if launches["K1"] == 0 or launches["K2"] == 0:
         fail(f"serve: the requests did not go through both kernels: {launches}")
-    row = {"card": CARD, "requests": out, "wall_s": wall, "base_mem_gb": base_gb, "peak_mem_gb": peak_gb,
+    row = {"card": CARD, "warm_s": warm_s, "requests": out, "wall_s": wall, "base_mem_gb": base_gb,
+           "peak_mem_gb": peak_gb,
            "bad_requests": bad, "aborted": aborted,
            "cancelled_streams": cancelled, "live_lanes_after": lanes, "health": health, "launches": launches}
     for r in out:
         log(f"serve ({CARD}): {r['voice']} {r['format']}: POST to first audio byte {r['first_audio_ms']:.1f} ms, "
             f"{r['audio_s']:.2f} s of audio in {r['ms'] / 1000:.2f} s")
-    log(f"serve: 4 concurrent requests in {wall:.2f} s, peak device memory {peak_gb:.2f} GB (before "
+    log(f"serve: server.warm {warm_s:.1f} s; 4 concurrent requests in {wall:.2f} s (no eager frame), peak device "
+        f"memory {peak_gb:.2f} GB (before "
         f"{base_gb:.2f} GB); launches {launches}; 400 for "
         f"{[r['error'] for r in bad]}; aborted client after {aborted['first_audio_ms']:.1f} ms -> "
         f"{cancelled} stream cancelled, {lanes} lanes live; health {health}")
@@ -1919,6 +2110,17 @@ def slice_batch_phase(model, quant, report):
     sizes = (1, 2, 4, 8) if quant == "Q8_0" else (8,)
     total = {"K1": 0, "K2": 0}
     rows, solo = [], {}
+    # capture the lockstep graphs (greedy, no EOS before BATCH_FRAMES) before the timed runs;
+    # the B = 8 capture records K1 and K2 at the pool's shapes
+    warm = dict(chunk_sizes=(CHUNK,), first_chunk_size=FIRST_CHUNK, do_sample=False, subtalker_dosample=False,
+                min_new_tokens=BATCH_FRAMES)
+    t0 = time.perf_counter()
+    if sizes[:-1]:
+        model.warmup(batch_sizes=sizes[:-1], **warm)
+    with shape_tally({}) as b8:
+        model.warmup(batch_sizes=(8,), **warm)
+    log(f"lockstep {quant}: graphs of B = {sizes} captured in {time.perf_counter() - t0:.1f} s; B = 8 capture "
+        f"by shape {b8}")
     if quant == "Q8_0":
         for i, r in enumerate(reqs):
             rec, toks = run_request(model, seed=1, greedy=True, frames=AGREE_FRAMES, args=(r["text"], "English"),
@@ -1926,7 +2128,7 @@ def slice_batch_phase(model, quant, report):
             solo[i] = (rec, toks)
         log(f"slice {quant} solo greedy streams: RTF " + ", ".join(f"{solo[i][0]['stream_rtf']:.3f}" for i in solo))
     for B in sizes:
-        with shape_tally({}) as tally:
+        with shape_tally({}) as tally, no_eager_frames(f"lockstep {quant} B={B}"):
             rec, toks = lockstep_run(model, reqs[:B], BATCH_FRAMES)
         for k in total:
             total[k] += rec["launches"][k]
@@ -1953,7 +2155,6 @@ def slice_batch_phase(model, quant, report):
         per_step = [r["launches_per_step"] for r in rows]
         if any(p["K1"] > per_step[0]["K1"] or p["K2"] > per_step[0]["K2"] for p in per_step):
             fail(f"launches per step grew with B: {per_step}")
-        b8 = rows[-1]["shapes"]
         if set(b8.get("K1", {})) != {8} or not {8, 16} <= set(b8.get("K2", {})):
             fail(f"B=8: K1 not launched at 8 lanes or K2 not at 8 and 16 rows: {b8}")
         # lanes are independent: the same requests in reverse lane order get the same tokens
@@ -1963,8 +2164,9 @@ def slice_batch_phase(model, quant, report):
             if n < AGREE_FRAMES or not (t[:n] == toks[i][:n]).all():
                 fail(f"lockstep B=8 in reverse lane order: request {i} got other tokens ({_agreement(toks[i], t)})")
         log(f"lockstep {quant} B=8 in reverse lane order: every request's {AGREE_FRAMES} frames equal")
-        batch_profile(model, reqs, report, f"0.6B B=8 {quant}")
-    report[f"lockstep_{quant}"] = {"runs": rows, "solo": {i: solo[i][0] for i in solo}}
+        with no_eager_frames("the profiled lockstep B=8 run"):
+            batch_profile(model, reqs, report, f"0.6B B=8 {quant}")
+    report[f"lockstep_{quant}"] = {"runs": rows, "solo": {i: solo[i][0] for i in solo}, "b8_capture_shapes": b8}
     return total
 
 

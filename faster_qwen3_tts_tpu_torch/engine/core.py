@@ -68,19 +68,37 @@ def start_state(
     sampling: SamplingParams,
     min_new_tokens: int,
     noise: Optional[torch.Tensor] = None,
+    into: Optional[DecodeState] = None,
 ) -> Tuple[DecodeState, torch.Tensor]:
     """Prefill + first-token sampling -> (initial state, prefill logits [B, V]).
 
     embeds [B, P, H] left-padded prompt; pad_mask [B, P] int. `noise` [B, V]
-    replaces the first draw (tests)."""
+    replaces the first draw (tests). `into`: a state of the same batch and
+    max_seq whose tensors take the result in place (a graph set's static
+    state), its cache rows past the prompt zeroed; it is returned."""
     B, P, _ = embeds.shape
     device = embeds.device
     past_hidden, logits, cache_p = talker_lib.prefill(talker_params, talker_cfg, embeds, pad_mask)
-    cache = expand_cache(cache_p, max_seq)
     V, eos = talker_cfg.vocab_size, talker_cfg.codec_eos_token_id
     suppress = make_suppress_mask(V, eos, device)
     extra = (torch.arange(V, device=device) == eos) if min_new_tokens > 0 else None
     token = sample_logits(logits, sampling, suppress, extra, generator=generator, noise=noise)
+    if into is not None:
+        if into.cache.max_seq != max_seq or into.token.shape[0] != B or P > max_seq:
+            raise ValueError(f"prefill of {B} x {P} rows into a state of {into.token.shape[0]} lanes, "
+                             f"max_seq {into.cache.max_seq} (asked {max_seq})")
+        for buf, part in ((into.cache.k, cache_p.k), (into.cache.v, cache_p.v)):
+            buf[:, :, :P].copy_(part)
+            buf[:, :, P:].zero_()
+        into.pos.fill_(P)
+        into.num_pads.copy_((1 - pad_mask).sum(dim=-1))
+        into.token.copy_(token)
+        into.past_hidden.copy_(past_hidden)
+        for t in (into.gen_step, into.seen, into.done, into.n_frames):
+            t.zero_()
+        into.generator = generator
+        return into, logits
+    cache = expand_cache(cache_p, max_seq)
     state = DecodeState(
         cache=cache,
         pos=torch.full((B,), P, dtype=torch.int32, device=device),
@@ -163,6 +181,8 @@ def _decode_frame(
     `noise` = (predictor noise [15, B, Vp], talker noise [B, V]) replaces the
     generator's draws (tests)."""
     device = state.token.device
+    if device.type == "cuda" and not torch.cuda.is_current_stream_capturing():
+        _decode_frame.eager_cuda += 1
     eos = talker_cfg.codec_eos_token_id
     max_seq = state.cache.max_seq
     V = talker_cfg.vocab_size
@@ -223,6 +243,9 @@ def _decode_frame(
         n_frames=torch.where(valid, n_frames, state.n_frames),
     )
     return new_state, frame, valid
+
+
+_decode_frame.eager_cuda = 0
 
 
 def decode_chunk(

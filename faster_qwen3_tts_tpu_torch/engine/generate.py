@@ -1,12 +1,18 @@
 """Host-side generation drivers over the device engine.
 
 Port of faster_qwen3_tts_tpu/engine/generate.py without its TPU-only
-parts (dispatch-ahead, the mesh, the parity engine): prompt padding buckets,
+parts (the mesh, the parity engine): prompt padding buckets,
 `GenerationSession`, `fast_generate` (non-streaming),
 `fast_generate_streaming_fused` (streaming; chunks vocoded on the device
 after their decode, or left to the caller's host vocode while an ICL stream
 with a short reference warms in) and `fast_generate_streaming_batch` (B
 streams in lockstep on one batch). The host reads the device once per chunk.
+Each session leases a graph set (`engine/graphs.py`) from its prefill until
+the driver ends or is closed; on the card its chunks are graph replays. The
+streaming drivers dispatch ahead where the JAX drivers do: chunk k+1 is
+queued after chunk k was read and before chunk k is yielded (the solo stream
+from its second chunk on, the lockstep batch from its first), never past the
+final chunk.
 
 Timing dicts keep the JAX package's keys:
   non-streaming: {prefill_ms, decode_s, steps, ms_per_step, steps_per_s}
@@ -25,7 +31,7 @@ import torch
 from faster_qwen3_tts_tpu_torch.config import Qwen3TTSConfig
 
 from ..ops.sampling import SamplingParams
-from . import core, fused_stream
+from . import core, fused_stream, graphs
 
 PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048)
 
@@ -97,7 +103,14 @@ def _sync(device: torch.device) -> None:
 
 
 class GenerationSession:
-    """One request's device state and chunk pump (single device)."""
+    """One request's chunk pump over a leased graph set (single device).
+
+    `prefill` leases a `graphs.GraphSet` of the request's key and writes the
+    prompt's state into it; every chunk then runs on the set's static
+    buffers (on the card: replays of its captured frame and window graphs).
+    The `*_async` methods queue a chunk and return its device tensors
+    without reading them; they stay valid until the next chunk is queued.
+    `close()` (or the session's collection) returns the set."""
 
     def __init__(
         self,
@@ -130,74 +143,62 @@ class GenerationSession:
         self.tpe = put(tts_pad_embed, dtype)
         if seed is None:
             seed = int(np.random.default_rng().integers(0, 2**31 - 1))
-        self.generator = torch.Generator(device=self.device).manual_seed(seed)
+        self.seed = seed
         self.max_seq_len = max_seq_len
+        self.key = graphs.make_key(params, tie_b.shape[0], max_seq_len, tth_b.shape[1], sampling,
+                                   pred_sampling, min_new_tokens)
+        self.graphs: Optional[graphs.GraphSet] = None
+        self._lease: Optional[graphs.Lease] = None
         self.state: Optional[core.DecodeState] = None
-        self.hist: Optional[torch.Tensor] = None  # [B, ctx, 16] vocoder left context of a batch
         self.prefill_ms = 0.0
 
+    def close(self) -> None:
+        """Return the graph set (idempotent)."""
+        if self._lease is not None:
+            self._lease.release()
+
     def prefill(self, block: bool = True) -> None:
-        """Run the prefill; with block=False its time folds into the first
-        chunk's (prefill_ms stays 0)."""
+        """Lease the set and run the eager prefill into its static state; with
+        block=False its time folds into the first chunk's (prefill_ms stays 0)."""
         t0 = time.perf_counter()
-        self.state, _ = core.start_state(
-            self.params["talker"], self.cfg.talker, self.tie, self.mask, self.generator,
-            self.max_seq_len, self.sampling, self.min_new_tokens,
-        )
+        if self.graphs is None:  # a set of this request's key, captured if none is free
+            reg = graphs.registry_for(self.params)
+            self.graphs = reg.lease(self.params, self.cfg, self.key)
+            self._lease = graphs.Lease(self, reg, self.graphs)
+        self.graphs.load_text(self.tth, self.tpe)
+        self.graphs.prefill(self.params, self.tie, self.mask, self.seed)
+        self.state = self.graphs.state
         if block:
             _sync(self.device)
             self.prefill_ms = (time.perf_counter() - t0) * 1000.0
 
-    def decode_chunk_packed(self, chunk_size: int) -> torch.Tensor:
-        """Run one chunk; returns the packed device tensor without reading it."""
-        self.state, packed = core.decode_chunk(
-            self.params["talker"], self.params["predictor"], self.cfg.talker,
-            self.cfg.predictor, self.state, self.tth, self.tpe, chunk_size, self.sampling,
-            self.pred_sampling, self.min_new_tokens,
-        )
-        return packed
+    def decode_chunk_async(self, chunk_size: int) -> torch.Tensor:
+        """Queue one chunk -> its packed rows [chunk, B, 18], not read."""
+        return self.graphs.run_chunk(self.params, chunk_size)
 
     def decode_chunk(self, chunk_size: int) -> Tuple[np.ndarray, bool]:
         """One chunk, read once -> (valid frames [n, 16] int32, done)."""
-        return core.read_packed(self.decode_chunk_packed(chunk_size))
+        return core.read_packed(self.decode_chunk_async(chunk_size))
 
-    def decode_chunk_fused(self, chunk_size: int, ctx: int, history: List[np.ndarray]):
-        """One chunk plus its window vocode, read once -> (audio [1, chunk * up],
-        frames [n, 16], done). `history` holds the frames before this chunk
-        (an ICL stream's reference codes first); the last `ctx` of them are
-        the vocoder's left context."""
-        hist = None
-        if ctx > 0:
-            hist = torch.as_tensor(np.concatenate(history, axis=0)[-ctx:][None]).to(self.device)
-        packed = self.decode_chunk_packed(chunk_size)
-        audio = fused_stream._vocode_window(
-            self.params["codec"], self.cfg.talker, self.cfg.codec, hist, packed, chunk_size, ctx,
-        )
-        return fused_stream.split_fused_output(audio, packed)
+    # -- a chunk plus its window vocode ------------------------------------------------------
 
-    # -- every lane of a batch (lockstep streaming) ------------------------------
-
-    def decode_chunk_batch(self, chunk_size: int):
-        """One chunk, read once -> (frames [chunk, B, 16] int32, valid
-        [chunk, B] bool, done [B] bool)."""
-        return core.read_packed_batch(self.decode_chunk_packed(chunk_size))
+    def set_codec_history(self, frames: np.ndarray, ctx: int) -> None:
+        """The vocoder's left context of a single stream: the last `ctx` of
+        frames [n >= ctx, 16] (an ICL stream's reference codes first)."""
+        self.graphs.set_history(np.asarray(frames)[None], ctx)
 
     def set_codec_history_batch(self, frames_b: np.ndarray, ctx: int) -> None:
-        """Upload every lane's vocoder left context: the last `ctx` frames of
+        """Every lane's vocoder left context: the last `ctx` frames of
         frames_b [B, >= ctx, 16] (each lane's own history, or its ICL
         reference tail)."""
-        self.hist = torch.as_tensor(np.ascontiguousarray(frames_b[:, -ctx:], np.int32)).to(self.device)
+        self.graphs.set_history(frames_b, ctx)
 
-    def decode_chunk_fused_batch(self, chunk_size: int, ctx: int):
-        """One chunk plus the window vocode of every lane, read once ->
-        (audio [B, chunk * up] f32, frames [chunk, B, 16], valid [chunk, B],
-        done [B]). ctx > 0 takes the window set by `set_codec_history_batch`."""
-        packed = self.decode_chunk_packed(chunk_size)
-        audio = fused_stream._vocode_window(
-            self.params["codec"], self.cfg.talker, self.cfg.codec, self.hist if ctx > 0 else None,
-            packed, chunk_size, ctx,
-        )
-        return fused_stream.split_fused_output_batch(audio, packed)
+    def decode_chunk_fused_async(self, chunk_size: int, ctx: int):
+        """Queue one chunk and the window vocode of every lane over the
+        history set for width `ctx` (none for ctx 0) -> (audio [B, chunk *
+        up], packed), not read."""
+        packed = self.graphs.run_chunk(self.params, chunk_size)
+        return self.graphs.vocode(self.params, chunk_size, ctx), packed
 
 
 def fast_generate(
@@ -230,18 +231,21 @@ def fast_generate(
                            subtalker_temperature),
         min_new_tokens, seed,
     )
-    sess.prefill()
-    t0 = time.perf_counter()
-    chunks, steps = [], 0
-    while steps < max_new_tokens:
-        frames, done = sess.decode_chunk(device_chunk)
-        frames = frames[: max_new_tokens - steps]
-        if frames.shape[0]:
-            chunks.append(frames)
-            steps += frames.shape[0]
-        if done:
-            break
-    decode_s = time.perf_counter() - t0
+    try:
+        sess.prefill()
+        t0 = time.perf_counter()
+        chunks, steps = [], 0
+        while steps < max_new_tokens:
+            frames, done = sess.decode_chunk(device_chunk)
+            frames = frames[: max_new_tokens - steps]
+            if frames.shape[0]:
+                chunks.append(frames)
+                steps += frames.shape[0]
+            if done:
+                break
+        decode_s = time.perf_counter() - t0
+    finally:
+        sess.close()
     timing = {
         "prefill_ms": sess.prefill_ms,
         "decode_s": decode_s,
@@ -292,7 +296,7 @@ def fast_generate_streaming_batch(
     context_frames ICL reference frames (ctx = context_frames from chunk 0,
     over each lane's reference tail). Otherwise chunks are `plain` (audio
     None) and the caller vocodes each lane on the host. Unlike the JAX
-    package, no chunk is dispatched ahead and there is no mesh."""
+    package, there is no mesh."""
     sess = GenerationSession(
         params, cfg, tie, attention_mask, trailing_text, tts_pad_embed, max_seq_len,
         SamplingParams(temperature, top_k, top_p, do_sample, repetition_penalty),
@@ -313,44 +317,55 @@ def fast_generate_streaming_batch(
         tail = np.zeros((B, 0, ncg), np.int32)
     totals = np.zeros(B, np.int64)
     chunk_index = n_decoded = 0
-    t0 = time.perf_counter()
-    sess.prefill(block=False)  # its time folds into chunk 0's decode_ms
-    while True:
+
+    def dispatch():
         cs = first_cs if n_decoded == 0 else chunk_size
         if not use_fused:
-            kind = "plain"
-            frames, valid, done = sess.decode_chunk_batch(cs)
-            audio = None
+            return "plain", sess.decode_chunk_async(cs), cs
+        if icl_fused:
+            ctx = context_frames
+        elif n_decoded == 0:
+            return "fused0", sess.decode_chunk_fused_async(cs, 0), cs
         else:
-            if icl_fused:
-                kind, ctx = "fused", context_frames
-            elif n_decoded == 0:
-                kind, ctx = "fused0", 0
-            else:
-                kind, ctx = "fused", min(n_decoded, context_frames)
-            if ctx > 0:
-                sess.set_codec_history_batch(tail, ctx)
-            audio, frames, valid, done = sess.decode_chunk_fused_batch(cs, ctx)
-            tail = np.concatenate([tail, frames.transpose(1, 0, 2)], axis=1)[:, -context_frames:]
-        n_decoded += cs
-        # clip each stream to its token budget
-        valid = valid & (valid.cumsum(axis=0) + totals[None, :] <= max_new_tokens)
-        totals += valid.sum(axis=0)
-        decode_ms = (time.perf_counter() - t0) * 1000.0
-        stream_done = bool(np.all(done | (totals >= max_new_tokens)))
-        yield frames, valid, done, audio, {
-            "chunk_index": chunk_index,
-            "prefill_ms": sess.prefill_ms if chunk_index == 0 else 0.0,
-            "decode_ms": decode_ms,
-            "total_steps_so_far": totals.copy(),
-            "is_final": stream_done,
-            "fused": kind != "plain",
-            "first_window": kind == "fused0",
-        }
-        chunk_index += 1
-        if stream_done:
-            break
+            ctx = min(n_decoded, context_frames)
+        sess.set_codec_history_batch(tail, ctx)
+        return "fused", sess.decode_chunk_fused_async(cs, ctx), cs
+
+    try:
         t0 = time.perf_counter()
+        sess.prefill(block=False)  # its time folds into chunk 0's decode_ms
+        pending = dispatch()
+        while True:
+            kind, dev, cs = pending
+            if kind == "plain":
+                frames, valid, done = core.read_packed_batch(dev)
+                audio = None
+            else:
+                audio, frames, valid, done = fused_stream.split_fused_output_batch(*dev)
+                tail = np.concatenate([tail, frames.transpose(1, 0, 2)], axis=1)[:, -context_frames:]
+            n_decoded += cs
+            # clip each stream to its token budget
+            valid = valid & (valid.cumsum(axis=0) + totals[None, :] <= max_new_tokens)
+            totals += valid.sum(axis=0)
+            decode_ms = (time.perf_counter() - t0) * 1000.0
+            stream_done = bool(np.all(done | (totals >= max_new_tokens)))
+            if not stream_done:  # chunk k+1 runs on the device while the caller takes chunk k
+                pending = dispatch()
+            yield frames, valid, done, audio, {
+                "chunk_index": chunk_index,
+                "prefill_ms": sess.prefill_ms if chunk_index == 0 else 0.0,
+                "decode_ms": decode_ms,
+                "total_steps_so_far": totals.copy(),
+                "is_final": stream_done,
+                "fused": kind != "plain",
+                "first_window": kind == "fused0",
+            }
+            chunk_index += 1
+            if stream_done:
+                break
+            t0 = time.perf_counter()
+    finally:
+        sess.close()
 
 
 def fast_generate_streaming_fused(
@@ -410,48 +425,69 @@ def fast_generate_streaming_fused(
     icl_fused = ref_codes is not None and ref_codes.shape[0] >= context_frames
     history: List[np.ndarray] = []
     total = chunk_index = 0
-    t0 = time.perf_counter()
-    sess.prefill(block=False)  # its time folds into chunk 0's decode_ms
-    while total < max_new_tokens:
+
+    def dispatch():
         cs = first_cs if total == 0 else chunk_size
         if icl_fused:
-            kind, ctx, window = "fused", context_frames, [np.asarray(ref_codes)] + history
-        elif total == 0:
-            kind, ctx, window = ("fused0" if fuse_first_chunk else "plain"), 0, history
-        elif not fuse_first_chunk and total < context_frames:
-            kind, ctx, window = "plain", 0, history  # ICL warm-in: the caller prepends the reference
-        else:
-            kind, ctx, window = "fused", min(total, context_frames), history
-        if kind == "plain":
-            frames, done = sess.decode_chunk(cs)
-            audio = None
-            frames = frames[: max_new_tokens - total]
-        else:
-            audio_full, frames, done = sess.decode_chunk_fused(cs, ctx, window)
-            # clip to the token budget before slicing audio, so audio stops at the last frame
-            frames = frames[: max_new_tokens - total]
-            v = frames.shape[0]
-            audio = audio_full[0, : (max(v * up - D, 0) if kind == "fused0" else v * up)]
-        decode_ms = (time.perf_counter() - t0) * 1000.0
-        v = frames.shape[0]
-        stream_done = done or total + v >= max_new_tokens
-        if v:
-            history.append(frames)
-            total += v
-            yield frames, audio, {
-                "chunk_index": chunk_index,
-                "chunk_steps": int(v),
-                "prefill_ms": sess.prefill_ms if chunk_index == 0 else 0.0,
-                "decode_ms": decode_ms,
-                "total_steps_so_far": total,
-                "is_final": bool(stream_done),
-            }
-            chunk_index += 1
-        elif not done:
-            raise RuntimeError(
-                f"decode chunk {chunk_index} returned 0 valid frames without EOS "
-                f"(kind={kind}, total={total}): the engine state is not advancing"
-            )
-        if stream_done:
-            break
+            ctx = context_frames
+            sess.set_codec_history(np.concatenate([np.asarray(ref_codes)] + history, axis=0), ctx)
+            return "fused", sess.decode_chunk_fused_async(cs, ctx)
+        if total == 0:
+            if fuse_first_chunk:
+                return "fused0", sess.decode_chunk_fused_async(cs, 0)
+            return "plain", sess.decode_chunk_async(cs)
+        if not fuse_first_chunk and total < context_frames:
+            return "plain", sess.decode_chunk_async(cs)  # ICL warm-in: the caller prepends the reference
+        ctx = min(total, context_frames)
+        sess.set_codec_history(np.concatenate(history, axis=0), ctx)
+        return "fused", sess.decode_chunk_fused_async(cs, ctx)
+
+    try:
         t0 = time.perf_counter()
+        sess.prefill(block=False)  # its time folds into chunk 0's decode_ms
+        pending = dispatch()
+        while total < max_new_tokens:
+            kind, dev = pending
+            pending = None
+            if kind == "plain":
+                frames, done = core.read_packed(dev)
+                audio = None
+                frames = frames[: max_new_tokens - total]
+            else:
+                audio_full, frames, done = fused_stream.split_fused_output(*dev)
+                # clip to the token budget before slicing audio, so audio stops at the last frame
+                frames = frames[: max_new_tokens - total]
+                v = frames.shape[0]
+                audio = audio_full[0, : (max(v * up - D, 0) if kind == "fused0" else v * up)]
+            decode_ms = (time.perf_counter() - t0) * 1000.0
+            v = frames.shape[0]
+            stream_done = done or total + v >= max_new_tokens
+            if v:
+                history.append(frames)
+                total += v
+            elif not done:
+                raise RuntimeError(
+                    f"decode chunk {chunk_index} returned 0 valid frames without EOS "
+                    f"(kind={kind}, total={total}): the engine state is not advancing"
+                )
+            # dispatch-ahead from the second chunk on: chunk 0's audio must not
+            # queue behind chunk 1 (that is the TTFA path)
+            if not stream_done and chunk_index >= 1:
+                pending = dispatch()
+            if v:
+                yield frames, audio, {
+                    "chunk_index": chunk_index,
+                    "chunk_steps": int(v),
+                    "prefill_ms": sess.prefill_ms if chunk_index == 0 else 0.0,
+                    "decode_ms": decode_ms,
+                    "total_steps_so_far": total,
+                    "is_final": bool(stream_done),
+                }
+                chunk_index += 1
+            if stream_done:
+                break
+            t0 = time.perf_counter()
+            if pending is None:
+                pending = dispatch()
+    finally:
+        sess.close()

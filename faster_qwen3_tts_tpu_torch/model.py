@@ -17,8 +17,11 @@ is False. Many streams share one engine batch through
 (`serving.ContinuousBatcher`: requests join a running pool). Weights load in
 BF16 / F32, Q8_0 (int8), Q4_K_M (int4) or Q8_4 (talker int8, predictor
 int4). `parity_mode=True` on the voice-clone methods runs the independent
-eager decode of `engine/parity.py` instead of the engine. The
-native-backend cached-reference kwargs are not ported (ROADMAP queue A).
+eager decode of `engine/parity.py` instead of the engine. On the card every
+decode chunk is a replay of CUDA graphs (`engine/graphs.py`), captured per
+key of static shapes and arguments: `warmup` captures the set serving uses,
+any other key is captured at its first use. The native-backend
+cached-reference kwargs are not ported (ROADMAP queue A).
 """
 from __future__ import annotations
 
@@ -243,22 +246,73 @@ class FasterQwen3TTS:
         model.load_coverage = coverage  # per submodel, for an HF checkpoint
         return model
 
-    def warmup(self, chunk_size: int = 8, first_chunk_size: int = 4) -> None:
-        """Run one short greedy stream so that the kernels are built and
-        loaded and the allocator is warm before the first request."""
-        if self._warmed_up:
-            return
+    def warmup(self, chunk_sizes: Tuple[int, ...] = (8, 12), first_chunk_size: Optional[int] = 4,
+               batch_sizes: Tuple[int, ...] = (1,), pool_slots: int = 0, min_new_tokens: int = 2,
+               temperature: float = 0.9, top_k: int = 50, top_p: float = 1.0, do_sample: bool = True,
+               repetition_penalty: float = 1.05, subtalker_dosample: Optional[bool] = None,
+               subtalker_top_k: Optional[int] = None, subtalker_top_p: Optional[float] = None,
+               subtalker_temperature: Optional[float] = None) -> Dict[str, Any]:
+        """Capture the graphs that serving replays (the JAX warmup's
+        executable set): one short prefill of a real prompt (builds the
+        kernels and the prefill's handles), then for each of `batch_sizes`
+        the frame graph and the window graphs of `graphs.warmup_windows`
+        (the first window, the growing contexts of an x-vector stream and
+        the ICL first window, for each chunk size); with `pool_slots` also a
+        continuous pool of that many lanes (its frame and the (chunk, 24)
+        windows). Graphs are keyed on the sampling arguments and
+        min_new_tokens too: these default to the generate methods'. Leaves
+        the sets free for the requests that follow; a key it did not cover
+        is captured at its first use. -> the phases' seconds, the captures
+        and the graph memory (static buffers and, on the card, the graph
+        pool, of every set of the model), also kept in `warmup_phases`.
+        Nothing is captured on the CPU (no graphs there); the keys are still
+        noted."""
+        from .engine import graphs as graphs_lib
+        from .ops.sampling import SamplingParams
+
         t0 = time.perf_counter()
-        prompt = {"ref_spk_embedding": [np.zeros(2048, np.float32)]}
-        for _ in self.generate_voice_clone_streaming(
-            "Warm up the engine.", "English", voice_clone_prompt=prompt,
-            max_new_tokens=first_chunk_size + chunk_size, chunk_size=chunk_size,
-            first_chunk_size=first_chunk_size, do_sample=False, subtalker_dosample=False,
-            seed=0,
-        ):
-            pass
+        last = [t0]
+        phases: Dict[str, Any] = {}
+
+        def mark(name: str) -> None:
+            now = time.perf_counter()
+            phases[name] = round(now - last[0], 3)
+            last[0] = now
+
+        sampling = SamplingParams(temperature, top_k, top_p, do_sample, repetition_penalty)
+        pred = gen_lib.predictor_sampling(subtalker_dosample, subtalker_top_k, subtalker_top_p,
+                                          subtalker_temperature)
+        reg = graphs_lib.registry_for(self.params)
+        captures0, capture_s0 = reg.stats["captures"], reg.stats["capture_s"]
+        tie, tam, tth, tpe, _ = self._prepare_generation(
+            "Warm up the engine.", voice_clone_prompt={"ref_spk_embedding": [np.zeros(2048, np.float32)]})
+        sess = gen_lib.GenerationSession(self.params, self.config, tie, tam, tth, tpe, self.max_seq_len,
+                                         sampling, pred, min_new_tokens, seed=0)
+        try:
+            sess.prefill()
+        finally:
+            sess.close()
+        mark("prompt_and_prefill")
+        windows = graphs_lib.warmup_windows(chunk_sizes, first_chunk_size, gen_lib.CONTEXT_FRAMES)
+        for B in dict.fromkeys(batch_sizes):
+            reg.warm(self.params, self.config, sess.key._replace(batch=B), windows)
+            mark(f"graphs_B{B}")
+        if pool_slots:
+            ctx = gen_lib.CONTEXT_FRAMES
+            reg.warm(self.params, self.config, sess.key._replace(batch=pool_slots),
+                     [(c, ctx) for c in chunk_sizes])
+            reg.warm(self.params, self.config, sess.key)  # admission's solo chunk
+            mark(f"graphs_pool{pool_slots}")
+        mem = reg.memory()
+        phases["graph_static_gb"] = mem["static_bytes"] / 1e9  # every set of this model, not only these
+        phases["graph_pool_gb"] = None if mem["pool_bytes"] is None else mem["pool_bytes"] / 1e9
+        phases["captures"] = reg.stats["captures"] - captures0
+        phases["capture_s"] = round(reg.stats["capture_s"] - capture_s0, 3)
+        phases["total_s"] = round(time.perf_counter() - t0, 3)
+        self.warmup_phases = phases
         self._warmed_up = True
-        logger.info("Warmup complete in %.1fs", time.perf_counter() - t0)
+        logger.info("Warmup complete in %.1fs: %s", phases["total_s"], phases)
+        return phases
 
     @property
     def speech_tokenizer(self) -> SpeechTokenizerFacade:

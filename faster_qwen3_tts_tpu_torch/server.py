@@ -541,10 +541,16 @@ def make_server(model, host: str = "127.0.0.1", port: int = 8880,
                         continuous=continuous, max_new_tokens=max_new_tokens)
 
 
-def warm(model, continuous: int = 0) -> None:
-    """Warm the solo serving path (chunk 8, first chunk 4) and, with a
-    continuous pool, the pool's shapes through a throwaway batcher."""
-    model.warmup(chunk_size=8, first_chunk_size=4)
+def warm(model, continuous: int = 0, batch: int = 1) -> None:
+    """Capture the serving graphs: the solo path (every allowed chunk size,
+    first chunk 4), with --batch the lockstep buckets (`BatchScheduler._bucket`:
+    powers of two up to N, the first chunk a whole chunk), with a continuous
+    pool its lanes (chunk 8); then one throwaway request through the pool."""
+    sizes = tuple(sorted(ALLOWED_CHUNK_SIZES))
+    model.warmup(chunk_sizes=sizes, first_chunk_size=4, pool_slots=continuous if continuous > 1 else 0)
+    if batch > 1:
+        buckets = sorted({min(1 << i, batch) for i in range(batch.bit_length() + 1)})
+        model.warmup(chunk_sizes=sizes, first_chunk_size=None, batch_sizes=buckets)
     if continuous > 1:
         cb = model.continuous_batcher(max_slots=continuous, chunk_size=8, max_new_tokens=8)
         cb.submit({"text": "warm the continuous lanes.", "xvec_only": True,
@@ -553,6 +559,7 @@ def warm(model, continuous: int = 0) -> None:
                                           "ref_code": [None]}})
         for _ in cb.run():
             pass
+        cb.close()  # its pool's graph set goes back to the model
 
 
 def main(argv=None) -> None:
@@ -567,7 +574,8 @@ def main(argv=None) -> None:
     ap.add_argument("--voices", default=None, help="voices.json registry")
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=8880)
-    ap.add_argument("--warmup", action="store_true", help="run the serving shapes once before serving")
+    ap.add_argument("--warmup", action="store_true",
+                    help="capture the serving graphs (solo, --batch buckets, the continuous pool) before serving")
     ap.add_argument("--batch", type=int, default=1, metavar="N",
                     help="micro-batch up to N concurrent streams into one lockstep engine batch "
                          "(1 = one request at a time behind a mutex)")
@@ -588,7 +596,7 @@ def main(argv=None) -> None:
     model = FasterQwen3TTS.from_pretrained(args.model, device=args.device, quant=args.quant,
                                            strict=args.strict)
     if args.warmup:
-        warm(model, args.continuous)
+        warm(model, args.continuous, args.batch)
     srv = make_server(model, args.host, args.port, voices=args.voices, batch=args.batch,
                       batch_window_s=args.batch_window_ms / 1000.0, continuous=args.continuous,
                       max_new_tokens=args.max_new_tokens)

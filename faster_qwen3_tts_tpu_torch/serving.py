@@ -21,7 +21,14 @@ The device vocode runs only in chunks that have a mature x-vector lane.
 
 The host reads the device once per chunk (the packed tokens and, when a
 lane is vocoded on the device, every lane's audio); lane insert and release
-are device writes. There is no dispatch-ahead.
+are device writes. There is no dispatch-ahead, as in the JAX package.
+
+The pool is the static state of a B = `max_slots` graph set
+(`engine/graphs.py`), leased at the first admission and returned by
+`close()` once the pump has stopped (or when the batcher is collected):
+lane surgery writes into it in place, and on the card each pool chunk and
+window vocode is a replay of that set's graphs. Admission's solo chunk runs
+on a B = 1 set, returned once its lane is copied.
 
 Kernels: at B lanes the talker's projections and codec head run K2 (K4
 for int4 weights) at M = B rows and the predictor's first pass at M = 2B;
@@ -42,7 +49,7 @@ from typing import Any, Dict, Generator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .engine import core, fused_stream
+from .engine import core, fused_stream, graphs
 from .engine import generate as gen_lib
 from .ops.sampling import SamplingParams
 
@@ -119,17 +126,29 @@ class ContinuousBatcher:
         self._slots: List[Optional[_Stream]] = [None] * max_slots
         self._next_sid = 0
         self._seed = seed
-        self._state: Optional[core.DecodeState] = None  # built at the first admission
+        self._set: Optional[graphs.GraphSet] = None  # the pool's graph set, leased at the first admission
+        self._lease: Optional[graphs.Lease] = None
+        self._state: Optional[core.DecodeState] = None  # the set's static state
         self._tth: Optional[torch.Tensor] = None  # [B, tb, H] each lane's trailing text
-        self._tpe: Optional[torch.Tensor] = None
         self._hist: Optional[torch.Tensor] = None  # [B, ctx, 16] shared vocoder window
         self._ctx = gen_lib.CONTEXT_FRAMES
         self._cancelled: set = set()
         self._closed = False
+        self._running = False
 
     def close(self) -> None:
-        """No further submits: run(wait=True) drains and returns."""
-        self._closed = True
+        """No further submits: run(wait=True) drains and returns. The pool's
+        graph set goes back to the model once no pump runs."""
+        with self._lock:
+            self._closed = True
+            if not self._running:
+                self._release_pool()
+
+    def _release_pool(self) -> None:
+        """Return the pool's set once no lane holds a stream (under _lock)."""
+        if self._lease is not None and not any(self._slots):
+            self._lease.release()
+            self._lease = self._set = self._state = self._tth = self._hist = None
 
     def active(self) -> int:
         """Lanes that hold a stream now (readable from any thread)."""
@@ -152,20 +171,20 @@ class ContinuousBatcher:
     # -- admission --------------------------------------------------------------
 
     def _bootstrap(self, tth_rows: int, tpe) -> None:
-        """The pool: B lanes, every one done until a stream is inserted."""
+        """The pool: a leased B-lane graph set, every lane done until a stream
+        is inserted."""
         m = self.model
-        embed = m.params["talker"]["codec_embed"]
-        device, dtype = embed.device, embed.dtype
         seed = self._seed
         if seed is None:
             seed = int(np.random.default_rng().integers(0, 2**31 - 1))
-        gen = torch.Generator(device=device).manual_seed(seed)
-        self._state = core.zeros_state(m.config.talker, self.B, m.max_seq_len, dtype, device, gen)
-        H = m.config.talker.hidden_size
-        self._tth = torch.zeros((self.B, gen_lib.tth_bucket(tth_rows), H), dtype=dtype, device=device)
-        self._tpe = torch.as_tensor(np.asarray(tpe)).to(device, dtype)
-        self._hist = torch.zeros((self.B, self._ctx, m.config.talker.num_code_groups), dtype=torch.int32,
-                                 device=device)
+        reg = graphs.registry_for(m.params)
+        key = graphs.make_key(m.params, self.B, m.max_seq_len, gen_lib.tth_bucket(tth_rows), self.sampling,
+                              self.pred_sampling, self.min_new_tokens)
+        self._set = reg.lease(m.params, m.config, key)
+        self._lease = graphs.Lease(self, reg, self._set)
+        self._set.reset_empty(seed)
+        self._set.tpe.copy_(torch.as_tensor(np.asarray(tpe)).to(self._set.tpe.dtype).expand_as(self._set.tpe))
+        self._state, self._tth, self._hist = self._set.state, self._set.tth, self._set.hist(self._ctx)
 
     def _admit(self, s: _Stream, slot: int) -> Tuple[np.ndarray, int, bool, float]:
         """B=1 prefill and solo first chunk (the stream's first audio), then
@@ -194,25 +213,27 @@ class ContinuousBatcher:
             m.params, m.config, tie, tam, tth, tpe, m.max_seq_len, self.sampling, self.pred_sampling,
             self.min_new_tokens, seed=self._seed,
         )
-        s.admitted_at = time.perf_counter()
-        sess.prefill(block=False)
-        t0 = time.perf_counter()
-        frames, done = sess.decode_chunk(self.first_chunk)
-        v = min(frames.shape[0], s.max_new_tokens)
-        s.vocoder = m._make_stream_vocoder(ref_codes)
-        s.host_only = ref_codes is not None
-        audio = s.vocoder.vocode_new(frames[:v]) if v > 0 else np.zeros((0,), np.float32)
-        s.frames_emitted = v
-        now = time.perf_counter()
-        if v > 0:
-            s.first_audio_at = now
-        if done or v >= s.max_new_tokens:
-            return audio, v, True, (now - t0) * 1000.0
-        # not finished: every frame of the solo chunk was valid (v == first_chunk).
-        # The lane's state and cache, its trailing-text row, and the newest
-        # rows of its vocoder window (so that maturity stays exact).
-        core.insert_slot(self._state, sess.state, slot)
-        del sess  # its B=1 cache goes back to the allocator
+        try:
+            s.admitted_at = time.perf_counter()
+            sess.prefill(block=False)
+            t0 = time.perf_counter()
+            frames, done = sess.decode_chunk(self.first_chunk)
+            v = min(frames.shape[0], s.max_new_tokens)
+            s.vocoder = m._make_stream_vocoder(ref_codes)
+            s.host_only = ref_codes is not None
+            audio = s.vocoder.vocode_new(frames[:v]) if v > 0 else np.zeros((0,), np.float32)
+            s.frames_emitted = v
+            now = time.perf_counter()
+            if v > 0:
+                s.first_audio_at = now
+            if done or v >= s.max_new_tokens:
+                return audio, v, True, (now - t0) * 1000.0
+            # not finished: every frame of the solo chunk was valid (v == first_chunk).
+            # The lane's state and cache, its trailing-text row, and the newest
+            # rows of its vocoder window (so that maturity stays exact).
+            core.insert_slot(self._state, sess.state, slot)
+        finally:
+            sess.close()  # its B=1 set goes back to the model
         row = gen_lib._pad_trailing(np.asarray(tth, np.float32), np.asarray(tpe, np.float32), tb)
         self._tth[slot].copy_(torch.as_tensor(row[0]))
         k = min(v, self._ctx)
@@ -262,6 +283,17 @@ class ContinuousBatcher:
 
         wait=True: keep serving across idle gaps until close() (server
         mode, with submit() called from another thread)."""
+        with self._lock:
+            self._running = True
+        try:
+            yield from self._pump(wait)
+        finally:
+            with self._lock:
+                self._running = False
+                if self._closed:
+                    self._release_pool()
+
+    def _pump(self, wait: bool):
         m = self.model
         cfg = m.config
         up = cfg.codec.total_upsample
@@ -303,23 +335,17 @@ class ContinuousBatcher:
             if not any(self._slots):
                 continue  # every pending request failed admission or was cancelled
             t0 = time.perf_counter()
-            self._state, packed = core.decode_chunk(
-                m.params["talker"], m.params["predictor"], cfg.talker, cfg.predictor, self._state,
-                self._tth, self._tpe, self.chunk_size, self.sampling, self.pred_sampling,
-                self.min_new_tokens,
-            )
+            packed = self._set.run_chunk(m.params, self.chunk_size)
             if any(s is not None and not s.host_only and s.frames_emitted >= self._ctx
                    for s in self._slots):
                 # a mature x-vector lane: vocode every lane's window behind the chunk
-                audio_t = fused_stream._vocode_window(
-                    m.params["codec"], cfg.talker, cfg.codec, self._hist, packed, self.chunk_size,
-                    self._ctx)
+                audio_t = self._set.vocode(m.params, self.chunk_size, self._ctx)
                 audio_b, frames, valid, done = fused_stream.split_fused_output_batch(audio_t, packed)
             else:
                 audio_b = None
                 frames, valid, done = core.read_packed_batch(packed)
-            # the window rolls on: the last ctx frames of [window | chunk]
-            self._hist = torch.cat([self._hist, packed[:, :, :ncg].transpose(0, 1)], dim=1)[:, -self._ctx:]
+            # the window rolls on, in place: the last ctx frames of [window | chunk]
+            self._hist.copy_(torch.cat([self._hist, packed[:, :, :ncg].transpose(0, 1)], dim=1)[:, -self._ctx:])
             decode_ms = (time.perf_counter() - t0) * 1000.0
             for slot, s in enumerate(self._slots):
                 if s is None:

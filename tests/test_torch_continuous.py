@@ -25,7 +25,7 @@ from faster_qwen3_tts_tpu import weights as jax_weights
 from faster_qwen3_tts_tpu.model import FasterQwen3TTS as JaxTTS
 from faster_qwen3_tts_tpu.utils.tokenizer import ByteTokenizer, PromptTokenizer
 from faster_qwen3_tts_tpu_torch import serving, weights
-from faster_qwen3_tts_tpu_torch.engine import core
+from faster_qwen3_tts_tpu_torch.engine import graphs
 from faster_qwen3_tts_tpu_torch.engine.generate import CONTEXT_FRAMES
 from faster_qwen3_tts_tpu_torch.model import FasterQwen3TTS
 
@@ -259,7 +259,7 @@ def test_eos_on_a_chunk_boundary_still_yields_is_final(models, monkeypatch):
     lane reports zero valid frames and done: the stream still gets its
     is_final terminal."""
     jax_model, port = models
-    real_jax, real_port = jax_serving.aot.call, core.decode_chunk
+    real_jax, real_port = jax_serving.aot.call, graphs.GraphSet.run_chunk
     calls = {"jax": 0, "port": 0}
 
     def fake_jax(name, fn, **kw):
@@ -273,17 +273,16 @@ def test_eos_on_a_chunk_boundary_still_yields_is_final(models, monkeypatch):
             st = st._replace(done=jnp.ones_like(st.done))
         return st, packed
 
-    def fake_port(*a, **kw):
-        st, packed = real_port(*a, **kw)
+    def fake_port(gset, *a, **kw):
+        packed = real_port(gset, *a, **kw)
         calls["port"] += 1
-        if calls["port"] >= 2:
-            packed = packed.clone()
+        if calls["port"] >= 2:  # the chunk's packed rows and the set's state are static buffers
             packed[:, :, -2], packed[:, :, -1] = 0, 1
-            st = dataclasses.replace(st, done=torch.ones_like(st.done))
-        return st, packed
+            gset.state.done.fill_(True)
+        return packed
 
     monkeypatch.setattr(jax_serving.aot, "call", fake_jax)
-    monkeypatch.setattr(core, "decode_chunk", fake_port)
+    monkeypatch.setattr(graphs.GraphSet, "run_chunk", fake_port)
     req = _requests(1)
     out, ref = _upfront(port, req, 1), _upfront(jax_model, req, 1)
     _assert_same_run(out, ref)
