@@ -54,20 +54,30 @@ Phases, each of which fails the run:
    strict=True)`: full coverage, every leaf bitwise equal to `materialize`
    of the same tree; export, load phases and times; the directory is
    deleted. On that model `warmup()` (the graphs of the JAX warmup's
-   set: its phases, captures, seconds and graph memory are printed),
-   then two streaming x-vector voice-clone requests (chunk 8, first chunk
-   4, 32 frames) that must run no frame eagerly; checks the audio, that K1
-   and K2 carried the run, and greedy determinism; prints TTFA and stream
-   RTF per request; then one 24-frame stream under torch.profiler: K1 and
-   K2 device ms and launches per frame (over graph replays);
+   set, the prefill graphs of prompt buckets 32-256 among them: its
+   phases, captures, seconds and graph memory are printed), then two
+   streaming x-vector voice-clone requests (chunk 8, first chunk 4, 32
+   frames; their prompts assembled on the card) that must run no frame and
+   no prefill eagerly; checks the audio, that K1 and K2 carried the run,
+   and greedy determinism; prints TTFA and stream RTF per request beside
+   the eager-prefill runs'; then one 24-frame stream under torch.profiler:
+   K1 and K2 device ms and launches per frame (over graph replays);
 7b. graphs on the same Q8_0 model: from one start state, 32 replays of the
    captured frame against eager `core.decode_chunk` (packed rows, pos, done
    and KV cache exact), greedy and sampled with one seed; a (8, 24) window
    replay against eager `_vocode_window` (1e-5); the captured frame's ms
    (CUDA events) against the eager frame's and the kernels' ms a frame and
-   busy share (torch.profiler over the replays);
+   busy share (torch.profiler over the replays); then the prefill graphs:
+   at prompt buckets 32, 64, 128 and 256, greedy and sampled with one seed,
+   a replay of the bucket's graph must equal eager `core.start_state` of
+   the same prompt bit for bit (KV cache over the bucket, token, past
+   hidden, pos, num_pads) and run no eager prefill; eager ms against replay
+   ms (CUDA events);
 8. slice ICL on the same Q8_0 model: `create_voice_clone_prompt` timed on a
-   4.0 s recording; ICL streams from `ref_audio` with a long reference
+   4.0 s recording; the device prompt against the host prompt at full width
+   in bf16 for an x-vector and an ICL request from that recording (masks
+   equal, tie and trailing text within the kernels' tolerance, the largest
+   difference printed) and each builder's ms a request; ICL streams from `ref_audio` with a long reference
    (~56 frames: every chunk vocoded on the card) and a short one (~19
    frames: host decode with the reference prepended until 24 frames), one
    `xvec_only` stream, one non-streaming ICL request; checks sample counts,
@@ -82,36 +92,41 @@ Phases, each of which fails the run:
    batch in reverse lane order (each request's tokens must not change), and
    a B = 8 run under torch.profiler (K1 and K2 device ms and launches per
    step, busy share); then the pool's graphs captured (`warmup(pool_slots=8)`)
-   and a ContinuousBatcher (8 slots, no eager frame) answering 12
+   and a ContinuousBatcher (8 slots, no eager frame or prefill) answering 12
    requests (8 x-vector, 4 ICL) submitted from a thread every 150 ms, one
    cancelled at its first audio and one with text over the pool's bucket:
    every stream must end once, those two with `cancelled` and `error`;
-   TTFA from submit p50 / max, aggregate RTF, peak memory;
+   TTFA from submit p50 / max (beside the eager-prefill runs'), aggregate RTF,
+   peak memory;
 10. serve on the same Q8_0 model: `server.warm(model, continuous=8)` (what
    `--warmup` runs), `server.make_server(model, continuous=8)` on a thread, an x-vector and an ICL voice from the 4.0 s recording; 4
    concurrent POSTs (2 wav, 1 pcm, 1 ICL), a bad chunk_size and an unknown
    response_format (400), a client that closes after its first audio bytes
    (its lane must be released), GET /health; every 200 body a 24 kHz wav or
-   PCM16 stream, K1 and K2 launched, no eager frame; POST to first audio
-   byte per request;
+   PCM16 stream, K1 and K2 launched, no eager frame or prefill; POST to
+   first audio byte per request, beside the eager-prefill runs';
 11. int4 slice: the same seeded 0.6B tree (one `init_numpy`) materialized
     in float32, BF16, Q8_0, Q4_K_M and Q8_4: the quant_delta row (prefill
     logit cosine and top-10 overlap against float32, projection bytes);
     Q8_0, Q4_K_M and Q8_4 each serve a 32-frame x-vector stream, back to
     back (TTFA, RTF, peak memory, K2 and K4 launches per decode step; K4
-    must launch; no eager frame), Q4_K_M the graphs check of 7b (greedy),
+    must launch; no eager frame or prefill), Q4_K_M the graphs check of 7b
+    (greedy) and its prefill graphs check (greedy and sampled),
     Q4_K_M and Q8_4 a profiled 24-frame stream (K4's device us
     a launch printed beside K2's from the Q8_0 and Q8_4 profiles of the same
     run); on Q8_4 a 16-frame greedy `parity_mode` stream against the
     engine's (frames that agree, reported);
 12. slice BF16: one x-vector request in BF16 (K1 only) and a B = 8 batch;
 13. slice 1.7B Q8_0: `from_pretrained("Qwen/Qwen3-TTS-12Hz-1.7B-CustomVoice",
-   quant="Q8_0")`, `warmup()`, two CustomVoice streams (a plain speaker in
+   quant="Q8_0")`, `warmup()`, the prefill graphs check of 7b, the device
+   prompt against the host prompt of 8 for a CustomVoice and a VoiceDesign
+   request, two CustomVoice streams (a plain speaker in
    English, a dialect speaker in Chinese) and one non-streaming request;
    on the same weights VoiceDesign (a stream with an instruction, one
    non-streaming request) and a Base x-vector stream; checks sample counts,
    that K1 and K2 carried these requests, and greedy determinism; prints
-   load and warmup time, TTFA and stream RTF per request, peak memory; then
+   load and warmup time, TTFA and stream RTF per request (no eager frame or
+   prefill), peak memory; then
    a 24-frame CustomVoice stream under torch.profiler, as in 7.
 
 Kernel launches are counted replay-aware: each wrapper counts its eager
@@ -961,6 +976,25 @@ def no_eager_frames(what):
         fail(f"{what}: {ran} frames ran eagerly on the card after warmup")
 
 
+def _eager_prefills():
+    """Prefills run eagerly on the card so far (capture warm-ups included)."""
+    from faster_qwen3_tts_tpu_torch.engine import core
+
+    return core.start_state.eager_cuda
+
+
+@contextlib.contextmanager
+def no_eager_prefills(what):
+    """Fail if a prefill ran eagerly on the card inside the block (after a
+    warmup that captured its prompt buckets, every prefill must be a
+    replay)."""
+    before = _eager_prefills()
+    yield
+    ran = _eager_prefills() - before
+    if ran:
+        fail(f"{what}: {ran} prefills ran eagerly on the card after warmup")
+
+
 def _profile_row(prof, frames, wall_s):
     """Device time per frame of all kernels, of K1 and of K2, from a trace
     of `frames` frames over `wall_s` seconds."""
@@ -1136,6 +1170,177 @@ def graphs_phase(model, name, report, modes=("greedy", "sampled")):
     return row
 
 
+PREFILL_REPS = 5  # timed eager prefills and replays a bucket
+# kernel families of a prefill replay, by a substring of the kernel's name: the
+# many-row products (cuBLAS / CUTLASS), the casts and copies around them (the
+# int8 or int4 weights widened to f32 among them), K2 (the codec head's row)
+PREFILL_FAMILIES = (("products", ("gemm", "xmma", "cutlass")), ("casts_copies", ("copy",)),
+                    ("K2", ("int8_gemv_kernel",)))
+
+
+def _prefill_profile(replay, n=3):
+    """torch.profiler over `n` replays of one prefill graph -> device ms a
+    prefill, its device ops, the ms of each kernel family and the five
+    kernels that take most."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            replay()
+        torch.cuda.synchronize()
+
+    def device_us(e):
+        us = getattr(e, "self_device_time_total", None)
+        return us if us is not None else e.self_cuda_time_total
+
+    events = [e for e in prof.key_averages() if device_us(e) > 0]
+    total = sum(device_us(e) for e in events) / 1e3 / n
+    fam = {name: sum(device_us(e) for e in events if any(k in e.key.lower() for k in keys)) / 1e3 / n
+           for name, keys in PREFILL_FAMILIES}
+    top = sorted(events, key=device_us, reverse=True)[:5]
+    return {"device_ms": total, "device_ops": sum(e.count for e in events) / n, "families_ms": fam,
+            "top": [{"kernel": e.key[:100], "ms": device_us(e) / 1e3 / n, "calls": e.count / n} for e in top]}
+
+
+def prefill_graphs_phase(model, name, report):
+    """The captured prefill at full width against eager `core.start_state`.
+    For each prompt bucket warmup captures (32-256), greedy and sampled with
+    one seed, a B = 1 set replays the bucket's graph on a seeded prompt
+    (left-padded to 3/4 of the bucket): it must run no eager prefill and
+    equal eager `core.start_state` of the same prompt and seed bit for bit
+    (the KV cache over the bucket, token, past hidden, pos, num_pads). Then
+    the eager ms against the replay ms (CUDA events, median of 5), and the
+    graph pool's bytes."""
+    import torch
+
+    from faster_qwen3_tts_tpu_torch.engine import core, graphs
+    from faster_qwen3_tts_tpu_torch.engine import generate as gen_lib
+    from faster_qwen3_tts_tpu_torch.ops.sampling import SamplingParams
+
+    params, cfg, max_seq = model.params, model.config, model.max_seq_len
+    reg = graphs.registry_for(params)
+    H, dtype, dev = cfg.talker.hidden_size, params["talker"]["codec_embed"].dtype, params["talker"]["codec_embed"].device
+    samplings = {"greedy": (SamplingParams(do_sample=False), gen_lib.predictor_sampling(False)),
+                 "sampled": (SamplingParams(), gen_lib.predictor_sampling())}
+
+    def timed(fn):
+        times = []
+        for _ in range(PREFILL_REPS):
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            fn()
+            b.record()
+            b.synchronize()
+            times.append(a.elapsed_time(b))
+        return statistics.median(times)
+
+    row = {"card": CARD}
+    captures0 = reg.stats["prefill_captures"]
+    for mode, (ts, ps) in samplings.items():
+        gset = reg.lease(params, cfg, graphs.make_key(params, 1, max_seq, gen_lib.tth_bucket(1), ts, ps, 2))
+        try:
+            for bucket in gen_lib.SERVED_PREFILL_BUCKETS:
+                real = bucket * 3 // 4
+                g = torch.Generator(device=dev).manual_seed(bucket)
+                tie = torch.zeros(1, bucket, H, device=dev, dtype=dtype)
+                tie[:, bucket - real:] = (torch.randn(1, real, H, device=dev, generator=g) * 0.05).to(dtype)
+                mask = (torch.arange(bucket, device=dev) >= bucket - real).to(torch.int32)[None]
+                gset.prepare_prefill(params, bucket)
+                before = _eager_prefills()
+                gset.prefill(params, tie, mask, 17)
+                if _eager_prefills() != before:
+                    fail(f"prefill graphs {name} ({mode}, bucket {bucket}): the prefill ran eagerly")
+                gen = torch.Generator(device=dev).manual_seed(17)
+                state, _ = core.start_state(params["talker"], cfg.talker, tie, mask, gen, max_seq, ts, 2)
+                st = gset.state
+                equal = {f: bool(torch.equal(getattr(st, f), getattr(state, f)))
+                         for f in ("token", "past_hidden", "pos", "num_pads")}
+                equal["kv_cache"] = bool(torch.equal(st.cache.k[:, :, :bucket], state.cache.k[:, :, :bucket])
+                                         and torch.equal(st.cache.v[:, :, :bucket], state.cache.v[:, :, :bucket]))
+                if not all(equal.values()):
+                    fail(f"prefill graphs {name} ({mode}, bucket {bucket}): the replay differs from eager "
+                         f"core.start_state: {equal}")
+                del state
+                eager = timed(lambda: core.start_state(params["talker"], cfg.talker, tie, mask, gen, max_seq, ts, 2))
+                replay = timed(lambda: gset.prefill(params, tie, mask, 17))
+                row.setdefault(mode, {})[bucket] = {"rows": real, "equal": equal, "eager_ms": eager,
+                                                    "replay_ms": replay,
+                                                    "launches": dict(gset.prefill_launches.get(bucket, {}))}
+                if mode == "greedy" and bucket in (32, 256):  # where the replay's device time goes
+                    prof = row[mode][bucket]["profile"] = _prefill_profile(lambda: gset.prefill(params, tie, mask, 17))
+                    log(f"prefill graphs {name} bucket {bucket} ({CARD}): {prof['device_ms']:.3f} ms of kernels a "
+                        f"prefill in {prof['device_ops']:.0f} device ops (torch.profiler over 3 replays); "
+                        + ", ".join(f"{k} {v:.3f} ms" for k, v in prof["families_ms"].items()) + "; most: "
+                        + "; ".join(f"{t['ms']:.3f} ms x{t['calls']:.0f} {t['kernel'][:70]}" for t in prof["top"]))
+        finally:
+            reg.release(gset)
+    mem = reg.memory()
+    row.update(captured_here=reg.stats["prefill_captures"] - captures0,
+               graph_pool_gb=None if mem["pool_bytes"] is None else mem["pool_bytes"] / 1e9)
+    for mode in samplings:
+        log(f"prefill graphs {name} ({mode}, seed 17, {CARD}): replay equal to eager core.start_state bit for bit "
+            "(KV cache, token, past hidden, pos, num_pads) at buckets "
+            + ", ".join(f"{b} ({r['rows']} rows: eager {r['eager_ms']:.2f} ms, replay {r['replay_ms']:.3f} ms)"
+                        for b, r in row[mode].items()))
+    log(f"prefill graphs {name}: {row['captured_here']} prefill graphs captured in this phase (the rest by "
+        f"warmup); graph pool {_fmt(row['graph_pool_gb'])} GB")
+    report.setdefault("prefill_graphs", {})[name] = row
+    return row
+
+
+def prompt_builders_phase(name, report, cases):
+    """The device prompt (`build_device`, the default of a streaming request)
+    against the host prompt (`build`, padded to the same buckets and cast to
+    the parameter dtype as a session does) at full width, for each case
+    (label, model, prepare method, args, kwargs): masks equal, tie and tth
+    within check_close's tolerance (the device path projects the request's
+    text at 256 rows or more, the host path at its own bucket), the largest
+    difference reported; then each builder's ms per request, median of 5
+    after a first call: the call on the host, and until the card has the
+    prompt (synchronized)."""
+    import torch
+
+    from faster_qwen3_tts_tpu_torch.engine import generate as gen_lib
+
+    rows = {}
+    for label, model, method, args, kw in cases:
+        build = getattr(model, method)
+        dev = build(*args, **kw)[:4]
+        host = build(*args, **kw, prefer_device=False)[:4]
+        embed = model.params["talker"]["codec_embed"]
+        pb, tb = dev[0].shape[1], dev[2].shape[1]
+        tie_h, mask_h = gen_lib._pad_left(host[0], host[1], pb)
+        tth_h = gen_lib._pad_trailing(host[2], host[3], tb)
+        tie_h, tth_h = (torch.as_tensor(a).to(embed.device, embed.dtype) for a in (tie_h, tth_h))
+        if not torch.equal(dev[1], torch.as_tensor(mask_h, device=embed.device)):
+            fail(f"prompt builders {name} {label}: the device mask differs from the host one")
+        details = []
+        err = {"tie": check_close(f"prompt {name} {label} tie", dev[0], tie_h, details),
+               "tth": check_close(f"prompt {name} {label} tth", dev[2], tth_h, details)}
+        bitwise = bool(torch.equal(dev[0], tie_h) and torch.equal(dev[2], tth_h))
+        times = {}
+        for where, prefer in (("device", True), ("host", False)):
+            call, ready = [], []
+            for _ in range(5):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                build(*args, **kw, prefer_device=prefer)
+                call.append((time.perf_counter() - t0) * 1e3)
+                torch.cuda.synchronize()
+                ready.append((time.perf_counter() - t0) * 1e3)
+            times[where] = {"call_ms": statistics.median(call), "ready_ms": statistics.median(ready)}
+        rows[label] = {"rows": pb, "trailing_rows": tb, "max_abs_diff": err, "bitwise": bitwise, "ms": times}
+        log(f"prompt builders {name} {label} ({CARD}): device against host prompt at buckets ({pb}, {tb}): "
+            f"max abs diff tie {err['tie']:.3e}, tth {err['tth']:.3e} (tolerance {ATOL}), bitwise {bitwise}; "
+            f"ms a request: device {times['device']['call_ms']:.2f} on the host, {times['device']['ready_ms']:.2f} "
+            f"ready; host {times['host']['call_ms']:.2f}, {times['host']['ready_ms']:.2f} ready")
+    report.setdefault("prompt_builders", {})[name] = rows
+    return rows
+
+
 def slice_icl_phase(model, report):
     """ICL voice clone from reference recordings on the full-width model."""
     import numpy as np
@@ -1158,12 +1363,15 @@ def slice_icl_phase(model, report):
     log(f"slice ICL: create_voice_clone_prompt on a 4.0 s recording: first call {extract_ms[0]:.1f} ms "
         f"(the encoders came with the checkpoint), then {', '.join(f'{t:.1f}' for t in extract_ms[1:])} ms; "
         f"{item.ref_code.shape[0]} frames of codes")
+    prompt_builders_phase("0.6B Q8_0", report, [
+        ("x-vector", model, "_prepare_generation", (TEXT,), dict(voice_clone_prompt=_xvec_prompt(0))),
+        ("ICL 4.0 s", model, "_prepare_generation", (TEXT,), dict(ref_audio=str(long_ref), ref_text=REF_TEXT))])
 
     cases = [("long ICL", long_ref, False, FRAMES, 21), ("short ICL", short_ref, False, FRAMES, 22),
              ("xvec_only", short_ref, True, FRAMES, 23)]
     _reset_launches()
     requests = []
-    with no_eager_frames("slice ICL requests"):
+    with no_eager_frames("slice ICL requests"), no_eager_prefills("slice ICL requests"):
         for name, ref, xvec_only, frames, seed in cases:
             prompt = dict(ref_audio=str(ref), ref_text=REF_TEXT, xvec_only=xvec_only)
             # first request for the voice: extraction, then the voice-prompt cache is warm
@@ -1227,12 +1435,12 @@ def slice_phase(quant, n_requests, report, icl=False, tree=None, init_s=None):
         f"{model.warmup_phases})")
     _reset_launches()
     requests = []
-    with no_eager_frames(f"slice {quant} requests"):
+    with no_eager_frames(f"slice {quant} requests"), no_eager_prefills(f"slice {quant} requests"):
         for i in range(n_requests):
             req, _ = run_request(model, seed=i + 1)
             requests.append(req)
-            log(f"slice {quant} request {i} ({CARD}): {req['frames']} frames, TTFA {req['ttfa_ms']:.1f} ms, "
-                f"stream RTF {req['stream_rtf']:.3f}")
+            log(f"slice {quant} request {i} ({CARD}): {req['frames']} frames, TTFA {req['ttfa_ms']:.1f} ms "
+                f"(eager prefill, Q8_0: 124.5-139.5 ms), stream RTF {req['stream_rtf']:.3f}")
     launches = _read_launches()
     log(f"slice {quant}: launches during the requests {launches}")
     _, tok_a = run_request(model, seed=7, greedy=True, frames=24)
@@ -1244,6 +1452,7 @@ def slice_phase(quant, n_requests, report, icl=False, tree=None, init_s=None):
         frame_profile(model, "0.6B Q8_0 x-vector", report)
         phase("graphs 0.6B Q8_0")
         graphs_phase(model, "0.6B Q8_0", report)
+        prefill_graphs_phase(model, "0.6B Q8_0", report)
     report[f"slice_{quant}"] = {"load_s": load_s, "warmup_s": warmup_s, "warmup_phases": model.warmup_phases,
                                 "requests": requests, "launches": launches,
                                 "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
@@ -1438,13 +1647,15 @@ def slice_int4_phase(report, tree):
             model.warmup()
             warmup_s = time.perf_counter() - t0
             _reset_launches()
-            with tapped_steps({}) as steps, no_eager_frames(f"slice 0.6B {quant}"):
+            with tapped_steps({}) as steps, no_eager_frames(f"slice 0.6B {quant}"), \
+                    no_eager_prefills(f"slice 0.6B {quant}"):
                 req, _ = run_request(model, seed=1)
             counted = _read_launches()
             per_step = {k: steps[k] / max(1, steps["steps"]) for k in ("K1", "K2", "K4")}
             if mode != "int8":
                 launches = {k: launches[k] + counted[k] for k in launches}
-            log(f"slice 0.6B {quant}: warmup {warmup_s:.1f} s; {req['frames']} frames, TTFA {req['ttfa_ms']:.1f} ms, "
+            log(f"slice 0.6B {quant}: warmup {warmup_s:.1f} s; {req['frames']} frames, TTFA {req['ttfa_ms']:.1f} ms "
+                f"(eager prefill: Q8_0 134-172, Q4_K_M 232-298 ms), "
                 f"stream RTF {req['stream_rtf']:.3f}; launches {counted}, per decode step (of {steps['steps']}) "
                 f"K1 {per_step['K1']:.1f}, K2 {per_step['K2']:.1f}, K4 {per_step['K4']:.1f} (expected "
                 f"{K4_EXPECTED[quant]}); peak memory {torch.cuda.max_memory_allocated() / 1e9:.2f} GB")
@@ -1455,6 +1666,7 @@ def slice_int4_phase(report, tree):
                 frame_profile(model, f"0.6B {quant} x-vector", report, need=need)
             if mode == "int4":
                 graphs_phase(model, f"0.6B {quant}", report, modes=("greedy",))
+                prefill_graphs_phase(model, f"0.6B {quant}", report)
             row = {"materialize_s": materialize_s, "warmup_s": warmup_s, "warmup_phases": model.warmup_phases,
                    "request": req, "launches": counted,
                    "decode_steps": steps["steps"], "launches_per_step": per_step, "card_gb": card_gb,
@@ -1526,6 +1738,12 @@ def slice_17b_phase(report):
         f"{warmup_s:.1f} s ({model.warmup_phases})")
     design = FasterQwen3TTS(model.params, get_config("1.7b-design"), model.tokenizer)
     base = FasterQwen3TTS(model.params, get_config("1.7b"), model.tokenizer)
+    prefill_graphs_phase(model, "1.7B Q8_0", report)
+    prompt_builders_phase("1.7B Q8_0", report, [
+        ("CustomVoice", model, "_prepare_generation_custom", (TEXT, "English", "aiden"),
+         dict(non_streaming_mode=False)),
+        ("VoiceDesign", design, "_prepare_generation_custom", (TEXT, "English", None),
+         dict(instruct=DESIGN, non_streaming_mode=False))])
     prefills = {}
     for name, m, speaker, instruct, nsm in [
             ("CustomVoice, whole text", model, "aiden", None, True),
@@ -1542,7 +1760,8 @@ def slice_17b_phase(report):
             sess.close()  # its graph set goes back for the requests below
             times.append(sess.prefill_ms)
         prefills[name] = {"rows": int(prompt[0].shape[1]), "ms": statistics.median(times)}
-        log(f"slice 1.7B prefill, {name}: {prompt[0].shape[1]} rows, {prefills[name]['ms']:.1f} ms")
+        log(f"slice 1.7B prefill, {name}: {prompt[0].shape[1]} rows, {prefills[name]['ms']:.1f} ms (a replay of "
+            f"the bucket's graph; eager: 47-86 ms)")
     cv, vd = "generate_custom_voice", "generate_voice_design"
     streams = [("CustomVoice aiden/English", model, cv, (TEXT, "aiden", "English"), 31),
                ("CustomVoice dylan/Chinese", model, cv, (TEXT, "dylan", "Chinese"), 32),
@@ -1552,12 +1771,13 @@ def slice_17b_phase(report):
                      ("VoiceDesign", design, vd, (TEXT, DESIGN, "English"), 37)]
     _reset_launches()
     requests = []
-    with no_eager_frames("slice 1.7B requests"):
+    with no_eager_frames("slice 1.7B requests"), no_eager_prefills("slice 1.7B requests"):
         for name, m, method, args, seed in streams:
             req, _ = run_request(m, seed, method=f"{method}_streaming", args=args)
             req["name"] = name
             requests.append(req)
-            log(f"slice 1.7B {name} ({CARD}): {req['frames']} frames, TTFA {req['ttfa_ms']:.1f} ms, "
+            log(f"slice 1.7B {name} ({CARD}): {req['frames']} frames, TTFA {req['ttfa_ms']:.1f} ms (eager prefill: "
+                f"123-175 ms), "
                 f"stream RTF {req['stream_rtf']:.3f}")
         for name, m, method, args, seed in non_streaming:
             req = run_non_streaming(m, method, args, seed)
@@ -1609,16 +1829,15 @@ def tapped_lanes(rec):
     of each lockstep batch, in rec["steps"] the frames decoded, in
     rec["start"] the kernel launches counted when the engine began (after
     the prompts were built), and in rec["logits0"] lane 0's prefill logits."""
-    from faster_qwen3_tts_tpu_torch.engine import core
     from faster_qwen3_tts_tpu_torch.engine import generate as gen_lib
+    from faster_qwen3_tts_tpu_torch.engine import graphs
 
-    real, start_state = gen_lib.fast_generate_streaming_batch, core.start_state
+    real, set_prefill = gen_lib.fast_generate_streaming_batch, graphs.GraphSet.prefill
     rec.update(lanes={}, steps=0)
 
-    def prefill(*a, **k):
-        state, logits = start_state(*a, **k)
-        rec["logits0"] = logits[0].float().clone()  # read after the run
-        return state, logits
+    def prefill(gset, *a, **k):  # on the card a replay: the set keeps the logits
+        set_prefill(gset, *a, **k)
+        rec["logits0"] = gset.logits[0].float().clone()  # read after the run
 
     def recording(*a, **k):
         rec["start"] = _read_launches()
@@ -1629,11 +1848,11 @@ def tapped_lanes(rec):
             rec["steps"] += frames.shape[0]
             yield item
 
-    gen_lib.fast_generate_streaming_batch, core.start_state = recording, prefill
+    gen_lib.fast_generate_streaming_batch, graphs.GraphSet.prefill = recording, prefill
     try:
         yield rec
     finally:
-        gen_lib.fast_generate_streaming_batch, core.start_state = real, start_state
+        gen_lib.fast_generate_streaming_batch, graphs.GraphSet.prefill = real, set_prefill
 
 
 @contextlib.contextmanager
@@ -1892,7 +2111,7 @@ def continuous_phase(model, report, long_ref):
     th = threading.Thread(target=feeder, daemon=True)
     th.start()
     finals, samples, first = {}, {}, {}
-    with shape_tally({}) as tally, no_eager_frames("continuous"):
+    with shape_tally({}) as tally, no_eager_frames("continuous"), no_eager_prefills("continuous"):
         for sid, audio, sr, t in cb.run(wait=True):
             samples[sid] = samples.get(sid, 0) + audio.size
             if audio.size and sid not in first:
@@ -1927,7 +2146,8 @@ def continuous_phase(model, report, long_ref):
     log(f"continuous 0.6B Q8_0 ({CARD}): pool graphs captured in {pool_warm_s:.1f} s; {len(reqs)} requests "
         f"every 150 ms, 8 slots: {row['audio_s']:.2f} s of audio "
         f"in {wall:.2f} s, aggregate RTF {row['aggregate_rtf']:.3f}; TTFA from submit p50 "
-        f"{row['ttfa_p50_ms']:.1f} ms, max {row['ttfa_max_ms']:.1f} ms; stream {cancel_sid} cancelled, "
+        f"{row['ttfa_p50_ms']:.1f} ms, max {row['ttfa_max_ms']:.1f} ms (eager prefill: p50 324-431 ms, max 1.76-1.89 s); "
+        f"stream {cancel_sid} cancelled, "
         f"stream {bad_sid} error; launches {launches}, by shape {tally}; peak memory {row['peak_mem_gb']:.2f} GB "
         f"(before the run {row['base_mem_gb']:.2f} GB, after it {row['after_mem_gb']:.2f} GB with the pool)")
     report["continuous_Q8_0"] = row
@@ -2018,7 +2238,7 @@ def serve_phase(model, report, long_ref):
     out = [None] * len(bodies)
     threads = [threading.Thread(target=lambda i: out.__setitem__(i, request(bodies[i])), args=(i,))
                for i in range(len(bodies))]
-    with no_eager_frames("serve"):
+    with no_eager_frames("serve"), no_eager_prefills("serve"):
         for t in threads:
             t.start()
         for t in threads:
@@ -2053,9 +2273,11 @@ def serve_phase(model, report, long_ref):
            "bad_requests": bad, "aborted": aborted,
            "cancelled_streams": cancelled, "live_lanes_after": lanes, "health": health, "launches": launches}
     for r in out:
-        log(f"serve ({CARD}): {r['voice']} {r['format']}: POST to first audio byte {r['first_audio_ms']:.1f} ms, "
+        log(f"serve ({CARD}): {r['voice']} {r['format']}: POST to first audio byte {r['first_audio_ms']:.1f} ms "
+            f"(eager prefill: 1.04-1.16 s), "
             f"{r['audio_s']:.2f} s of audio in {r['ms'] / 1000:.2f} s")
-    log(f"serve: server.warm {warm_s:.1f} s; 4 concurrent requests in {wall:.2f} s (no eager frame), peak device "
+    log(f"serve: server.warm {warm_s:.1f} s; 4 concurrent requests in {wall:.2f} s (no eager frame or prefill), "
+        f"peak device "
         f"memory {peak_gb:.2f} GB (before "
         f"{base_gb:.2f} GB); launches {launches}; 400 for "
         f"{[r['error'] for r in bad]}; aborted client after {aborted['first_audio_ms']:.1f} ms -> "
@@ -2128,7 +2350,8 @@ def slice_batch_phase(model, quant, report):
             solo[i] = (rec, toks)
         log(f"slice {quant} solo greedy streams: RTF " + ", ".join(f"{solo[i][0]['stream_rtf']:.3f}" for i in solo))
     for B in sizes:
-        with shape_tally({}) as tally, no_eager_frames(f"lockstep {quant} B={B}"):
+        with shape_tally({}) as tally, no_eager_frames(f"lockstep {quant} B={B}"), \
+                no_eager_prefills(f"lockstep {quant} B={B}"):
             rec, toks = lockstep_run(model, reqs[:B], BATCH_FRAMES)
         for k in total:
             total[k] += rec["launches"][k]
@@ -2164,7 +2387,7 @@ def slice_batch_phase(model, quant, report):
             if n < AGREE_FRAMES or not (t[:n] == toks[i][:n]).all():
                 fail(f"lockstep B=8 in reverse lane order: request {i} got other tokens ({_agreement(toks[i], t)})")
         log(f"lockstep {quant} B=8 in reverse lane order: every request's {AGREE_FRAMES} frames equal")
-        with no_eager_frames("the profiled lockstep B=8 run"):
+        with no_eager_frames("the profiled lockstep B=8 run"), no_eager_prefills("the profiled lockstep B=8 run"):
             batch_profile(model, reqs, report, f"0.6B B=8 {quant}")
     report[f"lockstep_{quant}"] = {"runs": rows, "solo": {i: solo[i][0] for i in solo}, "b8_capture_shapes": b8}
     return total

@@ -75,9 +75,16 @@ def start_state(
     embeds [B, P, H] left-padded prompt; pad_mask [B, P] int. `noise` [B, V]
     replaces the first draw (tests). `into`: a state of the same batch and
     max_seq whose tensors take the result in place (a graph set's static
-    state), its cache rows past the prompt zeroed; it is returned."""
+    state), its cache rows past the prompt zeroed; it is returned. The body
+    reads nothing back to the host, branches on no tensor's value and sizes
+    every allocation from shapes, so a graph set captures it once per prompt
+    bucket (`graphs.GraphSet.prepare_prefill`). `start_state.eager_cuda`
+    counts the calls that ran eagerly on the card (capture warm-ups
+    included)."""
     B, P, _ = embeds.shape
     device = embeds.device
+    if device.type == "cuda" and not torch.cuda.is_current_stream_capturing():
+        start_state.eager_cuda += 1
     past_hidden, logits, cache_p = talker_lib.prefill(talker_params, talker_cfg, embeds, pad_mask)
     V, eos = talker_cfg.vocab_size, talker_cfg.codec_eos_token_id
     suppress = make_suppress_mask(V, eos, device)
@@ -112,6 +119,9 @@ def start_state(
         n_frames=torch.zeros((B,), dtype=torch.int32, device=device),
     )
     return state, logits
+
+
+start_state.eager_cuda = 0
 
 
 def zeros_state(

@@ -34,6 +34,7 @@ from ..ops.sampling import SamplingParams
 from . import core, fused_stream, graphs
 
 PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048)
+SERVED_PREFILL_BUCKETS = (32, 64, 128, 256)  # the prompt buckets `warmup` captures (up to max_seq_len)
 
 # Steady-state vocoder left context (frames), as in the JAX package.
 CONTEXT_FRAMES = 24
@@ -105,9 +106,14 @@ def _sync(device: torch.device) -> None:
 class GenerationSession:
     """One request's chunk pump over a leased graph set (single device).
 
-    `prefill` leases a `graphs.GraphSet` of the request's key and writes the
-    prompt's state into it; every chunk then runs on the set's static
-    buffers (on the card: replays of its captured frame and window graphs).
+    The prompt is host numpy at its own length (padded to the prefill and
+    trailing-text buckets, cast and uploaded here) or device tensors at
+    exactly those buckets in the parameter dtype (`build_device`), which pass
+    through untouched. `prefill` leases a `graphs.GraphSet` of the request's
+    key and writes the prompt's state into it (on the card: a replay of the
+    set's prefill graph of the bucket); every chunk then runs on the set's
+    static buffers (on the card: replays of its captured frame and window
+    graphs).
     The `*_async` methods queue a chunk and return its device tensors
     without reading them; they stay valid until the next chunk is queued.
     `close()` (or the session's collection) returns the set."""
@@ -134,19 +140,28 @@ class GenerationSession:
         embed = params["talker"]["codec_embed"]
         self.device, dtype = embed.device, embed.dtype
         bucket = prefill_bucket(tie.shape[1], max_seq_len)
-        tie_b, mask_b = _pad_left(tie, attention_mask, bucket)
-        tth_b = _pad_trailing(trailing_text, tts_pad_embed, tth_bucket(trailing_text.shape[1]))
+        t_bucket = tth_bucket(trailing_text.shape[1])
         put = lambda a, dt: torch.as_tensor(np.asarray(a)).to(self.device, dt)
-        self.tie = put(tie_b, dtype)
-        self.mask = put(mask_b, torch.int32)
-        self.tth = put(tth_b, dtype)
+        if isinstance(tie, torch.Tensor):
+            # a device prompt (`PromptBuilder.build_device`) at its exact buckets passes through untouched
+            if (tie.shape[1], trailing_text.shape[1]) != (bucket, t_bucket) or tie.dtype != dtype \
+                    or trailing_text.dtype != dtype or tie.device != self.device:
+                raise ValueError(f"a device prompt must be at its buckets ({bucket}, {t_bucket}) in {dtype} on "
+                                 f"{self.device}: tie {tuple(tie.shape)} {tie.dtype} on {tie.device}, "
+                                 f"tth {tuple(trailing_text.shape)} {trailing_text.dtype}")
+            self.tie, self.mask, self.tth = tie, attention_mask, trailing_text
+        else:
+            tie_b, mask_b = _pad_left(tie, attention_mask, bucket)
+            self.tie = put(tie_b, dtype)
+            self.mask = put(mask_b, torch.int32)
+            self.tth = put(_pad_trailing(trailing_text, tts_pad_embed, t_bucket), dtype)
         self.tpe = put(tts_pad_embed, dtype)
         if seed is None:
             seed = int(np.random.default_rng().integers(0, 2**31 - 1))
         self.seed = seed
         self.max_seq_len = max_seq_len
-        self.key = graphs.make_key(params, tie_b.shape[0], max_seq_len, tth_b.shape[1], sampling,
-                                   pred_sampling, min_new_tokens)
+        self.key = graphs.make_key(params, self.tie.shape[0], max_seq_len, t_bucket, sampling, pred_sampling,
+                                   min_new_tokens)
         self.graphs: Optional[graphs.GraphSet] = None
         self._lease: Optional[graphs.Lease] = None
         self.state: Optional[core.DecodeState] = None
@@ -158,8 +173,9 @@ class GenerationSession:
             self._lease.release()
 
     def prefill(self, block: bool = True) -> None:
-        """Lease the set and run the eager prefill into its static state; with
-        block=False its time folds into the first chunk's (prefill_ms stays 0)."""
+        """Lease the set and run the prefill into its static state (on the
+        card a replay of the bucket's graph); with block=False its time folds
+        into the first chunk's (prefill_ms stays 0)."""
         t0 = time.perf_counter()
         if self.graphs is None:  # a set of this request's key, captured if none is free
             reg = graphs.registry_for(self.params)

@@ -1,25 +1,31 @@
-"""Captured decode: CUDA graphs of one frame and of a window vocode, over
-static buffers that a session leases.
+"""Captured prefill and decode: CUDA graphs of the prefill, of one frame and
+of a window vocode, over static buffers that a session leases.
 
-Counterpart of the JAX package's `jax.jit` caches of `core.decode_chunk` and
-`fused_stream.decode_chunk_fused`, and of the in-process role of
-`engine/aot.py`: JAX compiles one program a chunk, this port captures one
-frame (`core._decode_frame`) and one window vocode
-(`fused_stream._vocode_window`) as CUDA graphs, and a chunk is `chunk`
-replays of the frame graph, then the window's replay. A graph cannot
-outlive its process, so nothing is written to disk.
+Counterpart of the JAX package's `jax.jit` caches of `core.start_state`,
+`core.decode_chunk` and `fused_stream.decode_chunk_fused`, and of the
+in-process role of `engine/aot.py`: JAX compiles one program a prompt bucket
+and one a chunk, this port captures the prefill and first-token draw
+(`core.start_state` into the set's state) once per prompt bucket, one frame
+(`core._decode_frame`) and one window vocode (`fused_stream._vocode_window`)
+as CUDA graphs; a request is a prefill replay, then chunks of `chunk`
+replays of the frame graph, each followed by the window's replay. A graph
+cannot outlive its process, so nothing is written to disk.
 
 A `GraphSet` owns everything one key of static shapes and static arguments
 needs (`GraphKey`: lanes, max_seq, the trailing-text bucket, dtype and
 quant mode of the parameters, both samplings, min_new_tokens): the static
 `DecodeState` (KV cache, positions, tokens, flags), the trailing-text,
-pad-embedding and suppress-mask buffers, the packed chunk rows
+pad-embedding and suppress-mask buffers, a prompt buffer pair (tie, mask)
+per prompt bucket and the last prefill's logits, the packed chunk rows
 [rows, B, 18], one vocoder history per window width and one audio buffer
-per window, its own `torch.Generator` (registered with the frame graph, so
-each replay draws the next stretch of the generator's stream, as eager
-frames do), the frame graph and the window graphs. At the end of the
-captured frame the new state is copied back into the same tensors, which is
-what JAX's donation does: each replay continues from the last one.
+per window, its own `torch.Generator` (registered with every graph that
+draws, so each replay draws the next stretch of the generator's stream, as
+eager calls do; a prefill reseeds it first), the prefill graphs, the frame
+graph and the window graphs. The prefill writes the set's state in place;
+at the end of the captured frame the new state is copied back into the same
+tensors, which is what JAX's donation does: each replay continues from the
+last one. A second live session of one key gets a set of its own, which
+captures its prefill graphs at their first use.
 
 A `GraphRegistry` per parameter tree (`registry_for`) leases sets: a live
 session holds its set until it is closed (or collected); a second live
@@ -33,8 +39,10 @@ raises, and nothing turns the graphs off. On the CPU (the tests) a set runs
 the same static-buffer body eagerly and makes no `torch.cuda` call.
 
 `replayed` counts the kernel launches that replays made (each graph's
-launches at capture times its replays), beside the wrappers' own counters,
-which move where a kernel is launched eagerly or recorded into a graph.
+launches at capture times its replays) and the frames and prefills
+replayed, beside the wrappers' own counters, which move where a kernel is
+launched eagerly or recorded into a graph. The registry's `stats` count
+captures and their seconds.
 """
 from __future__ import annotations
 
@@ -54,7 +62,7 @@ from . import core, fused_stream
 ROWS = 32  # packed chunk rows a set starts with (the non-streaming chunk); grown on demand
 
 # kernel launches made by graph replays since the last reset, and replays
-replayed = {"K1": 0, "K2": 0, "K4": 0, "frames": 0}
+replayed = {"K1": 0, "K2": 0, "K4": 0, "frames": 0, "prefills": 0}
 
 
 def reset_replayed() -> None:
@@ -128,6 +136,10 @@ class GraphSet:
         self.tpe = torch.zeros((B, 1, tcfg.hidden_size), dtype=key.dtype, device=device)
         self.suppress = make_suppress_mask(tcfg.vocab_size, tcfg.codec_eos_token_id, device)
         self.out = torch.zeros((B, ncg + 2), dtype=torch.int32, device=device)
+        self.logits = torch.zeros((B, tcfg.vocab_size), dtype=torch.float32, device=device)  # the last prefill's
+        self.prompts: Dict[int, Tuple[torch.Tensor, torch.Tensor]] = {}  # bucket -> (tie, mask) buffers
+        self.prefills: Dict[int, object] = {}  # bucket -> its prefill graph (None on the CPU)
+        self.prefill_launches: Dict[int, Dict[str, int]] = {}  # bucket -> a prefill replay's launches
         self.packed = torch.zeros((ROWS, B, ncg + 2), dtype=torch.int32, device=device)
         self.hists: Dict[int, torch.Tensor] = {}
         self.audio: Dict[Tuple[int, int], torch.Tensor] = {}
@@ -136,6 +148,15 @@ class GraphSet:
         self.windows: Dict[Tuple[int, int], object] = {}  # (chunk, ctx) -> its graph (None on the CPU)
 
     # -- the bodies (captured on the card, run eagerly on the CPU) -------------------------------
+
+    def _prefill(self, params, bucket: int, noise=None) -> None:
+        """`core.start_state` of the bucket's prompt buffers into the static
+        state (cache rows past the prompt zeroed), its logits into `logits`."""
+        k = self.key
+        tie, mask = self.prompts[bucket]
+        _, logits = core.start_state(params["talker"], self.cfg.talker, tie, mask, self.generator, k.max_seq,
+                                     k.sampling, k.min_new_tokens, noise=noise, into=self.state)
+        self.logits.copy_(logits)
 
     def _frame(self, params, noise=None) -> None:
         """One frame on the static state: `core._decode_frame`, then its new
@@ -195,6 +216,23 @@ class GraphSet:
         # the wrappers counted the warm-up frame and the recorded one
         self.frame_launches = {k: (n - before[k]) // 2 for k, n in _launch_counts().items()}
 
+    def prepare_prefill(self, params, bucket: int) -> None:
+        """The prompt buffers of `bucket` (outside the pool) and, on the card,
+        the capture of its prefill graph. Its warm-up prefill writes the
+        static state, so this comes before a prefill that is to be read."""
+        if bucket in self.prefills:
+            return
+        B, H = self.key.batch, self.cfg.talker.hidden_size
+        self.prompts[bucket] = (torch.zeros((B, bucket, H), dtype=self.key.dtype, device=self.device),
+                                torch.ones((B, bucket), dtype=torch.int32, device=self.device))
+        if not self.cuda:
+            self.prefills[bucket] = None
+            return
+        before = _launch_counts()
+        self.prefills[bucket] = self._capture(lambda: self._prefill(params, bucket))
+        self.registry.stats["prefill_captures"] += 1
+        self.prefill_launches[bucket] = {k: (n - before[k]) // 2 for k, n in _launch_counts().items()}
+
     def prepare_window(self, params, chunk: int, ctx: int) -> None:
         """Capture the window vocode of (chunk, ctx) (on the CPU: note it)."""
         key = (chunk, ctx)
@@ -222,8 +260,9 @@ class GraphSet:
         """Bytes of the set's static buffers (outside the graph pool)."""
         st = self.state
         tensors = [st.cache.k, st.cache.v, st.pos, st.num_pads, st.token, st.past_hidden, st.gen_step, st.seen,
-                   st.done, st.n_frames, self.tth, self.tpe, self.suppress, self.out, self.packed,
-                   *self.hists.values(), *self.audio.values()]
+                   st.done, st.n_frames, self.tth, self.tpe, self.suppress, self.out, self.logits, self.packed,
+                   *(t for pair in self.prompts.values() for t in pair), *self.hists.values(),
+                   *self.audio.values()]
         return sum(t.numel() * t.element_size() for t in tensors)
 
     # -- what a session calls ------------------------------------------------------------------
@@ -247,13 +286,27 @@ class GraphSet:
 
     def prefill(self, params, tie: torch.Tensor, mask: torch.Tensor, seed: int,
                 noise: Optional[torch.Tensor] = None) -> None:
-        """Reseed the set's generator, then the eager prefill and first-token
-        draw into the static state. `noise` [B, V] replaces the first draw
-        (CPU tests)."""
+        """The prefill and first-token draw of tie [B, bucket, H] / mask
+        [B, bucket] into the static state: the prompt is copied into the
+        bucket's buffers, the set's generator reseeded, and on the card the
+        bucket's graph replayed (captured first if it is new), so a seeded
+        sampled first token equals the eager one. `noise` [B, V] replaces the
+        first draw (CPU tests: the CPU runs the same body eagerly)."""
+        bucket = tie.shape[1]
+        self.prepare_prefill(params, bucket)
+        buf_tie, buf_mask = self.prompts[bucket]
+        buf_tie.copy_(tie)
+        buf_mask.copy_(mask)
         self.generator.manual_seed(seed)
-        k = self.key
-        core.start_state(params["talker"], self.cfg.talker, tie, mask, self.generator, k.max_seq, k.sampling,
-                         k.min_new_tokens, noise=noise, into=self.state)
+        if not self.cuda:
+            self._prefill(params, bucket, noise)
+            return
+        if noise is not None:
+            raise ValueError("prefill noise replaces the draw on the CPU only")
+        self.prefills[bucket].replay()
+        for k, n in self.prefill_launches[bucket].items():
+            replayed[k] += n
+        replayed["prefills"] += 1
 
     def reset_empty(self, seed: int) -> None:
         """An empty pool (`core.zeros_state`): every lane done, all zeros."""
@@ -306,7 +359,7 @@ class GraphRegistry:
         self._free: Dict[GraphKey, List[GraphSet]] = {}
         self._lock = threading.Lock()
         self.sets: List[GraphSet] = []
-        self.stats = {"captures": 0, "capture_s": 0.0}
+        self.stats = {"captures": 0, "capture_s": 0.0, "prefill_captures": 0}
 
     def pool(self):
         if self._pool is None:
@@ -348,11 +401,15 @@ class GraphRegistry:
         with self._lock:
             return len(self._free.get(key, ()))
 
-    def warm(self, params, cfg, key: GraphKey, windows: Sequence[Tuple[int, int]] = ()) -> GraphSet:
-        """Capture the frame and `windows` of `key` in one set (a free one if
-        there is one) and return it to the free sets."""
+    def warm(self, params, cfg, key: GraphKey, windows: Sequence[Tuple[int, int]] = (),
+             prefill_buckets: Sequence[int] = ()) -> GraphSet:
+        """Capture the frame, `windows` and the prefill graphs of
+        `prefill_buckets` of `key` in one set (a free one if there is one)
+        and return it to the free sets."""
         gset = self.lease(params, cfg, key)
         try:
+            for bucket in prefill_buckets:
+                gset.prepare_prefill(params, bucket)
             for chunk, ctx in windows:
                 gset.prepare_window(params, chunk, ctx)
         finally:

@@ -17,11 +17,15 @@ is False. Many streams share one engine batch through
 (`serving.ContinuousBatcher`: requests join a running pool). Weights load in
 BF16 / F32, Q8_0 (int8), Q4_K_M (int4) or Q8_4 (talker int8, predictor
 int4). `parity_mode=True` on the voice-clone methods runs the independent
-eager decode of `engine/parity.py` instead of the engine. On the card every
-decode chunk is a replay of CUDA graphs (`engine/graphs.py`), captured per
-key of static shapes and arguments: `warmup` captures the set serving uses,
-any other key is captured at its first use. The native-backend
-cached-reference kwargs are not ported (ROADMAP queue A).
+eager decode of `engine/parity.py` instead of the engine. A streaming
+request's prompt is assembled on the device (`PromptBuilder.build_device`,
+behind `_device_prompt_ok`); the lockstep batch, whole-text layouts and
+`parity_mode` build it on the host. On the card the prefill and every
+decode chunk are replays of CUDA graphs (`engine/graphs.py`), captured per
+key of static shapes and arguments (the prefill per prompt bucket too):
+`warmup` captures the set serving uses, any other key or bucket is
+captured at its first use. The native-backend cached-reference kwargs are
+not ported (ROADMAP queue A).
 """
 from __future__ import annotations
 
@@ -253,20 +257,26 @@ class FasterQwen3TTS:
                subtalker_top_k: Optional[int] = None, subtalker_top_p: Optional[float] = None,
                subtalker_temperature: Optional[float] = None) -> Dict[str, Any]:
         """Capture the graphs that serving replays (the JAX warmup's
-        executable set): one short prefill of a real prompt (builds the
-        kernels and the prefill's handles), then for each of `batch_sizes`
-        the frame graph and the window graphs of `graphs.warmup_windows`
-        (the first window, the growing contexts of an x-vector stream and
-        the ICL first window, for each chunk size); with `pool_slots` also a
-        continuous pool of that many lanes (its frame and the (chunk, 24)
-        windows). Graphs are keyed on the sampling arguments and
-        min_new_tokens too: these default to the generate methods'. Leaves
-        the sets free for the requests that follow; a key it did not cover
-        is captured at its first use. -> the phases' seconds, the captures
-        and the graph memory (static buffers and, on the card, the graph
-        pool, of every set of the model), also kept in `warmup_phases`.
-        Nothing is captured on the CPU (no graphs there); the keys are still
-        noted."""
+        executable set): one short prefill of a device-assembled x-vector
+        prompt (builds the kernels and the prefill's handles), then for each
+        of `batch_sizes` the prefill graphs of the prompt buckets a server
+        sees (`gen_lib.SERVED_PREFILL_BUCKETS` up to max_seq_len), the frame
+        graph and the window graphs of `graphs.warmup_windows` (the first
+        window, the growing contexts of an x-vector stream and the ICL first
+        window, for each chunk size); with `pool_slots` also a continuous pool
+        of that many lanes (its frame and the (chunk, 24) windows) and the
+        B = 1 prefill graphs and frame of its admissions. Then the prompt
+        builders once each as the JAX warmup runs them: the device assembly
+        of an x-vector prompt and of a 90-frame ICL prompt, and the host
+        build. Graphs are keyed on the sampling arguments and min_new_tokens
+        too: these default to the generate methods'. Leaves the sets free
+        for the requests that follow; a key or bucket it did not cover is
+        captured at its first use. -> the phases' seconds, the captures (and
+        of them the prefill graphs) with their seconds, the prefill buckets,
+        and the graph memory (static buffers, and on the card the graph pool
+        before and after, of every set of the model), also kept in
+        `warmup_phases`. Nothing is captured on the CPU (no graphs there);
+        the keys, windows and buckets are still noted."""
         from .engine import graphs as graphs_lib
         from .ops.sampling import SamplingParams
 
@@ -283,9 +293,11 @@ class FasterQwen3TTS:
         pred = gen_lib.predictor_sampling(subtalker_dosample, subtalker_top_k, subtalker_top_p,
                                           subtalker_temperature)
         reg = graphs_lib.registry_for(self.params)
-        captures0, capture_s0 = reg.stats["captures"], reg.stats["capture_s"]
-        tie, tam, tth, tpe, _ = self._prepare_generation(
-            "Warm up the engine.", voice_clone_prompt={"ref_spk_embedding": [np.zeros(2048, np.float32)]})
+        stats0 = dict(reg.stats)
+        pool0 = reg.memory()["pool_bytes"]
+        xvec = {"ref_spk_embedding": [np.zeros(2048, np.float32)], "x_vector_only_mode": [True],
+                "icl_mode": [False], "ref_code": [None]}
+        tie, tam, tth, tpe, _ = self._prepare_generation("Warm up the engine.", voice_clone_prompt=xvec)
         sess = gen_lib.GenerationSession(self.params, self.config, tie, tam, tth, tpe, self.max_seq_len,
                                          sampling, pred, min_new_tokens, seed=0)
         try:
@@ -293,21 +305,38 @@ class FasterQwen3TTS:
         finally:
             sess.close()
         mark("prompt_and_prefill")
+        buckets = tuple(b for b in gen_lib.SERVED_PREFILL_BUCKETS if b <= self.max_seq_len)
         windows = graphs_lib.warmup_windows(chunk_sizes, first_chunk_size, gen_lib.CONTEXT_FRAMES)
         for B in dict.fromkeys(batch_sizes):
-            reg.warm(self.params, self.config, sess.key._replace(batch=B), windows)
+            reg.warm(self.params, self.config, sess.key._replace(batch=B), windows, prefill_buckets=buckets)
             mark(f"graphs_B{B}")
         if pool_slots:
             ctx = gen_lib.CONTEXT_FRAMES
+            # the pool is filled by lane copies, never prefilled
             reg.warm(self.params, self.config, sess.key._replace(batch=pool_slots),
                      [(c, ctx) for c in chunk_sizes])
-            reg.warm(self.params, self.config, sess.key)  # admission's solo chunk
+            reg.warm(self.params, self.config, sess.key, prefill_buckets=buckets)  # admission's prefill, solo chunk
             mark(f"graphs_pool{pool_slots}")
+        warm_text = "The quick brown fox jumps over the lazy dog warms buckets."
+        self._prepare_generation(warm_text, voice_clone_prompt=xvec, xvec_only=True)
+        self._prepare_generation(warm_text, voice_clone_prompt=xvec, xvec_only=True, prefer_device=False)
+        if self.max_seq_len >= 128:  # a 90-frame ICL prompt takes the 128-row bucket
+            tc = self.config.talker
+            icl = {"ref_spk_embedding": [np.zeros(2048, np.float32)], "x_vector_only_mode": [False],
+                   "icl_mode": [True], "ref_code": [np.random.default_rng(0).integers(
+                       0, tc.vocab_size - 1025, size=(90, tc.num_code_groups)).astype(np.int32)]}
+            self._prepare_generation(warm_text, ref_text="warmup reference text", voice_clone_prompt=icl)
+        if self.params["talker"]["codec_embed"].device.type == "cuda":
+            torch.cuda.synchronize()
+        mark("prompt_assembly")
         mem = reg.memory()
         phases["graph_static_gb"] = mem["static_bytes"] / 1e9  # every set of this model, not only these
+        phases["graph_pool_gb_before"] = None if pool0 is None else pool0 / 1e9
         phases["graph_pool_gb"] = None if mem["pool_bytes"] is None else mem["pool_bytes"] / 1e9
-        phases["captures"] = reg.stats["captures"] - captures0
-        phases["capture_s"] = round(reg.stats["capture_s"] - capture_s0, 3)
+        phases["captures"] = reg.stats["captures"] - stats0["captures"]
+        phases["prefill_captures"] = reg.stats["prefill_captures"] - stats0["prefill_captures"]
+        phases["capture_s"] = round(reg.stats["capture_s"] - stats0["capture_s"], 3)
+        phases["prefill_buckets"] = list(buckets)
         phases["total_s"] = round(time.perf_counter() - t0, 3)
         self.warmup_phases = phases
         self._warmed_up = True
@@ -480,8 +509,12 @@ class FasterQwen3TTS:
     def _prepare_generation(self, text: str, ref_audio=None, ref_text: str = "", language: str = "English",
                             xvec_only: bool = False, non_streaming_mode: bool = False,
                             append_silence: bool = True, voice_clone_prompt=None,
-                            instruct: Optional[str] = None):
-        """-> (tie, attention_mask, tth, tpe, ref_codes [R, 16] int32 or None)."""
+                            instruct: Optional[str] = None, prefer_device: bool = True):
+        """-> (tie, attention_mask, tth, tpe, ref_codes [R, 16] int32 or None).
+        A streaming-layout request with prefer_device is assembled on the
+        device (`PromptBuilder.build_device`: device tensors at the session's
+        buckets); otherwise, and for more than one item, on the host (`build`:
+        numpy at the prompt's own length)."""
         input_ids = [self.tokenizer.assistant_ids(text)]
         instruct_ids = [self.tokenizer.instruct_ids(instruct)] if instruct else [None]
         vcp, ref_ids, using_icl = self._resolve_voice_clone_prompt(
@@ -490,25 +523,46 @@ class FasterQwen3TTS:
         if instruct and not using_icl:
             logger.warning("Base-model instruct with x-vector-only voice cloning is experimental; "
                            "prefer xvec_only=False (ICL mode).")
+        languages = [language if language is not None else "Auto"]
         ref_codes = None
         if using_icl and vcp.get("ref_code") and vcp["ref_code"][0] is not None:
             ref_codes = np.asarray(vcp["ref_code"][0], np.int32)
+        if self._device_prompt_ok(prefer_device, non_streaming_mode):
+            dev = self.prompt_builder.build_device(input_ids, ref_ids, vcp, languages, None, instruct_ids,
+                                                   self.max_seq_len)
+            if dev is not None:
+                return (*dev, ref_codes)
         tie, tam, tth, tpe = self.prompt_builder.build(
-            input_ids=input_ids, ref_ids=ref_ids, voice_clone_prompt=vcp,
-            languages=[language if language is not None else "Auto"], speakers=None,
+            input_ids=input_ids, ref_ids=ref_ids, voice_clone_prompt=vcp, languages=languages, speakers=None,
             non_streaming_mode=non_streaming_mode, instruct_ids=instruct_ids,
         )
         return tie, tam, tth, tpe, ref_codes
 
-    def _prepare_generation_custom(self, text, language, speaker, instruct=None, non_streaming_mode=True):
+    def _device_prompt_ok(self, prefer_device: bool, non_streaming_mode: bool) -> bool:
+        """The device-assembly gate: a streaming-layout request whose caller
+        prefers it. The lockstep batch pads its prompts in host numpy and
+        `parity_mode` reads them on the host, so both pass prefer_device=False;
+        a whole-text (non-streaming) layout is built on the host. Unlike the
+        JAX package there is no mesh and no switch to turn it off."""
+        return prefer_device and not non_streaming_mode
+
+    def _prepare_generation_custom(self, text, language, speaker, instruct=None, non_streaming_mode=True,
+                                   prefer_device: bool = True):
         """Prompt of a CustomVoice (preset `speaker`) or VoiceDesign
         (speaker None, voice described by `instruct`) request -> (tie,
-        attention_mask, tth, tpe)."""
+        attention_mask, tth, tpe), on the device for a streaming layout with
+        prefer_device (as `_prepare_generation`)."""
+        input_ids = [self.tokenizer.assistant_ids(text)]
+        instruct_ids = [self.tokenizer.instruct_ids(instruct) if instruct else None]
+        languages = [language if language is not None else "Auto"]
+        if self._device_prompt_ok(prefer_device, non_streaming_mode):
+            dev = self.prompt_builder.build_device(input_ids, [None], None, languages, [speaker], instruct_ids,
+                                                   self.max_seq_len)
+            if dev is not None:
+                return dev
         return self.prompt_builder.build(
-            input_ids=[self.tokenizer.assistant_ids(text)], ref_ids=[None], voice_clone_prompt=None,
-            languages=[language if language is not None else "Auto"], speakers=[speaker],
-            non_streaming_mode=non_streaming_mode,
-            instruct_ids=[self.tokenizer.instruct_ids(instruct) if instruct else None],
+            input_ids=input_ids, ref_ids=[None], voice_clone_prompt=None, languages=languages,
+            speakers=[speaker], non_streaming_mode=non_streaming_mode, instruct_ids=instruct_ids,
         )
 
     # -- codec decode helpers --------------------------------------------------
@@ -577,7 +631,7 @@ class FasterQwen3TTS:
         tie, tam, tth, tpe, ref_codes = self._prepare_generation(
             text=text, ref_audio=ref_audio, ref_text=ref_text, language=language, xvec_only=xvec_only,
             non_streaming_mode=nsm, append_silence=append_silence,
-            voice_clone_prompt=voice_clone_prompt, instruct=instruct,
+            voice_clone_prompt=voice_clone_prompt, instruct=instruct, prefer_device=not parity_mode,
         )
         kw = dict(max_seq_len=self.max_seq_len, max_new_tokens=max_new_tokens,
                   min_new_tokens=min_new_tokens, temperature=temperature, top_k=top_k, top_p=top_p,
@@ -637,7 +691,7 @@ class FasterQwen3TTS:
         tie, tam, tth, tpe, ref_codes = self._prepare_generation(
             text=text, ref_audio=ref_audio, ref_text=ref_text, language=language, xvec_only=xvec_only,
             non_streaming_mode=nsm, append_silence=append_silence,
-            voice_clone_prompt=voice_clone_prompt, instruct=instruct,
+            voice_clone_prompt=voice_clone_prompt, instruct=instruct, prefer_device=not parity_mode,
         )
         kw = dict(max_seq_len=self.max_seq_len, max_new_tokens=max_new_tokens,
                   min_new_tokens=min_new_tokens, temperature=temperature, top_k=top_k, top_p=top_p,
@@ -724,6 +778,7 @@ class FasterQwen3TTS:
                 ref_text=r.get("ref_text", ""), xvec_only=bool(r.get("xvec_only", False)),
                 non_streaming_mode=nsm, append_silence=bool(r.get("append_silence", True)),
                 voice_clone_prompt=r.get("voice_clone_prompt"), instruct=r.get("instruct"),
+                prefer_device=False,  # the batch pads its prompts in host numpy below
             ))
         B = len(prepared)
         H = self.config.talker.hidden_size

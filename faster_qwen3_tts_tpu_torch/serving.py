@@ -2,11 +2,14 @@
 
 Port of faster_qwen3_tts_tpu/serving.py. A fixed pool of `max_slots` engine
 lanes runs a steady chunk pump. A request is admitted into a free lane at a
-chunk boundary; it pays its own prompt, a B=1 prefill and one solo first
-chunk through the single-stream session (its first audio, in B=1 time),
-then enters the pool through `core.insert_slot`: device copies of its state
-and KV cache into the pool's tensors. The session's B=1 cache is freed once
-the lane is copied. A finished lane (EOS, budget or `cancel`) frees its slot
+chunk boundary; it pays its own prompt (a streaming request's assembled on
+the device, `_prepare_generation`'s default), a B=1 prefill and one solo
+first chunk through the single-stream session (its first audio, in B=1
+time; on the card a replay of the B=1 set's prefill graph, then of its
+frame), then enters the pool through `core.insert_slot` and a copy of its
+trailing text: device copies of its state, KV cache and text rows into the
+pool's tensors. The session's B=1 cache is freed once the lane is copied.
+A finished lane (EOS, budget or `cancel`) frees its slot
 for the next pending request. The pool's shapes never change.
 
 Vocoding is two-phase per lane. While a lane has fewer than 24 frames of its
@@ -234,8 +237,10 @@ class ContinuousBatcher:
             core.insert_slot(self._state, sess.state, slot)
         finally:
             sess.close()  # its B=1 set goes back to the model
-        row = gen_lib._pad_trailing(np.asarray(tth, np.float32), np.asarray(tpe, np.float32), tb)
-        self._tth[slot].copy_(torch.as_tensor(row[0]))
+        # the lane's trailing text, device to device: the session's bucket, then pad rows to the pool's
+        n = sess.tth.shape[1]
+        self._tth[slot, :n].copy_(sess.tth[0])
+        self._tth[slot, n:].copy_(sess.tpe[0].expand(tb - n, -1))
         k = min(v, self._ctx)
         self._hist[slot, self._ctx - k:] = torch.as_tensor(frames[v - k:v])
         s.slot = slot

@@ -94,7 +94,8 @@ def test_non_streaming_generate_and_codec_decode_match_jax(models, xvec_prompt):
     jprompt = jax_model._prepare_generation(
         "Same text.", language="English", voice_clone_prompt=xvec_prompt, prefer_device=False
     )[:4]
-    prompt = port._prepare_generation("Same text.", language="English", voice_clone_prompt=xvec_prompt)
+    prompt = port._prepare_generation("Same text.", language="English", voice_clone_prompt=xvec_prompt,
+                                      prefer_device=False)
     assert prompt[4] is None  # no reference codes in x-vector mode
     prompt = prompt[:4]
     for a, b in zip(prompt, jprompt):

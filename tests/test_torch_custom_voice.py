@@ -117,13 +117,10 @@ def test_prompt_matches_jax(make, case):
     model_type, size, method, args, kw = PROMPT_CASES[case]
     jax_model, port = make(model_type, size)
     out, instruct = _prompt_of(port, method, *args, **kw)
-    _, jinstruct = _prompt_of(jax_model, method, *args, **kw)
+    ref, jinstruct = _prompt_of(jax_model, method, *args, **kw)
     assert instruct == jinstruct
-    # the JAX package's host builder, with what its public method resolved
-    # (its streaming-layout requests take a device builder that pads to a bucket)
-    ref = jax_model._prepare_generation_custom(
-        args[0], args[2], None if model_type == "voice_design" else args[1], instruct=jinstruct,
-        non_streaming_mode=kw.get("non_streaming_mode", True), prefer_device=False)
+    # both public methods take the same builder: the host one for a whole-text
+    # layout, the device one (padded to the session's buckets) for a step-fed one
     assert len(out) == len(ref) == 4
     for a, b in zip(out, ref):
         assert a.shape == b.shape and a.dtype == b.dtype

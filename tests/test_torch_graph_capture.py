@@ -14,7 +14,12 @@ draws); the window graph equals eager `_vocode_window` at 1e-5 (f32) or
 exactly (bf16: the same kernels in the same order); a released set is
 leased again and a second live lease gets another set; a new seed after a
 set was used gives the eager tokens of that seed; and after `warmup` a
-served request runs no eager frame on the card.
+served request runs no eager frame on the card. The prefill: a set's
+replayed prefill graph equals eager `core.start_state` bit for bit (tokens,
+logits, past hidden, positions, pads, the KV cache over the prompt) at
+prompt buckets 32-256, greedy and sampled; replays of prefill, frame and
+window graphs in mixed order on one set keep every chunk equal to eager; and
+after `warmup` a served request runs no eager prefill.
 """
 import dataclasses
 
@@ -208,3 +213,94 @@ def test_no_eager_frame_after_warmup(cuda_device, tmp_path):
                                                        first_chunk_size=4, seed=1))
     assert chunks and core._decode_frame.eager_cuda == before
     assert graphs.replayed["frames"] == 20 and graphs.replayed["K1"] > 0 and graphs.replayed["K2"] > 0
+
+
+def _bucket_prompt(cfg, params, bucket, real, seed):
+    """A prompt [1, bucket, H] left-padded to `real` rows."""
+    g = torch.Generator().manual_seed(seed)
+    H, dtype = cfg.talker.hidden_size, params["talker"]["codec_embed"].dtype
+    tie = torch.zeros(1, bucket, H)
+    tie[:, bucket - real:] = torch.randn(1, real, H, generator=g) * 0.5
+    mask = torch.zeros(1, bucket, dtype=torch.int32)
+    mask[:, bucket - real:] = 1
+    tth = (torch.randn(1, 40, H, generator=g) * 0.5).to("cuda", dtype)
+    tpe = (torch.randn(1, 1, H, generator=g) * 0.5).to("cuda", dtype)
+    return tie.to("cuda", dtype), mask.to("cuda"), tth, tpe
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tiny", "0.6b-2-layers"])
+@pytest.mark.parametrize("mode", ["greedy", "sampled"])
+def test_prefill_replay_equals_eager(cuda_device, name, mode):
+    params, cfg = _model(name, cuda_device)
+    sampling = GREEDY if mode == "greedy" else SAMPLED
+    reg = graphs.registry_for(params)
+    gset = reg.lease(params, cfg, _key(params, _prompt(cfg, params), sampling))
+    try:
+        for bucket in (32, 64, 128, 256):
+            tie, mask, _, _ = _bucket_prompt(cfg, params, bucket, bucket - 5, seed=bucket)
+            gset.prepare_prefill(params, bucket)
+            assert gset.prefills[bucket] is not None
+            before = core.start_state.eager_cuda
+            gset.prefill(params, tie, mask, 21)
+            assert core.start_state.eager_cuda == before  # a replay, not an eager prefill
+            gen = torch.Generator(device="cuda").manual_seed(21)
+            state, logits = core.start_state(params["talker"], cfg.talker, tie, mask, gen, 256, sampling[0], 2)
+            st = gset.state
+            for field in ("token", "past_hidden", "pos", "num_pads"):
+                assert torch.equal(getattr(st, field), getattr(state, field)), (bucket, field)
+            assert torch.equal(gset.logits, logits), bucket
+            assert torch.equal(st.cache.k[:, :, :bucket], state.cache.k[:, :, :bucket]), bucket
+            assert torch.equal(st.cache.v[:, :, :bucket], state.cache.v[:, :, :bucket]), bucket
+            assert not st.cache.k[:, :, bucket:].any()  # the rows past the prompt are zeroed
+    finally:
+        reg.release(gset)
+
+
+@pytest.mark.cuda
+def test_mixed_replays_keep_equality(cuda_device):
+    """Two prompts at two buckets prefilled in turn on one set, each followed
+    by chunks and windows, in the order A, B, A, B: every chunk equals eager,
+    each window equals eager `_vocode_window`."""
+    params, cfg = _model("0.6b-2-layers", cuda_device)
+    a = _bucket_prompt(cfg, params, 64, 40, seed=1)
+    b = _bucket_prompt(cfg, params, 32, 20, seed=2)
+    runs = {"a": (a, 3, (4, 8)), "b": (b, 4, (8,))}
+    eager = {k: _eager(params, cfg, p, SAMPLED, seed, chunks)[1] for k, (p, seed, chunks) in runs.items()}
+    reg = graphs.registry_for(params)
+    gset = reg.lease(params, cfg, _key(params, a, SAMPLED))
+    try:
+        for k in ("a", "b", "a", "b"):
+            (tie, mask, tth, tpe), seed, chunks = runs[k]
+            gset.load_text(tth, tpe)
+            gset.prefill(params, tie, mask, seed)
+            for i, chunk in enumerate(chunks):
+                assert torch.equal(gset.run_chunk(params, chunk), eager[k][i]), (k, i)
+                audio = gset.vocode(params, chunk, 0).clone()
+                want = fused_stream._vocode_window(params["codec"], cfg.talker, cfg.codec, None, gset.packed[:chunk],
+                                                   chunk, 0)
+                torch.testing.assert_close(audio, want, atol=1e-5, rtol=0)
+    finally:
+        reg.release(gset)
+
+
+@pytest.mark.cuda
+def test_no_eager_prefill_after_warmup(cuda_device, tmp_path):
+    """After `warmup` a streaming request (its prompt assembled on the card)
+    replays its prefill: the eager-prefill counter does not move."""
+    from faster_qwen3_tts_tpu_torch.model import FasterQwen3TTS
+
+    cfg = config_from_dict(TINY)
+    weights.save_pretrained(str(tmp_path), weights.init_numpy(cfg, seed=0), cfg)
+    model = FasterQwen3TTS.from_pretrained(str(tmp_path), device="cuda", dtype="float32", quant="Q8_0",
+                                           max_seq_len=256)
+    phases = model.warmup(chunk_sizes=(8,), first_chunk_size=4, min_new_tokens=20)
+    assert phases["prefill_captures"] == 4 and phases["prefill_buckets"] == [32, 64, 128, 256]
+    before = core.start_state.eager_cuda, core._decode_frame.eager_cuda
+    graphs.reset_replayed()
+    prompt = {"ref_spk_embedding": [np.random.default_rng(0).standard_normal(2048).astype(np.float32)]}
+    chunks = list(model.generate_voice_clone_streaming("Hello there.", "English", voice_clone_prompt=prompt,
+                                                       max_new_tokens=20, min_new_tokens=20, chunk_size=8,
+                                                       first_chunk_size=4, seed=1))
+    assert chunks and (core.start_state.eager_cuda, core._decode_frame.eager_cuda) == before
+    assert graphs.replayed["prefills"] == 1 and graphs.replayed["frames"] == 20
