@@ -24,7 +24,9 @@ Phases, each of which fails the run:
    with the path its plan took (CUDA or tensor cores, tile, cluster, CTAs)
    (yardsticks `torch._weight_int4pack_mm` on the same nibbles with bf16
    scales and zeros, its error stated, and the bf16 matmul), one float32
-   case and one replay in a CUDA graph;
+   case and one replay in a CUDA graph; K2 and K4 also at the shapes of
+   the fused projection layout (wqkv I 1024 / 2048, O 4096; w_gateup
+   1024 x 6144 and 2048 x 12288) with 1, 8 and 16 rows;
 4. probe: K3 streams the stacked int8 weights of the Pallas probe it
    replaces (L=28, I=2048, O=12288, the 1.7B gate+up stack, and L=28,
    I=1024, O=6144), timed with CUDA events, then held against its plain
@@ -47,7 +49,11 @@ Phases, each of which fails the run:
    `parity_mode=True` against the engine on the card for float32, Q8_0,
    Q4_K_M and Q8_4 weights, greedy and sampled with one seed: equal tokens;
 6. cli: `python -m faster_qwen3_tts_tpu_torch.cli clone` on the tiny
-   checkpoint as a subprocess on the card (rc 0, a 24 kHz wav);
+   checkpoint as a subprocess on the card (rc 0, a 24 kHz wav); examples:
+   each script of examples_torch/ as a subprocess on the card at the tiny
+   geometry (extract_speaker to .npy and .spk, generate_with_embedding from
+   each, streaming_playback twice: the second run must read the voice from
+   the native backend's cache);
 7. checkpoint + slice 0.6B Q8_0: the 0.6B Base tree of `init_numpy(seed=0)`
    (0.96 B parameters) written by `export_hf_layout` (float32, 3.86 GB)
    under build/ and loaded by `from_pretrained(dir, quant="Q8_0",
@@ -115,7 +121,23 @@ Phases, each of which fails the run:
     Q4_K_M and Q8_4 a profiled 24-frame stream (K4's device us
     a launch printed beside K2's from the Q8_0 and Q8_4 profiles of the same
     run); on Q8_4 a 16-frame greedy `parity_mode` stream against the
-    engine's (frames that agree, reported);
+    engine's (frames that agree, reported); native, on the Q8_0 params:
+    the host library must load (built with g++ from the port's
+    csrc/fq3t.cpp; no fallback hides its absence), native against numpy
+    resampling and PCM16, a ring-buffer round trip, `NativeQwen3TTS` over
+    the same params extracting a reference once (miss) and again (hit), a
+    greedy stream from the `.spk` file bitwise equal to one from a
+    `voice_clone_prompt` of the same x-vector (after a warmup of the greedy
+    key: no eager frame or prefill),
+    `from_pretrained(<tiny dir>, backend="native")` once; fused, on the
+    Q8_0 and Q4_K_M params: `quant.fuse_layer_weights` at full width as a
+    second model with graph sets of its own, 32 fused replays bitwise equal
+    to fused eager (greedy and sampled), fused against unfused on one
+    greedy prompt (layer 0's fused products within 2e-2, prefill logits and
+    hidden by cosine, the first frame where greedy tokens part), K2 / K4 launches, us a
+    launch, kernel ms a frame and frame ms beside the unfused figures of the
+    run, `warmup` and three solo streams (TTFA, RTF, launches a decode
+    step; no eager frame or prefill), both models' graph memory;
 12. slice BF16: one x-vector request in BF16 (K1 only) and a B = 8 batch;
 13. slice 1.7B Q8_0: `from_pretrained("Qwen/Qwen3-TTS-12Hz-1.7B-CustomVoice",
    quant="Q8_0")`, `warmup()`, the prefill graphs check of 7b, the device
@@ -324,6 +346,17 @@ K2_SHAPES = {(1024, 2048): "wq/lm_heads", (1024, 1024): "wk/wv/mtp_proj/text_pro
 # the 0.6B shapes also at the rows of an 8-lane pool: 8 (talker, predictor
 # passes 2-15) and 16 (the predictor's first pass, two rows a lane)
 K2_SHAPES_06B = ((1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072), (3072, 1024))
+# the fused projection layout (`quant.fuse_layer_weights`): K2 and K4 at 1, 8
+# and 16 rows at the widths no unfused projection has
+FUSED_SHAPES = {(1024, 4096): "fused wqkv: 0.6B talker, predictor", (1024, 6144): "fused w_gateup: 0.6B, predictor",
+                (2048, 4096): "fused wqkv: 1.7B talker", (2048, 12288): "fused w_gateup: 1.7B"}
+
+
+def _gemv_cases(main_rows):
+    """(I, O, what, rows, fused) of every K2 / K4 case: the main-path shapes
+    at `main_rows(I, O)` rows, the fused shapes at 1, 8 and 16."""
+    return ([(I, O, what, main_rows(I, O), False) for (I, O), what in K2_SHAPES.items()]
+            + [(I, O, what, (1, 8, 16), True) for (I, O), what in FUSED_SHAPES.items()])
 
 
 def kernel_phase(report):
@@ -403,7 +436,7 @@ def kernel_phase(report):
             f"{timed['bound_ms']:.5f} ({timed['bound_by']}); eager call ms: kernel "
             f"{timed['eager_ms']:.4f}, plain {timed['plain_eager_ms']:.4f}")
     rng = np.random.default_rng(0)
-    for (I, O), what in K2_SHAPES.items():
+    for I, O, what, rows, fused in _gemv_cases(lambda I, O: (1, 2, 8, 16) if (I, O) in K2_SHAPES_06B else (1, 2)):
         ql = quant.quantize_linear(rng.standard_normal((I, O)).astype("float32") * I**-0.5)
         qw, sc = torch.from_numpy(ql.q).to(dev), torch.from_numpy(ql.scale).to(dev)
         n = _copies(qw.numel())
@@ -411,12 +444,12 @@ def kernel_phase(report):
         packed = [w.t().contiguous() for w in qs]  # [O, I], the layout torch's int8 call takes
         sc_bf16 = sc.reshape(O).to(torch.bfloat16)
         wbf = [qw.to(torch.bfloat16)] + [qw.to(torch.bfloat16) for _ in range(max(2, n // 2) - 1)]
-        for M in (1, 2, 8, 16) if (I, O) in K2_SHAPES_06B else (1, 2):
+        for M in rows:
             x = torch.randn(M, I, generator=g).to(dev, torch.bfloat16)
             out = quant.int8_gemv(x, qw, sc)
             torch.cuda.synchronize()
             ref = quant.int8_gemv_plain(x.float(), qw, sc)
-            name = f"K2 M={M} I={I} O={O} ({what})"
+            name = f"K2 M={M} I={I} O={O} ({what}{f'; {CARD}' if fused else ''})"
             err = check_close(name, out, ref, k2_cases)
             timed = {
                 "ms": device_ms(lambda i: quant.int8_gemv(x, qs[i], sc), n),
@@ -431,7 +464,7 @@ def kernel_phase(report):
             timed["gb_s"] = qw.numel() / timed["ms"] / 1e6
             # x, q, scale, y; 2 flops per (row, weight)
             timed.update(bound(M * I * 2 + I * O + O * 4 + M * O * 2, 2 * M * I * O, x.dtype))
-            k2_cases[-1].update(timed, shape=(M, I, O))
+            k2_cases[-1].update(timed, shape=(M, I, O), fused=fused)
             log(f"{name}: max_abs_err {err:.3e} (atol {ATOL}, rtol {RTOL}); device ms per call: "
                 f"kernel {timed['ms']:.5f} ({timed['gb_s']:.0f} GB/s of weights), plain "
                 f"{timed['plain_ms']:.5f}, int8 library call {_fmt(timed['library_ms'])}, bf16 matmul "
@@ -479,7 +512,7 @@ def k4_phase(g):
     dev = torch.device("cuda")
     rng = np.random.default_rng(1)
     cases = []
-    for (I, O), what in K2_SHAPES.items():
+    for I, O, what, rows, fused in _gemv_cases(lambda I, O: (1, 2, 8, 16)):
         ql = quant.quantize_linear4(rng.standard_normal((I, O)).astype("float32") * I**-0.5)
         packed, scale, wmin = (torch.from_numpy(a).to(dev) for a in ql)
         wbytes = packed.numel() + 2 * scale.numel() * 4
@@ -491,7 +524,7 @@ def k4_phase(g):
         sz = torch.stack([scale, wmin + 8 * scale], dim=-1).to(torch.bfloat16).contiguous()
         wbf = quant.dequantize(quant.QuantizedLinear4(packed, scale, wmin)).to(torch.bfloat16)
         wbfs = [wbf] + [wbf.clone() for _ in range(max(2, n // 2) - 1)]
-        for M in (1, 2, 8, 16):
+        for M in rows:
             x = torch.randn(M, I, generator=g).to(dev, torch.bfloat16)
             out = quant.int4_gemv(x, packed, scale, wmin)
             torch.cuda.synchronize()
@@ -500,7 +533,7 @@ def k4_phase(g):
             path = (f"{'tensor cores' if getattr(plan, 'mma', False) else 'CUDA cores'}, "
                     f"{getattr(plan, 'cols', 128)}-column tiles, cluster {plan.cluster}, "
                     f"{math.prod(plan.grid)} CTAs")
-            name = f"K4 M={M} I={I} O={O} ({what})"
+            name = f"K4 M={M} I={I} O={O} ({what}{f'; {CARD}' if fused else ''})"
             err = check_close(name, out, ref, cases)
             cases[-1]["path"] = path
             lib_err = None
@@ -521,7 +554,7 @@ def k4_phase(g):
             timed["gb_s"] = wbytes / timed["ms"] / 1e6
             # x, nibbles, scale and min, y; 2 flops per (row, weight) and the group terms
             timed.update(bound(M * I * 2 + wbytes + M * O * 2, 2 * M * I * O, x.dtype))
-            cases[-1].update(timed, shape=(M, I, O))
+            cases[-1].update(timed, shape=(M, I, O), fused=fused)
             log(f"{name} [{path}]: max_abs_err {err:.3e} (atol {ATOL}, rtol {RTOL}); device ms per call: kernel "
                 f"{timed['ms']:.5f} ({timed['gb_s']:.0f} GB/s of weights, scales and mins), plain "
                 f"{timed['plain_ms']:.5f}, int4 library call {_fmt(timed['library_ms'])} (bf16 scale/zero, "
@@ -1429,7 +1462,7 @@ def slice_phase(quant, n_requests, report, icl=False, tree=None, init_s=None):
         model = FasterQwen3TTS.from_pretrained(MODEL, device="cuda", quant=quant, seed=0)
     load_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    model.warmup()
+    model.warmup(chunk_sizes=(8, 12), first_chunk_size=FIRST_CHUNK)
     warmup_s = time.perf_counter() - t0
     log(f"slice {quant} ({CARD}): loaded in {load_s:.1f} s, warmup {warmup_s:.1f} s (the JAX warmup's set: "
         f"{model.warmup_phases})")
@@ -1593,8 +1626,10 @@ def slice_int4_phase(report, tree):
     launched K4), for Q4_K_M and Q8_4 a 24-frame stream under
     torch.profiler, and for Q8_4 a 16-frame greedy
     `parity_mode` stream held against the engine's (reported, not asserted:
-    a bf16 engine and the f32 parity decode part early on random weights).
-    -> launches of the Q4_K_M and Q8_4 streams."""
+    a bf16 engine and the f32 parity decode part early on random weights);
+    on the Q8_0 params the native phase, and on the Q8_0 and Q4_K_M params
+    the fused phase (`native_phase`, `fused_phase`). -> launches of the
+    Q4_K_M and Q8_4 streams and of the native and fused phases."""
     import torch
 
     from faster_qwen3_tts_tpu_torch import weights
@@ -1644,7 +1679,7 @@ def slice_int4_phase(report, tree):
             f"{materialize_s:.1f} s")
         if mode != "none":
             t0 = time.perf_counter()
-            model.warmup()
+            model.warmup(chunk_sizes=(8, 12), first_chunk_size=FIRST_CHUNK)
             warmup_s = time.perf_counter() - t0
             _reset_launches()
             with tapped_steps({}) as steps, no_eager_frames(f"slice 0.6B {quant}"), \
@@ -1681,6 +1716,12 @@ def slice_int4_phase(report, tree):
                     f"{row['parity']['equal_codebook0']} codebook-0 tokens equal, first difference (frame, "
                     f"codebook) {row['parity']['first_difference']}; 16 frames in {par['wall_s']:.1f} s")
             rows[quant] = row
+            if mode == "int8":
+                phase("native on the 0.6B Q8_0 params")
+                launches = {k: launches[k] + n for k, n in native_phase(model, report).items()}
+            if quant in FUSED_EXPECTED:
+                phase(f"fused 0.6B {quant}")
+                launches = {k: launches[k] + n for k, n in fused_phase(model, quant, report).items()}
         del model, params, sess
         gc.collect()
         torch.cuda.empty_cache()
@@ -1694,6 +1735,300 @@ def slice_int4_phase(report, tree):
     report["quant_delta_0.6B"] = delta
     report["slice_int4_0.6B"] = rows
     return launches
+
+
+# K2 / K4 launches a fused 0.6B decode step should make: 28 talker and 75
+# predictor layer passes of 4 projections, 15 lm_heads, 15 mtp_proj, codec_head
+FUSED_EXPECTED = {"Q8_0": {"K2": 443, "K4": 0}, "Q4_K_M": {"K2": 0, "K4": 443}}
+FUSED_ATOL = FUSED_RTOL = 2e-2  # bf16: K2 / K4 split the longer fused rows differently, so sums run in another order
+FUSED_MIN_COSINE = 0.999  # full depth: a wrong fusion (columns swapped or misplaced) decorrelates the logits
+
+
+def _greedy_session(model, params):
+    """A greedy session of the x-vector prompt of seed 0 on `params`, prefilled."""
+    from faster_qwen3_tts_tpu_torch.engine import generate as gen_lib
+    from faster_qwen3_tts_tpu_torch.ops.sampling import SamplingParams
+
+    tie, tam, tth, tpe, _ = model._prepare_generation(TEXT, language="English", voice_clone_prompt=_xvec_prompt(0))
+    sess = gen_lib.GenerationSession(params, model.config, tie, tam, tth, tpe, model.max_seq_len,
+                                     SamplingParams(do_sample=False), gen_lib.predictor_sampling(False), 2, seed=0)
+    sess.prefill()
+    return sess
+
+
+def fused_phase(model, quant, report):
+    """The fused projection layout at full width: `quant.fuse_layer_weights`
+    of the model's tree (loaded from no disk; the fused tree shares every
+    other leaf) as a second model in the same process, with graph sets of its
+    own. Fused replays against fused eager (graphs_phase: bitwise, greedy and
+    sampled, and its 32-replay profile); fused against unfused: layer 0's
+    fused products on a prompt's rows and on one row (within 2e-2), the
+    prefill's logits and hidden state (cosine >= 0.999; the max abs diff
+    printed beside the floor of two unfused prefills at 1 and 2 rows), the
+    first frame's, and the frame where one prompt's greedy tokens part; K2 / K4
+    launches a frame, us a launch, kernel ms a frame and frame ms beside the
+    unfused model's figures of this run; then `warmup` and three solo streams
+    (TTFA, RTF, launches a decode step), with no eager frame or prefill.
+    -> launches of the streams."""
+    import torch
+
+    from faster_qwen3_tts_tpu_torch.engine import core, graphs
+    from faster_qwen3_tts_tpu_torch.model import FasterQwen3TTS
+    from faster_qwen3_tts_tpu_torch.models import talker as talker_lib
+    from faster_qwen3_tts_tpu_torch.models.layers import rms_norm, unstack_layers
+    from faster_qwen3_tts_tpu_torch.ops import quant as quant_ops
+    from faster_qwen3_tts_tpu_torch.ops.sampling import SamplingParams
+
+    name = f"0.6B {quant} fused"
+    cfg = model.config
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    fparams = quant_ops.fuse_layer_weights(model.params)
+    torch.cuda.synchronize()
+    fuse_s = time.perf_counter() - t0
+    fused_gb = (torch.cuda.memory_allocated() - before) / 1e9
+    fmodel = FasterQwen3TTS(fparams, model.config, model.tokenizer)
+    if graphs.registry_for(fparams) is graphs.registry_for(model.params):
+        fail(f"{name}: the fused tree shares the unfused tree's graph registry")
+    row = {"card": CARD, "fuse_s": fuse_s, "fused_leaves_gb": fused_gb}
+    # fused against unfused on one greedy prompt: the prefill, the first frame, then 31 more (replays)
+    sess = {k: _greedy_session(model, p) for k, p in (("plain", model.params), ("fused", fparams))}
+    try:
+        got = {k: {"prefill logits": s.graphs.logits.float().clone(),
+                   "prefill hidden": s.state.past_hidden.float().clone()} for k, s in sess.items()}
+        first = {}
+        for k, s in sess.items():
+            first[k] = s.decode_chunk_async(1).clone()
+            got[k]["frame 1 hidden"] = s.state.past_hidden.float().clone()
+            got[k]["frame 1 logits"] = talker_lib.codec_logits(s.params["talker"], s.state.past_hidden[:, 0, :])
+        toks = {k: torch.cat([first[k], s.decode_chunk_async(GRAPH_FRAMES - 1)])[:, 0, :16] for k, s in sess.items()}
+        tie, mask = sess["plain"].tie, sess["plain"].mask
+    finally:
+        for s in sess.values():
+            s.close()
+    parted = (toks["plain"] != toks["fused"]).any(dim=-1).nonzero()
+    first_part = int(parted[0]) if parted.numel() else None
+    # The fused products themselves, held at the kernels' tolerance: layer 0's wqkv and w_gateup
+    # against the unfused projections on the prompt's normed rows (the many-row product) and on its
+    # last row (K2 / K4). Through 28 bf16 layers, sums in another order part further; the full-depth
+    # difference is held by cosine and printed beside the same-run floor of two unfused prefills that
+    # differ only in row count (the prompt alone, and twice in one batch).
+    lf, lu = (unstack_layers(p["talker"]["layers"])[0] for p in (fparams, model.params))
+    h = rms_norm(lu["ln1"], tie, cfg.talker.rms_norm_eps)
+    products = {}
+    for rows, x in (("prompt rows", h), ("one row", h[:, -1:])):
+        for fk, parts in (("wqkv", ("wq", "wk", "wv")), ("w_gateup", ("w_gate", "w_up"))):
+            products[f"{fk}, {rows}"] = (quant_ops.dot(x, lf[fk]).float(),
+                                         torch.cat([quant_ops.dot(x, lu[k]) for k in parts], dim=-1).float())
+    for w, (a, b) in products.items():
+        bad = ((a - b).abs() > FUSED_ATOL + FUSED_RTOL * b.abs()).sum().item()
+        if bad or not torch.isfinite(a).all():
+            fail(f"fused {name}: layer 0's {w} product differs from unfused beyond the tolerance ({bad} elements)")
+    greedy = SamplingParams(do_sample=False)
+    _, l1 = core.start_state(model.params["talker"], cfg.talker, tie, mask, None, model.max_seq_len, greedy, 2)
+    _, l2 = core.start_state(model.params["talker"], cfg.talker, tie.expand(2, -1, -1).contiguous(),
+                             mask.expand(2, -1).contiguous(), None, model.max_seq_len, greedy, 2)
+    floor = float((l2[0].float() - l1[0].float()).abs().max())
+    row["max_abs_diff"] = {w: float((a - b).abs().max()) for w, (a, b) in products.items()}
+    row["max_abs_diff"].update({w: float((got["fused"][w] - got["plain"][w]).abs().max()) for w in got["plain"]})
+    cos = {w: float(torch.nn.functional.cosine_similarity(got["fused"][w].flatten(), got["plain"][w].flatten(),
+                                                          dim=0)) for w in ("prefill logits", "prefill hidden")}
+    row.update(tolerance={"atol": FUSED_ATOL, "rtol": FUSED_RTOL}, cosine=cos, unfused_row_count_floor=floor,
+               first_parting_frame=first_part, frames_compared=GRAPH_FRAMES)
+    log(f"fused {name} ({CARD}): fuse_layer_weights {fuse_s * 1e3:.1f} ms, {fused_gb:.3f} GB of fused leaves beside "
+        f"the unfused tree; against unfused, max abs diff "
+        + ", ".join(f"{w} {v:.3e}" for w, v in row["max_abs_diff"].items())
+        + f" (layer 0's products held at atol {FUSED_ATOL} + rtol {FUSED_RTOL} x |unfused|); prefill cosine "
+        + ", ".join(f"{w} {v:.6f}" for w, v in cos.items())
+        + f" (held at {FUSED_MIN_COSINE}); unfused prefill logits at 1 against 2 rows of a batch differ by "
+        f"{floor:.3e}; greedy tokens (one prompt) part at frame {first_part} of {GRAPH_FRAMES} (None: never)")
+    if min(cos.values()) < FUSED_MIN_COSINE:
+        fail(f"fused {name}: the prefill differs from unfused (cosine {cos})")
+    # replays against eager, and the profile of 32 replays, beside the unfused set's of this run
+    g = graphs_phase(fmodel, name, report)
+    base = report.get("graphs", {}).get(f"0.6B {quant}")
+    kern = "K2" if quant == "Q8_0" else "K4"
+    prof, bprof = g["profile"], base["profile"] if base else None
+    row["profile"] = {"frame_ms": g["frame_ms"], "kernel_ms_per_frame": prof["device_ms_per_frame"],
+                      f"{kern}_launches_per_frame": prof[kern]["launches_per_frame"],
+                      f"{kern}_us_per_launch": prof[kern]["us_per_launch"],
+                      f"{kern}_ms_per_frame": prof[kern]["ms_per_frame"]}
+    if bprof:
+        row["unfused_profile"] = {"frame_ms": base["frame_ms"], "kernel_ms_per_frame": bprof["device_ms_per_frame"],
+                                  f"{kern}_launches_per_frame": bprof[kern]["launches_per_frame"],
+                                  f"{kern}_us_per_launch": bprof[kern]["us_per_launch"],
+                                  f"{kern}_ms_per_frame": bprof[kern]["ms_per_frame"]}
+        log(f"fused {name} against unfused, 32 frame replays ({CARD}): {kern} "
+            f"{prof[kern]['launches_per_frame']:.0f} launches a frame (unfused {bprof[kern]['launches_per_frame']:.0f}), "
+            f"{prof[kern]['us_per_launch']:.2f} us a launch (unfused {bprof[kern]['us_per_launch']:.2f}), "
+            f"{prof[kern]['ms_per_frame']:.3f} ms a frame (unfused {bprof[kern]['ms_per_frame']:.3f}); kernels "
+            f"{prof['device_ms_per_frame']:.3f} ms a frame (unfused {bprof['device_ms_per_frame']:.3f}); captured "
+            f"frame {g['frame_ms']:.3f} ms (unfused {base['frame_ms']:.3f})")
+    # served: warmup, then three solo streams
+    t0 = time.perf_counter()
+    fmodel.warmup(chunk_sizes=(8, 12), first_chunk_size=FIRST_CHUNK)
+    row["warmup_s"] = time.perf_counter() - t0
+    _reset_launches()
+    reqs = []
+    with tapped_steps({}) as steps, no_eager_frames(name), no_eager_prefills(name):
+        for i in range(3):
+            req, _ = run_request(fmodel, seed=i + 1)
+            reqs.append(req)
+    counted = _read_launches()
+    per_step = {k: steps[k] / max(1, steps["steps"]) for k in ("K1", "K2", "K4")}
+    if counted[kern] == 0 or counted["K1"] == 0:
+        fail(f"{name}: the streams did not launch K1 and {kern}: {counted}")
+    regs = {k: graphs.registry_for(p).memory() for k, p in (("unfused", model.params), ("fused", fparams))}
+    mem = {k: {"static_gb": v["static_bytes"] / 1e9,
+               "pool_gb": None if v["pool_bytes"] is None else v["pool_bytes"] / 1e9} for k, v in regs.items()}
+    row.update(requests=reqs, launches=counted, launches_per_step=per_step, expected_per_step=FUSED_EXPECTED[quant],
+               graph_memory=mem, peak_mem_gb=torch.cuda.max_memory_allocated() / 1e9)
+    log(f"fused {name} ({CARD}): warmup {row['warmup_s']:.1f} s; 3 streams: TTFA "
+        + ", ".join(f"{r['ttfa_ms']:.1f}" for r in reqs) + " ms, RTF "
+        + ", ".join(f"{r['stream_rtf']:.3f}" for r in reqs)
+        + f"; launches a decode step (of {steps['steps']}) K1 {per_step['K1']:.1f}, K2 {per_step['K2']:.1f}, K4 "
+        f"{per_step['K4']:.1f} (expected {FUSED_EXPECTED[quant]}); no eager frame or prefill; graph memory "
+        f"unfused {mem['unfused']}, fused {mem['fused']} (GB); peak device memory {row['peak_mem_gb']:.2f} GB")
+    report.setdefault("fused", {})[name] = row
+    del fmodel, fparams
+    return counted
+
+
+def native_phase(model, report):
+    """The native backend's host side on the card's machine: the host
+    library must load (a missing library fails the run; no fallback hides
+    it); native against numpy resampling and PCM, a ring-buffer round trip;
+    `NativeQwen3TTS` over the model's params (its graph sets): a reference
+    extracted once (miss) and again (hit), a greedy stream from the `.spk`
+    file equal bit for bit to one from a `voice_clone_prompt` of the same
+    x-vector, no eager frame or prefill; `from_pretrained(<tiny dir>,
+    backend="native")` once. -> launches of the streams."""
+    import shutil
+
+    import numpy as np
+
+    from faster_qwen3_tts_tpu_torch.model import FasterQwen3TTS
+    from faster_qwen3_tts_tpu_torch.native_backend import NativeQwen3TTS
+    from faster_qwen3_tts_tpu_torch.utils import audio as audio_lib
+    from faster_qwen3_tts_tpu_torch.utils import native
+
+    t0 = time.perf_counter()
+    if not native.available():
+        fail(f"native: the host library did not load on the card's machine: {native.build_error}")
+    row = {"card": CARD, "library": native.library_path().name, "load_s": time.perf_counter() - t0}
+    rng = np.random.default_rng(5)
+    x = np.convolve(rng.standard_normal(48000).astype(np.float32) * 0.3, np.ones(8) / 8, mode="same")
+    x = x.astype(np.float32)
+    y, y_np = native.resample(x, 16000, 24000), audio_lib.resample(x, 16000, 24000)
+    n = min(len(y), len(y_np)) - 100
+    row["resample_mean_abs_diff"] = float(np.abs(y[50:n] - y_np[50:n]).mean())
+    pcm = np.frombuffer(native.float_to_pcm16(x), "<i2").astype(np.int32)
+    row["pcm16_max_lsb_diff"] = int(np.abs(pcm - np.frombuffer(audio_lib.float_to_pcm16(x), "<i2")).max())
+    ring = native.RingBuffer(4096)
+    wrote = ring.write(x[:3000])
+    back = ring.read(3000)
+    row["ring_round_trip_equal"] = bool(wrote == 3000 and np.array_equal(back, x[:3000]) and ring.available() == 0)
+    if row["resample_mean_abs_diff"] >= 0.01 or row["pcm16_max_lsb_diff"] > 1 or not row["ring_round_trip_equal"]:
+        fail(f"native: the host library disagrees with numpy: {row}")
+    cache = REPO / "build" / "chip_smoke_refs"
+    shutil.rmtree(cache, ignore_errors=True)
+    nm = NativeQwen3TTS(model.params, model.config, model.tokenizer, voice_ref_cache_dir=cache)
+    ref = REPO / "build" / "chip_smoke_ref_4s.wav"
+    xv, codes, miss = nm.extract_voice_ref(ref)
+    _, _, hit = nm.extract_voice_ref(ref)
+    if (miss["cache"], hit["cache"]) != ("miss", "hit") or codes is None:
+        fail(f"native: extraction {miss}, then {hit}")
+    spk = cache / "voice.spk"
+    xv.tofile(spk)
+    nm.warmup(chunk_sizes=(CHUNK,), first_chunk_size=FIRST_CHUNK, do_sample=False, subtalker_dosample=False)
+    _reset_launches()
+    with no_eager_frames("native"), no_eager_prefills("native"):
+        by_file, tok_file = run_request(nm, seed=3, greedy=True, frames=24, ref_spk=spk, xvec_only=True)
+        by_prompt, tok_prompt = run_request(nm, seed=3, greedy=True, frames=24,
+                                            voice_clone_prompt={"ref_spk_embedding": [xv]})
+    launches = _read_launches()
+    same = tok_file.shape == tok_prompt.shape and bool((tok_file == tok_prompt).all())
+    if not same:
+        fail("native: a stream from ref_spk differs from one from voice_clone_prompt with the same x-vector")
+    t0 = time.perf_counter()
+    tiny = FasterQwen3TTS.from_pretrained(str(REPO / "build" / "chip_smoke_tiny"), device="cuda", backend="native",
+                                          voice_ref_cache_dir=cache / "tiny")
+    (wav,), sr = tiny.generate_voice_clone("Hello from the native backend.", "English", ref_spk_emb=xv,
+                                           xvec_only=True, max_new_tokens=8, seed=0)
+    tiny_s = time.perf_counter() - t0
+    if not isinstance(tiny, NativeQwen3TTS) or sr != 24000 or not wav.size or not np.isfinite(wav).all():
+        fail(f"native: from_pretrained(backend='native') gave {type(tiny).__name__}, {wav.size} samples at {sr}")
+    row.update(extract_miss_ms=miss["prepare_ms"], extract_hit_ms=hit["prepare_ms"], ref_spk_equals_prompt=same,
+               frames=int(tok_file.shape[0]), ttfa_ms=[by_file["ttfa_ms"], by_prompt["ttfa_ms"]],
+               stream_rtf=[by_file["stream_rtf"], by_prompt["stream_rtf"]], launches=launches,
+               tiny_from_pretrained_s=tiny_s)
+    log(f"native ({CARD}): host library {row['library']} loaded in {row['load_s']:.2f} s (built from the port's "
+        f"csrc/fq3t.cpp); resample against numpy mean abs diff {row['resample_mean_abs_diff']:.2e}, PCM16 within "
+        f"{row['pcm16_max_lsb_diff']} LSB, ring buffer round trip {row['ring_round_trip_equal']}; reference "
+        f"extracted in {miss['prepare_ms']:.1f} ms (miss), {hit['prepare_ms']:.2f} ms (hit); a ref_spk stream equals "
+        f"the voice_clone_prompt stream bit for bit ({row['frames']} greedy frames; TTFA {by_file['ttfa_ms']:.1f} / "
+        f"{by_prompt['ttfa_ms']:.1f} ms, no eager frame or prefill); launches {launches}; "
+        f"from_pretrained(tiny, backend='native') and one request in {tiny_s:.1f} s")
+    report["native"] = row
+    del tiny, nm
+    return launches
+
+
+def examples_phase(report):
+    """Each script of examples_torch/ on the card, as a subprocess, at the
+    tiny geometry, in three chains run side by side (each chain in order):
+    extract_speaker to .npy then generate_with_embedding from it; the same
+    with the .spk file; streaming_playback through the native backend's
+    cache twice (extracted, then read from the cache)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+
+    from faster_qwen3_tts_tpu_torch.utils import audio as audio_lib
+
+    ex, build, tiny = REPO / "examples_torch", REPO / "build" / "chip_smoke_examples", REPO / "build" / "chip_smoke_tiny"
+    build.mkdir(parents=True, exist_ok=True)
+    ref = REPO / "build" / "chip_smoke_ref_4s.wav"
+    model = ["--model", str(tiny), "--device", "cuda"]
+    chains = [
+        [("extract_speaker.py", [str(ref), str(build / f"spk.{ext}"), *flag, *model]),
+         ("generate_with_embedding.py", [str(build / f"spk.{ext}"), "Hello from a saved voice.", "-o",
+                                         str(build / f"{ext}.wav"), "--max-new-tokens", "8", *model])]
+        for ext, flag in (("npy", []), ("spk", ["--spk"]))
+    ] + [[("streaming_playback.py", ["Hello there.", "--ref-audio", str(ref), "--ref-text", REF_TEXT,
+                                     "--ref-cache-dir", str(build / "refs"), "--max-new-tokens", "8",
+                                     "--out", str(build / "streamed.wav"), *model])] * 2]
+
+    def run(chain):
+        rows = []
+        for script, argv in chain:
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, str(ex / script), *argv], cwd=REPO, capture_output=True,
+                                  text=True, timeout=300)
+            rows.append({"script": script, "rc": proc.returncode, "wall_s": time.perf_counter() - t0,
+                         "stdout": [ln for ln in proc.stdout.splitlines() if ln.strip()],
+                         "stderr": proc.stderr[-3000:]})
+            if proc.returncode != 0:
+                break
+        return rows
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(chains)) as pool:
+        rows = [r for chain_rows in pool.map(run, chains) for r in chain_rows]
+    wall = time.perf_counter() - t0
+    for r in rows:
+        if r["rc"] != 0:
+            fail(f"examples: {r['script']} rc {r['rc']}\n{' | '.join(r['stdout'])[-2000:]}\n{r['stderr']}")
+        log(f"examples ({CARD}): {r['script']} rc 0 in {r['wall_s']:.1f} s: {' | '.join(r['stdout'])}")
+    for wav in ("npy.wav", "spk.wav", "streamed.wav"):
+        audio, sr = audio_lib.read_wav(build / wav)
+        if sr != 24000 or not audio.size or not np.isfinite(audio).all():
+            fail(f"examples: {wav} holds {audio.size} samples at {sr} Hz")
+    if "cache hit" not in " ".join(rows[-1]["stdout"]):
+        fail(f"examples: the second streaming_playback run did not read the cache: {rows[-1]['stdout']}")
+    log(f"examples: {len(rows)} runs in three chains side by side in {wall:.1f} s")
+    report["examples"] = {"runs": [{k: r[k] for k in ("script", "wall_s", "stdout")} for r in rows], "wall_s": wall}
 
 
 def run_non_streaming(model, method, args, seed, frames=24):
@@ -1732,7 +2067,7 @@ def slice_17b_phase(report):
     load_s = time.perf_counter() - t0
     weights_gb = torch.cuda.memory_allocated() / 1e9
     t0 = time.perf_counter()
-    model.warmup()
+    model.warmup(chunk_sizes=(8, 12), first_chunk_size=FIRST_CHUNK)
     warmup_s = time.perf_counter() - t0
     log(f"slice 1.7B Q8_0 ({CARD}): loaded in {load_s:.1f} s ({weights_gb:.2f} GB on the card), warmup "
         f"{warmup_s:.1f} s ({model.warmup_phases})")
@@ -2092,7 +2427,7 @@ def continuous_phase(model, report, long_ref):
     reqs += [{"text": BATCH_TEXTS[i], "ref_audio": str(long_ref), "ref_text": REF_TEXT} for i in range(4)]
     cancel_sid, bad_sid = 2, 5
     t0 = time.perf_counter()
-    model.warmup(chunk_sizes=(CHUNK,), pool_slots=8)  # the pool's graphs, as `server.py --warmup` captures them
+    model.warmup(chunk_sizes=(CHUNK,), first_chunk_size=FIRST_CHUNK, pool_slots=8)  # the pool's graphs, as `server.py --warmup` captures them
     pool_warm_s = time.perf_counter() - t0
     cb = model.continuous_batcher(max_slots=8, chunk_size=CHUNK, first_chunk_size=FIRST_CHUNK,
                                   max_new_tokens=40, seed=0)
@@ -2449,6 +2784,8 @@ def main() -> None:
     parity_launches = reference_parity_phase(report, tiny_dir)
     phase("cli")
     cli_phase(report, tiny_dir)
+    phase("examples")
+    examples_phase(report)
     phase("checkpoint + slice 0.6B Q8_0 + ICL")
     from faster_qwen3_tts_tpu_torch import weights
     from faster_qwen3_tts_tpu_torch.config import get_config

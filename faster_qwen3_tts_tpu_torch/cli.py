@@ -11,9 +11,11 @@ The JAX package's CLI (`faster_qwen3_tts_tpu/cli.py`) over this port:
 `--model` takes an own-format or HF checkpoint directory (strict unless
 `--no-strict`) or a model id, which random-inits. `--device` defaults to
 `cuda`. `--streaming` drains the streaming generator into one wav and prints
-the time to first audio and the RTF. Not here: the JAX package's
-`--backend`, `--attn`, `--aot-cache`, `--ref-cache-dir` and `bundle`
-(TPU machinery or its native backend).
+the time to first audio and the RTF. `--backend native` loads
+`NativeQwen3TTS` (the voice-reference disk cache in `--ref-cache-dir`);
+`--backend jax`, the JAX package's default, selects this engine. `--fuse-qkv`
+loads the fused projection layout. Not here: the JAX package's `--attn`,
+`--aot-cache` and `bundle` (TPU machinery).
 """
 from __future__ import annotations
 
@@ -41,6 +43,12 @@ def _add_global_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--strict", action=argparse.BooleanOptionalAction, default=None,
                    help="HF checkpoint dirs: fail on any missing or mismatched tensor (the default) "
                         "or, with --no-strict, random-init them")
+    p.add_argument("--backend", default="torch", choices=["torch", "native", "jax"],
+                   help="'torch' = this engine ('jax' selects it too); 'native' adds the host library and "
+                        "the voice-reference cache")
+    p.add_argument("--ref-cache-dir", default=None, help="voice-reference cache dir (native backend)")
+    p.add_argument("--fuse-qkv", action="store_true",
+                   help="fused projection layout (wqkv, w_gateup): 4 projections a layer instead of 7")
     p.add_argument("--max-seq-len", type=int, default=2048)
     p.add_argument("--output", "-o", default="output.wav")
     p.add_argument("--streaming", action="store_true",
@@ -60,9 +68,15 @@ def _add_global_flags(p: argparse.ArgumentParser) -> None:
 def _load_model(args):
     from .model import FasterQwen3TTS
 
+    kwargs = {}
+    if args.backend == "native" and args.ref_cache_dir:
+        kwargs["voice_ref_cache_dir"] = args.ref_cache_dir
+    if args.fuse_qkv:
+        kwargs["fuse_qkv"] = True
     return FasterQwen3TTS.from_pretrained(
         args.model, device=args.device, dtype=args.dtype, quant=args.quant,
         max_seq_len=args.max_seq_len, strict=args.strict,
+        backend=args.backend, **kwargs,
     )
 
 

@@ -46,6 +46,7 @@ captures and their seconds.
 """
 from __future__ import annotations
 
+import gc
 import threading
 import time
 import weakref
@@ -199,8 +200,17 @@ class GraphSet:
             graph = torch.cuda.CUDAGraph()
             # each replay then reads the generator's seed and offset and advances it by the graph's draws
             graph.register_generator_state(self.generator)
-            with torch.cuda.graph(graph, pool=self.registry.pool(), capture_error_mode="thread_local"):
-                body()
+            # no garbage collection inside the capture: a dead registry's graphs (a registry and its sets
+            # form a cycle) destroyed there would invalidate it, since no graph may be destroyed while
+            # this thread captures
+            gc_on = gc.isenabled()
+            gc.disable()
+            try:
+                with torch.cuda.graph(graph, pool=self.registry.pool(), capture_error_mode="thread_local"):
+                    body()
+            finally:
+                if gc_on:
+                    gc.enable()
         self.registry.stats["captures"] += 1
         self.registry.stats["capture_s"] += time.perf_counter() - t0
         return graph
@@ -429,16 +439,28 @@ class Lease:
         self._finalizer()
 
 
-_REGISTRIES: Dict[int, GraphRegistry] = {}
+_REGISTRIES: Dict[Tuple[int, int], GraphRegistry] = {}
+
+
+def _anchors(params):
+    """Two tensors that identify a tree's graphs: its codec embedding and its
+    talker's first attention projection. The second tells a fused tree
+    (`quant.fuse_layer_weights`, which shares every other leaf) from the tree
+    it was fused from, so each gets its own graphs."""
+    layers = params["talker"]["layers"]
+    w = layers["wqkv"] if "wqkv" in layers else layers["wq"]
+    return params["talker"]["codec_embed"], (w[0] if isinstance(w, tuple) else w)
 
 
 def registry_for(params) -> GraphRegistry:
     """The registry of a parameter tree; it lives as long as the tree's codec
-    embedding (the tree is not referenced: callers pass it in)."""
-    anchor = params["talker"]["codec_embed"]
-    key = id(anchor)
+    embedding and attention projection (the tree is not referenced: callers
+    pass it in)."""
+    anchors = _anchors(params)
+    key = tuple(id(a) for a in anchors)
     reg = _REGISTRIES.get(key)
     if reg is None:
-        reg = _REGISTRIES[key] = GraphRegistry(anchor.device)
-        weakref.finalize(anchor, _REGISTRIES.pop, key, None)
+        reg = _REGISTRIES[key] = GraphRegistry(anchors[0].device)
+        for a in anchors:
+            weakref.finalize(a, _REGISTRIES.pop, key, None)
     return reg

@@ -24,8 +24,11 @@ behind `_device_prompt_ok`); the lockstep batch, whole-text layouts and
 decode chunk are replays of CUDA graphs (`engine/graphs.py`), captured per
 key of static shapes and arguments (the prefill per prompt bucket too):
 `warmup` captures the set serving uses, any other key or bucket is
-captured at its first use. The native-backend cached-reference kwargs are
-not ported (ROADMAP queue A).
+captured at its first use. The native backend's cached-reference kwargs
+(`ref_spk`, `ref_rvq`, `ref_spk_emb`, `ref_codes`) are taken by
+`native_backend.NativeQwen3TTS` (`from_pretrained(backend="native")`); this
+class rejects them, as the JAX package's does. `from_pretrained(...,
+fuse_qkv=True)` loads the fused projection layout.
 """
 from __future__ import annotations
 
@@ -175,12 +178,20 @@ class FasterQwen3TTS:
         model_name: str,
         device: str = "cuda",
         dtype: Union[str, torch.dtype] = "bfloat16",
-        quant: str = "BF16",
+        attn_implementation: str = "pallas",
         max_seq_len: int = 2048,
+        backend: str = "torch",
+        quant: str = "BF16",
         seed: int = 0,
+        cache_dir: Optional[Union[str, Path]] = None,
+        local_files_only: bool = False,
         strict: Optional[bool] = None,
+        dp: Optional[int] = None,
+        tp: Optional[int] = None,
+        **kwargs,
     ) -> "FasterQwen3TTS":
         """Load a checkpoint directory, or random-init a published geometry.
+        The parameters are the JAX package's, in its order.
 
         model_name: a directory in the own format (`weights.save_pretrained`:
         model.safetensors with '/' keys + config.json), a directory of
@@ -190,15 +201,51 @@ class FasterQwen3TTS:
         preset name (`config.get_config`), which random-inits from `seed`.
         The tokenizer is read from the directory; without its assets, or
         without `transformers` to read them, the byte tokenizer is used and
-        a warning says so. Nothing is downloaded.
+        a warning says so. Nothing is downloaded: `cache_dir` and
+        `local_files_only` are accepted and not read, as in the JAX package.
 
         device "cuda" needs a card and raises without one; "cpu" runs the
-        kernels' plain versions. quant: the JAX package's names, "BF16" /
-        "F32" (none), "Q8_0" / "int8" (weight-only int8 for the talker and
-        predictor projections), "Q4_K_M" / "int4" (group-wise int4) or
-        "Q8_4" / "mixed" (talker int8, predictor int4). The model's `load_phases`
-        holds the seconds of weights_read, quantize and device_transfer, and
+        kernels' plain versions. attn_implementation: "pallas" or "xla", as
+        in the JAX package; the port runs its decode-attention kernel (K1) on
+        the card either way, so "xla" only logs a warning. backend: "torch"
+        (this engine; the JAX package's names "jax" / "tpu" / "xla" select it
+        too) or "native" (`native_backend.NativeQwen3TTS`: the engine plus
+        the voice-reference disk cache and the host library; its cache
+        directory comes in `voice_ref_cache_dir`). quant: the JAX package's
+        names, "BF16" / "F32" (none), "Q8_0" / "int8" (weight-only int8 for
+        the talker and predictor projections), "Q4_K_M" / "int4" (group-wise
+        int4) or "Q8_4" / "mixed" (talker int8, predictor int4). dp / tp:
+        None or 1 (the multi-chip mesh is not ported). kwargs: `fuse_qkv`
+        (default False), the fused projection layout of the JAX package's
+        `FQ3T_FUSE_QKV` (`quant.fuse_layer_weights`, applied after
+        quantization), and `voice_ref_cache_dir` (native backend); any other
+        key is ignored with a warning. The model's `load_phases` holds the
+        seconds of weights_read, quantize, device_transfer (and fuse), and
         `load_coverage` an HF checkpoint's per-submodel coverage."""
+        if backend == "native":
+            from .native_backend import NativeQwen3TTS
+
+            return NativeQwen3TTS.from_pretrained(
+                model_name, device=device, dtype=dtype, attn_implementation=attn_implementation,
+                max_seq_len=max_seq_len, quant=quant, seed=seed, cache_dir=cache_dir,
+                local_files_only=local_files_only, strict=strict, dp=dp, tp=tp, **kwargs)
+        if backend not in ("torch", "jax", "tpu", "xla"):
+            raise ValueError(f"Unsupported backend {backend!r}. Expected 'torch' (default; 'jax' selects it "
+                             "too) or 'native'.")
+        if attn_implementation not in ("pallas", "xla"):
+            raise ValueError("attn_implementation must be 'pallas' or 'xla'")
+        if attn_implementation == "xla":
+            logger.warning("attn_implementation='xla': the port always runs its decode-attention kernel "
+                           "(K1) on the card; the argument is ignored.")
+        for name, n in (("dp", dp), ("tp", tp)):
+            if n not in (None, 1):
+                raise ValueError(f"{name}={n}: the multi-chip mesh is not ported; the port runs on one card "
+                                 "(dp and tp take None or 1).")
+        fuse_qkv = bool(kwargs.pop("fuse_qkv", False))
+        if kwargs.pop("voice_ref_cache_dir", None) is not None:
+            logger.warning("voice_ref_cache_dir is read by backend='native' only; ignored.")
+        for key in kwargs:
+            logger.warning("from_pretrained: unknown argument %r ignored.", key)
         device = torch.device(device)
         if device.type == "cuda":
             if not torch.cuda.is_available():
@@ -245,22 +292,37 @@ class FasterQwen3TTS:
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         mark("device_transfer")
+        # after quantization, as the JAX package fuses; the unfused leaves go as each group is made (a
+        # checkpoint saved fused is already in that layout)
+        if fuse_qkv and "wq" in params["talker"]["layers"]:
+            for sub in ("talker", "predictor"):
+                quant_lib._fuse_layers(params[sub]["layers"])
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            mark("fuse")
         model = cls(params, config, tokenizer, max_seq_len=max_seq_len)
         model.load_phases = load_phases
         model.load_coverage = coverage  # per submodel, for an HF checkpoint
         return model
 
-    def warmup(self, chunk_sizes: Tuple[int, ...] = (8, 12), first_chunk_size: Optional[int] = 4,
+    def warmup(self, prefill_len: int = 100, chunk_sizes: Optional[Tuple[int, ...]] = None,
+               first_chunk_size: Optional[int] = None,
                batch_sizes: Tuple[int, ...] = (1,), pool_slots: int = 0, min_new_tokens: int = 2,
                temperature: float = 0.9, top_k: int = 50, top_p: float = 1.0, do_sample: bool = True,
                repetition_penalty: float = 1.05, subtalker_dosample: Optional[bool] = None,
                subtalker_top_k: Optional[int] = None, subtalker_top_p: Optional[float] = None,
                subtalker_temperature: Optional[float] = None) -> Dict[str, Any]:
         """Capture the graphs that serving replays (the JAX warmup's
-        executable set): one short prefill of a device-assembled x-vector
-        prompt (builds the kernels and the prefill's handles), then for each
-        of `batch_sizes` the prefill graphs of the prompt buckets a server
-        sees (`gen_lib.SERVED_PREFILL_BUCKETS` up to max_seq_len), the frame
+        executable set). The leading parameters are the JAX package's:
+        `prefill_len` adds the prompt bucket of that length
+        (`gen_lib.prefill_bucket`) to those captured; `chunk_sizes` None
+        warms the windows of chunks 8 and 12, and `first_chunk_size` None
+        makes a stream's first chunk `chunk` (pass 4 for streams with a
+        4-frame first chunk). Then: one short prefill of a device-assembled
+        x-vector prompt (builds the kernels and the prefill's handles), then
+        for each of `batch_sizes` the prefill graphs of the prompt buckets a
+        server sees (`gen_lib.SERVED_PREFILL_BUCKETS` up to max_seq_len, and
+        the bucket of `prefill_len`), the frame
         graph and the window graphs of `graphs.warmup_windows` (the first
         window, the growing contexts of an x-vector stream and the ICL first
         window, for each chunk size); with `pool_slots` also a continuous pool
@@ -305,7 +367,10 @@ class FasterQwen3TTS:
         finally:
             sess.close()
         mark("prompt_and_prefill")
-        buckets = tuple(b for b in gen_lib.SERVED_PREFILL_BUCKETS if b <= self.max_seq_len)
+        if chunk_sizes is None:
+            chunk_sizes = (8, 12)
+        buckets = tuple(sorted({b for b in gen_lib.SERVED_PREFILL_BUCKETS if b <= self.max_seq_len}
+                               | {gen_lib.prefill_bucket(prefill_len, self.max_seq_len)}))
         windows = graphs_lib.warmup_windows(chunk_sizes, first_chunk_size, gen_lib.CONTEXT_FRAMES)
         for B in dict.fromkeys(batch_sizes):
             reg.warm(self.params, self.config, sess.key._replace(batch=B), windows, prefill_buckets=buckets)
@@ -588,14 +653,22 @@ class FasterQwen3TTS:
 
     @staticmethod
     def _reject_unported(ref_spk=None, ref_rvq=None, ref_spk_emb=None, ref_codes=None) -> None:
-        """The cached-reference kwargs belong to the native backend; the JAX
-        package accepts them in its signature and rejects them at call time,
-        and so does the port."""
+        """The cached-reference kwargs belong to the native backend
+        (`NativeQwen3TTS`); the JAX package accepts them in its signature and
+        rejects them at call time, and so does the port."""
         if any(v is not None for v in (ref_spk, ref_rvq, ref_spk_emb, ref_codes)):
             raise NotImplementedError(
                 "ref_spk/ref_rvq cached references require backend='native'. "
                 "Use voice_clone_prompt for precomputed prompts."
             )
+
+    def _require_unfused_for_parity(self) -> None:
+        """`engine/parity.py` reads the unfused projections (wq/wk/wv,
+        w_gate/w_up). The JAX package fails there with a KeyError on a fused
+        tree; the port raises before any work."""
+        if "wqkv" in self.params["talker"]["layers"]:
+            raise ValueError("parity_mode needs the unfused projection layout; this model was loaded "
+                             "with fuse_qkv=True")
 
     def generate_voice_clone(
         self,
@@ -627,6 +700,8 @@ class FasterQwen3TTS:
         parity_mode: the independent eager decode (`engine/parity.py`)
         instead of the engine, as in the JAX package."""
         self._reject_unported(ref_spk, ref_rvq, ref_spk_emb, ref_codes)
+        if parity_mode:
+            self._require_unfused_for_parity()
         nsm = self._resolve_non_streaming_mode(non_streaming_mode, default=False)
         tie, tam, tth, tpe, ref_codes = self._prepare_generation(
             text=text, ref_audio=ref_audio, ref_text=ref_text, language=language, xvec_only=xvec_only,
@@ -687,6 +762,8 @@ class FasterQwen3TTS:
         independent eager decode (`engine/parity.py`) and every chunk is
         vocoded on the host, as in the JAX package."""
         self._reject_unported(ref_spk, ref_rvq, ref_spk_emb, ref_codes)
+        if parity_mode:
+            self._require_unfused_for_parity()
         nsm = self._resolve_non_streaming_mode(non_streaming_mode, default=False)
         tie, tam, tth, tpe, ref_codes = self._prepare_generation(
             text=text, ref_audio=ref_audio, ref_text=ref_text, language=language, xvec_only=xvec_only,

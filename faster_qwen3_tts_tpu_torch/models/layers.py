@@ -105,22 +105,37 @@ def unstack_layers(stacked: Dict[str, object]) -> List[Dict[str, object]]:
 
 
 def _num_layers(stacked) -> int:
-    w = stacked["wq"]
+    w = next(iter(stacked.values()))  # every leaf is stacked on the layer axis, in either layout
     return (w[0] if isinstance(w, (QuantizedLinear, QuantizedLinear4)) else w).shape[0]
 
 
 def _qkv(lp, x: torch.Tensor, shape: LayerShape):
     B, S, _ = x.shape
-    q = dot(x, lp["wq"]).reshape(B, S, shape.num_heads, shape.head_dim)
-    k = dot(x, lp["wk"]).reshape(B, S, shape.num_kv_heads, shape.head_dim)
-    v = dot(x, lp["wv"]).reshape(B, S, shape.num_kv_heads, shape.head_dim)
+    qd = shape.num_heads * shape.head_dim
+    kd = shape.num_kv_heads * shape.head_dim
+    if "wqkv" in lp:
+        # the fused layout (ops.quant.fuse_layer_weights): one product, split
+        # into views; the norms and RoPE below write new tensors, and the
+        # cache write copies v, so no split is made contiguous
+        y = dot(x, lp["wqkv"])
+        q, k, v = y[..., :qd], y[..., qd:qd + kd], y[..., qd + kd:]
+    else:
+        q, k, v = dot(x, lp["wq"]), dot(x, lp["wk"]), dot(x, lp["wv"])
+    q = q.reshape(B, S, shape.num_heads, shape.head_dim)
+    k = k.reshape(B, S, shape.num_kv_heads, shape.head_dim)
+    v = v.reshape(B, S, shape.num_kv_heads, shape.head_dim)
     # Qwen3 per-head q/k RMSNorm
     return rms_norm(lp["q_norm"], q, shape.rms_eps), rms_norm(lp["k_norm"], k, shape.rms_eps), v
 
 
 def _mlp(lp, x: torch.Tensor) -> torch.Tensor:
-    gate = dot(x, lp["w_gate"])
-    up = dot(x, lp["w_up"])
+    if "w_gateup" in lp:
+        y = dot(x, lp["w_gateup"])
+        inter = y.shape[-1] // 2
+        gate, up = y[..., :inter], y[..., inter:]
+    else:
+        gate = dot(x, lp["w_gate"])
+        up = dot(x, lp["w_up"])
     return dot(F.silu(gate.float()).to(x.dtype) * up, lp["w_down"])
 
 

@@ -84,7 +84,7 @@ def _nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256()
-    for name in sorted(os.listdir(CSRC)):
+    for name in sorted(n for n in os.listdir(CSRC) if n.endswith((".cu", ".cuh"))):
         h.update(name.encode())
         h.update((CSRC / name).read_bytes())
     return h.hexdigest()[:12]

@@ -10,7 +10,10 @@ projection) goes to the int8 GEMV kernel K2 or the int4 GEMV kernel K4; a
 larger one (the talker prefill, prompt text projection) is a plain matrix
 product, which the JAX package leaves to XLA.
 
-The fused wqkv / w_gateup layout (`fuse_layer_weights`) is not ported.
+`fuse_layer_weights` gives the fused layout of the JAX package's opt-in
+`FQ3T_FUSE_QKV` (here `from_pretrained(fuse_qkv=True)`): a layer's q/k/v and
+gate/up projections concatenated along the output axis into `wqkv` and
+`w_gateup`, so a decode layer makes 4 projection launches instead of 7.
 """
 from __future__ import annotations
 
@@ -146,13 +149,55 @@ def infer_quant_mode(params: dict) -> str:
             return "int4"
         return "none"
 
-    kt = kind(params["talker"]["layers"]["wq"])
-    kp = kind(params["predictor"]["layers"]["wq"])
+    def probe(layers: dict):
+        return layers["wqkv"] if "wqkv" in layers else layers["wq"]  # fused layout
+
+    kt = kind(probe(params["talker"]["layers"]))
+    kp = kind(probe(params["predictor"]["layers"]))
     if kt == kp:
         return kt
     if (kt, kp) == ("int8", "int4"):
         return "mixed"
     raise ValueError(f"unrecognized quantization layout: talker={kt}, predictor={kp}")
+
+
+def _concat_out(ws):
+    """Linears concatenated along the output axis: plain, QuantizedLinear or
+    QuantizedLinear4 leaves (their scales and mins are per output column, so
+    each column keeps its values), torch tensors or host numpy arrays."""
+
+    def cat(xs):
+        return torch.cat(list(xs), dim=-1) if isinstance(xs[0], torch.Tensor) else np.concatenate(xs, axis=-1)
+
+    w0 = ws[0]
+    if isinstance(w0, (QuantizedLinear, QuantizedLinear4)):
+        return type(w0)(*(cat([w[i] for w in ws]) for i in range(len(w0))))
+    return cat(ws)
+
+
+def _fuse_layers(layers: dict) -> None:
+    """Replace wq/wk/wv by wqkv and w_gate/w_up by w_gateup in `layers`, in
+    place: each group's leaves are dropped as soon as their concatenation
+    exists, so a tree the caller does not keep never holds both layouts."""
+    layers["wqkv"] = _concat_out([layers.pop("wq"), layers.pop("wk"), layers.pop("wv")])
+    layers["w_gateup"] = _concat_out([layers.pop("w_gate"), layers.pop("w_up")])
+
+
+def fuse_layer_weights(params: dict) -> dict:
+    """The fused projection layout of the talker and predictor layers (the
+    JAX package's `fuse_layer_weights`): `wqkv` replaces wq/wk/wv and
+    `w_gateup` replaces w_gate/w_up, concatenated along the output axis.
+    Every output column is the same dot product with the same scale, so the
+    values do not change; on the card K2 and K4 split the longer rows
+    differently, so their sums may run in another order. Returns a new tree;
+    `params` is left as it was (its leaves are shared)."""
+    out = dict(params)
+    for sub in ("talker", "predictor"):
+        m = dict(out[sub])
+        m["layers"] = dict(m["layers"])
+        _fuse_layers(m["layers"])
+        out[sub] = m
+    return out
 
 
 def resolve_quant_name(quant: str) -> str:

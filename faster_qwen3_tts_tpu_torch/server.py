@@ -571,6 +571,11 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--strict", action=argparse.BooleanOptionalAction, default=None,
                     help="HF checkpoint dirs: fail on any missing tensor (default) or random-init it")
+    ap.add_argument("--backend", default="torch", choices=["torch", "native", "jax"],
+                    help="'torch' = this engine ('jax' selects it too); 'native' adds the host library and "
+                         "the voice-reference cache")
+    ap.add_argument("--fuse-qkv", action="store_true",
+                    help="fused projection layout (wqkv, w_gateup): 4 projections a layer instead of 7")
     ap.add_argument("--voices", default=None, help="voices.json registry")
     ap.add_argument("--host", default="0.0.0.0")
     ap.add_argument("--port", type=int, default=8880)
@@ -594,7 +599,7 @@ def main(argv=None) -> None:
     from .model import FasterQwen3TTS
 
     model = FasterQwen3TTS.from_pretrained(args.model, device=args.device, quant=args.quant,
-                                           strict=args.strict)
+                                           strict=args.strict, backend=args.backend, fuse_qkv=args.fuse_qkv)
     if args.warmup:
         warm(model, args.continuous, args.batch)
     srv = make_server(model, args.host, args.port, voices=args.voices, batch=args.batch,

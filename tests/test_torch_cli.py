@@ -1,7 +1,8 @@
 """The port's command line (faster_qwen3_tts_tpu_torch/cli.py): the parse and
-validation cases of tests/test_cli.py (less --backend, --aot-cache and
-bundle, which are not ported), the flags it passes to from_pretrained, and
-one `clone` run end to end on the CPU from a tiny own-format checkpoint."""
+validation cases of tests/test_cli.py (less --aot-cache, --attn and bundle,
+which are not ported), the flags it passes to from_pretrained (--backend,
+--ref-cache-dir and --fuse-qkv among them), and `clone` runs end to end on
+the CPU from a tiny own-format checkpoint, one through the native backend."""
 import dataclasses
 
 import numpy as np
@@ -32,7 +33,7 @@ def test_custom_and_design_flags():
     assert s.mode == "custom" and s.speaker == "aiden"
 
 
-@pytest.mark.parametrize("argv", [["clone", "hi", "--backend", "jax"], ["clone", "hi", "--aot-cache", "d"],
+@pytest.mark.parametrize("argv", [["clone", "hi", "--backend", "ggml"], ["clone", "hi", "--aot-cache", "d"],
                                   ["clone", "hi", "--attn", "xla"], ["bundle", "out"]])
 def test_unported_flags_are_refused(argv):
     with pytest.raises(SystemExit):
@@ -66,7 +67,29 @@ def test_load_flags_reach_from_pretrained(monkeypatch, flag, strict):
     with pytest.raises(RuntimeError, match="stop before"):
         cli._load_model(args)
     assert seen == {"model": "ckpt", "device": "cpu", "dtype": "fp32", "quant": "Q8_0", "max_seq_len": 2048,
-                    "strict": strict}
+                    "strict": strict, "backend": "torch"}
+
+
+@pytest.mark.parametrize("flags, expect", [
+    ([], {"backend": "torch"}),
+    (["--backend", "jax"], {"backend": "jax"}),  # the JAX package's default: from_pretrained takes it as torch
+    (["--backend", "native"], {"backend": "native"}),
+    (["--backend", "native", "--ref-cache-dir", "refs"], {"backend": "native", "voice_ref_cache_dir": "refs"}),
+    (["--ref-cache-dir", "refs"], {"backend": "torch"}),  # read by the native backend only, as in the JAX CLI
+    (["--fuse-qkv"], {"backend": "torch", "fuse_qkv": True}),
+])
+def test_backend_cache_and_fuse_flags_reach_from_pretrained(monkeypatch, flags, expect):
+    seen = {}
+
+    def fake(model, **kw):
+        seen.update({k: kw[k] for k in ("backend", "voice_ref_cache_dir", "fuse_qkv") if k in kw})
+        raise RuntimeError("stop before the model is built")
+
+    monkeypatch.setattr("faster_qwen3_tts_tpu_torch.model.FasterQwen3TTS.from_pretrained", fake)
+    args = build_parser().parse_args(["clone", "hi", "--ref-audio", "r.wav", "--xvec-only", *flags])
+    with pytest.raises(RuntimeError, match="stop before"):
+        cli._load_model(args)
+    assert seen == expect
 
 
 def test_int4_is_not_ported(monkeypatch):
@@ -105,3 +128,29 @@ def test_clone_end_to_end_on_the_cpu(tmp_path, capsys):
     assert rc == 0 and "TTFA" in capsys.readouterr().out
     wav, sr = audio.read_wav(out)
     assert sr == 24000 and 0 < wav.size <= 8 * 1920 and np.isfinite(wav).all()
+
+
+def test_clone_native_backend_end_to_end_on_the_cpu(tmp_path, capsys):
+    """`clone --backend native --ref-cache-dir` extracts the voice into the
+    cache directory (the .spk / .rvq / .json triplet), and a second run
+    reads it back and writes the same wav."""
+    from faster_qwen3_tts_tpu_torch import weights
+    from faster_qwen3_tts_tpu_torch.config import tiny_test_config
+    from faster_qwen3_tts_tpu_torch.utils import audio
+
+    cfg = dataclasses.replace(tiny_test_config(), tts_bos_token_id=300, tts_eos_token_id=301,
+                              tts_pad_token_id=302)
+    weights.save_pretrained(str(tmp_path / "ckpt"), weights.init_numpy(cfg, seed=0), cfg)
+    ref = tmp_path / "ref.wav"
+    audio.write_wav(ref, (0.3 * np.sin(np.arange(24000) / 20)).astype(np.float32), 24000)
+    wavs = []
+    for i in range(2):
+        out = tmp_path / f"out{i}.wav"
+        rc = cli.main(["clone", "Hello from the native backend.", "--model", str(tmp_path / "ckpt"),
+                       "--ref-audio", str(ref), "--ref-text", "A reference.", "--backend", "native",
+                       "--ref-cache-dir", str(tmp_path / "refs"), "--max-new-tokens", "6", "--seed", "0",
+                       "--device", "cpu", "--dtype", "fp32", "-o", str(out)])
+        assert rc == 0 and "wrote" in capsys.readouterr().out
+        wavs.append(audio.read_wav(out)[0])
+    assert sorted(p.suffix for p in (tmp_path / "refs").iterdir()) == [".json", ".rvq", ".spk"]
+    assert wavs[0].size > 0 and np.array_equal(wavs[0], wavs[1])

@@ -19,7 +19,9 @@ replayed prefill graph equals eager `core.start_state` bit for bit (tokens,
 logits, past hidden, positions, pads, the KV cache over the prompt) at
 prompt buckets 32-256, greedy and sampled; replays of prefill, frame and
 window graphs in mixed order on one set keep every chunk equal to eager; and
-after `warmup` a served request runs no eager prefill.
+after `warmup` a served request runs no eager prefill. The fused projection
+layout (bf16 Q8_0 and Q4_K_M at the 0.6B widths, tiny f32) replays equal to
+its eager decode bit for bit, in graph sets of its own.
 """
 import dataclasses
 
@@ -30,6 +32,7 @@ import torch
 from faster_qwen3_tts_tpu_torch import weights
 from faster_qwen3_tts_tpu_torch.config import config_from_dict, get_config
 from faster_qwen3_tts_tpu_torch.engine import core, fused_stream, graphs
+from faster_qwen3_tts_tpu_torch.ops import quant
 from faster_qwen3_tts_tpu_torch.ops.sampling import SamplingParams
 
 TINY = {
@@ -58,9 +61,13 @@ _MODELS = {}
 
 def _model(name, device):
     """(params, cfg) of the tiny f32 geometry or of the 0.6B widths with two
-    layers a stack in bf16 Q8_0, made once."""
+    layers a stack in bf16 Q8_0 (and "-q4": Q4_K_M), made once; a name
+    ending in "-fused" is that tree in the fused projection layout."""
     if name not in _MODELS:
-        if name == "tiny":
+        if name.endswith("-fused"):
+            plain, cfg = _model(name[:-len("-fused")], device)
+            params = quant.fuse_layer_weights(plain)
+        elif name == "tiny":
             cfg = config_from_dict(TINY)
             params = weights.materialize(weights.init_numpy(cfg, seed=0), torch.float32, "none", device)
         else:
@@ -68,7 +75,8 @@ def _model(name, device):
             cfg = dataclasses.replace(
                 full, talker=dataclasses.replace(full.talker, num_hidden_layers=2),
                 predictor=dataclasses.replace(full.predictor, num_hidden_layers=2))
-            params = weights.materialize(weights.init_numpy(cfg, seed=0), torch.bfloat16, "int8", device)
+            params = weights.materialize(weights.init_numpy(cfg, seed=0), torch.bfloat16,
+                                         "int4" if name.endswith("-q4") else "int8", device)
         _MODELS[name] = (params, cfg)
     return _MODELS[name]
 
@@ -132,6 +140,34 @@ def test_replay_equals_eager(cuda_device, name, B, mode):
         _assert_same(gset, state, eager, _replayed(gset, params, prompt, 7, chunks))
     finally:
         reg.release(gset)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tiny-fused", "0.6b-2-layers-fused", "0.6b-2-layers-q4-fused"])
+@pytest.mark.parametrize("mode", ["greedy", "sampled"])
+def test_fused_replay_equals_eager(cuda_device, name, mode):
+    """The fused layout: replays equal eager bit for bit, in graph sets of
+    their own (the fused tree shares every other leaf with the unfused one),
+    whose frame makes 4 projection launches a layer instead of 7."""
+    params, cfg = _model(name, cuda_device)
+    plain, _ = _model(name[:-len("-fused")], cuda_device)
+    sampling = GREEDY if mode == "greedy" else SAMPLED
+    prompt = _prompt(cfg, params)
+    chunks = (4, 8, 8)
+    state, eager = _eager(params, cfg, prompt, sampling, 7, chunks)
+    reg = graphs.registry_for(params)
+    assert reg is not graphs.registry_for(plain)
+    gset = reg.lease(params, cfg, _key(params, prompt, sampling))
+    pset = graphs.registry_for(plain).lease(plain, cfg, _key(plain, prompt, sampling))
+    try:
+        _assert_same(gset, state, eager, _replayed(gset, params, prompt, 7, chunks))
+        layer_passes = cfg.talker.num_hidden_layers + 15 * cfg.predictor.num_hidden_layers
+        kernel = "K1" if name.startswith("tiny") else ("K4" if "-q4" in name else "K2")
+        if kernel != "K1":
+            assert pset.frame_launches[kernel] - gset.frame_launches[kernel] == 3 * layer_passes
+    finally:
+        reg.release(gset)
+        graphs.registry_for(plain).release(pset)
 
 
 @pytest.mark.cuda

@@ -28,7 +28,9 @@ def test_port_runs_without_jax_or_the_jax_package(tmp_path):
     CPU generations (x-vector, ICL from a wav, int4 and mixed weights through
     the engine and the parity decode, CustomVoice, VoiceDesign)
     built only from the port's config, tokenizer and audio helpers; load an
-    own-format and an HF checkpoint and bind the server. Neither jax, the
+    own-format and an HF checkpoint, run a request through the native
+    backend (its reference cache and host library) and one through the
+    fused layout, and bind the server. Neither jax, the
     JAX package, safetensors, aiohttp nor ml_dtypes is loaded."""
     script = tmp_path / "run.py"
     script.write_text(
@@ -87,6 +89,19 @@ def test_port_runs_without_jax_or_the_jax_package(tmp_path):
         "for sub in ('own', 'hf'):\n"
         "    lm = FasterQwen3TTS.from_pretrained(os.path.join(d, sub), device='cpu', dtype='float32')\n"
         "    assert torch.equal(lm.params['talker']['codec_head'], m0['talker']['codec_head'])\n"
+        "nm = FasterQwen3TTS.from_pretrained(os.path.join(d, 'own'), device='cpu', dtype='float32',\n"
+        "                                    backend='native', voice_ref_cache_dir=os.path.join(d, 'refs'))\n"
+        "n = sum(len(a) for a, _, _ in nm.generate_voice_clone_streaming(\n"
+        "    'Hi.', 'English', ref_audio=sys.argv[1], xvec_only=True, max_new_tokens=6, chunk_size=4, seed=0))\n"
+        "assert n > 0 and len(os.listdir(os.path.join(d, 'refs'))) == 2\n"
+        "from faster_qwen3_tts_tpu_torch.utils import native\n"
+        "assert native.resample(np.ones(160, np.float32), 16000, 24000).size > 0\n"
+        "fm = FasterQwen3TTS.from_pretrained(os.path.join(d, 'own'), device='cpu', dtype='float32',\n"
+        "                                    quant='Q8_0', fuse_qkv=True)\n"
+        "assert 'wqkv' in fm.params['talker']['layers'] and 'wq' not in fm.params['predictor']['layers']\n"
+        "n = sum(len(a) for a, _, _ in fm.generate_voice_clone_streaming(\n"
+        "    'Hi.', 'English', voice_clone_prompt=prompt, max_new_tokens=6, chunk_size=4, seed=0))\n"
+        "assert n > 0\n"
         "srv = server.make_server(m, '127.0.0.1', 0)\n"
         "srv.server_close()\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"

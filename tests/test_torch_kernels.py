@@ -20,7 +20,9 @@ one buffer with other shapes, reallocated addresses, two launching threads.
 K4 (int4 GEMV) at every main-path shape with 1, 2, 3, 4, 5, 8, 9 and 16
 rows (1 and 2: either side of the switch to the tensor cores), other group
 sizes and a very long reduction, bf16 (2e-2) and float32 (1e-4)
-activations, its refusals, and a graph replay.
+activations, its refusals, and a graph replay. K2 and K4 also at the shapes
+of the fused projection layout (wqkv O 4096, w_gateup O 6144 / 12288) with 1,
+8 and 16 rows.
 """
 import numpy as np
 import pytest
@@ -264,6 +266,23 @@ def test_weight_stream_kernel(cuda_device, L, I, O):
     torch.testing.assert_close(out, ref, rtol=0, atol=1e-5 * ref.abs().max().item())
 
 
+# the fused projection layout (ops.quant.fuse_layer_weights): wqkv (I 1024 /
+# 2048, O 4096) and w_gateup (0.6B and the predictor O 6144, 1.7B O 12288)
+FUSED_SHAPES = [(1024, 4096), (1024, 6144), (2048, 4096), (2048, 12288)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 8, 16])
+@pytest.mark.parametrize("I, O", FUSED_SHAPES)
+def test_int8_gemv_kernel_fused_shapes(cuda_device, M, I, O):
+    x, q, scale = _gemv_inputs(cuda_device, M, I, O)
+    before = quant.int8_gemv.launches
+    out = quant.int8_gemv(x, q, scale)
+    assert quant.int8_gemv.launches == before + 1
+    torch.testing.assert_close(out.float(), quant.int8_gemv_plain(x.float(), q, scale), atol=2e-2, rtol=2e-2)
+    assert torch.equal(out, quant.int8_gemv(x, q, scale))
+
+
 # K4: every int4 projection shape of the 0.6B and 1.7B models (GEMV_SHAPES),
 # an input width that is one group (48: the tiny-layer fallback) and groups
 # that do not fill a cluster evenly (160 rows: 5 groups)
@@ -289,6 +308,19 @@ def test_int4_gemv_kernel(cuda_device, M, I, O):
     ref = quant.int4_gemv_plain(x.float(), packed, scale, wmin)
     torch.testing.assert_close(out.float(), ref, atol=2e-2, rtol=2e-2)
     assert torch.equal(out, quant.int4_gemv(x, packed, scale, wmin))  # sums in a fixed order
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 8, 16])
+@pytest.mark.parametrize("I, O", FUSED_SHAPES)
+def test_int4_gemv_kernel_fused_shapes(cuda_device, M, I, O):
+    x, packed, scale, wmin = _gemv4_inputs(cuda_device, M, I, O)
+    before = quant.int4_gemv.launches
+    out = quant.int4_gemv(x, packed, scale, wmin)
+    assert quant.int4_gemv.launches == before + 1
+    ref = quant.int4_gemv_plain(x.float(), packed, scale, wmin)
+    torch.testing.assert_close(out.float(), ref, atol=2e-2, rtol=2e-2)
+    assert torch.equal(out, quant.int4_gemv(x, packed, scale, wmin))
 
 
 # (M, I, O, group): ten groups of 48 on the tensor cores (16 and 4 rows) and

@@ -369,3 +369,20 @@ def test_tiny_model_serves_continuous_requests_end_to_end(serve):
         samples = np.frombuffer(body, np.int16)
         assert samples.size <= 12 * 1920 and np.abs(samples).max() > 0
     assert s.continuous.live_lanes() == 0
+
+
+@pytest.mark.parametrize("flags, expect", [([], ("torch", False)), (["--backend", "jax"], ("jax", False)),
+                                           (["--backend", "native", "--fuse-qkv"], ("native", True))])
+def test_backend_and_fuse_flags_reach_from_pretrained(monkeypatch, flags, expect):
+    """`--backend` (as servers/openai_server.py has it; `from_pretrained`
+    takes `jax` as this engine) and `--fuse-qkv` reach `from_pretrained`."""
+    seen = {}
+
+    def fake(model, **kw):
+        seen.update(kw)
+        raise RuntimeError("stop before the model is built")
+
+    monkeypatch.setattr("faster_qwen3_tts_tpu_torch.model.FasterQwen3TTS.from_pretrained", fake)
+    with pytest.raises(RuntimeError, match="stop before"):
+        srv.main(["--model", "ckpt", "--device", "cpu", *flags])
+    assert (seen["backend"], seen["fuse_qkv"]) == expect
