@@ -111,6 +111,18 @@ Phases, each of which fails the run:
    (its lane must be released), GET /health; every 200 body a 24 kHz wav or
    PCM16 stream, K1 and K2 launched, no eager frame or prefill; POST to
    first audio byte per request, beside the eager-prefill runs';
+10b. demo on the same Q8_0 model: `demo_server.make_demo_server` with the
+   model injected as ("0.6b", "Q8_0") and its usage store under build/;
+   POST /load with warmup (a cache hit that must capture nothing), the 4.0 s
+   recording uploaded raw and as multipart (one ref_id), two concurrent SSE
+   streams at chunk 8 (x-vector and ICL from the upload, 48 frames; events
+   queued -> chunk... -> done, chunk_index 0..n-1, every wav_b64 a mono
+   24 kHz PCM16 WAV, audio_s their sum, one queued at position 1, no eager
+   frame or prefill, K1 and K2 launched), one POST /generate (24 kHz), 400s
+   for chunk_size 5 and 1001 characters, a client that leaves after its
+   first chunk (the next request completes, no graph set stays leased), a
+   login with a daily limit of 1 (200, then 429) and the web-only gate (403
+   without the page token, 200 with it);
 11. int4 slice: the same seeded 0.6B tree (one `init_numpy`) materialized
     in float32, BF16, Q8_0, Q4_K_M and Q8_4: the quant_delta row (prefill
     logit cosine and top-10 overlap against float32, projection bytes);
@@ -148,7 +160,9 @@ Phases, each of which fails the run:
    non-streaming request) and a Base x-vector stream; checks sample counts,
    that K1 and K2 carried these requests, and greedy determinism; prints
    load and warmup time, TTFA and stream RTF per request (no eager frame or
-   prefill), peak memory; then
+   prefill), peak memory; a `mode: "custom"` and a `mode: "design"` SSE
+   stream through the demo server over these weights (no eager frame or
+   prefill, K1 and K2 launched); then
    a 24-frame CustomVoice stream under torch.profiler, as in 7.
 
 Kernel launches are counted replay-aware: each wrapper counts its eager
@@ -157,6 +171,9 @@ counts what replays launched (a graph's launches at capture times its
 replays); a path fails if one of its kernels launched no time. The run
 fails if jax or any module of the JAX package (faster_qwen3_tts_tpu)
 was loaded.
+Before them, one `demo` line: per demo stream the POST to its first chunk
+event beside the event's ttfa_ms, the done RTF and the queued position;
+/generate ms, the demo phases' seconds and K1 / K2 launches.
 The second-to-last line is the kernels' JSON record, the last line
 `{"ok": true, "device": {...}}`. Any failure exits non-zero before them.
 """
@@ -171,6 +188,7 @@ import resource
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -1497,7 +1515,9 @@ def slice_phase(quant, n_requests, report, icl=False, tree=None, init_s=None):
         cont = continuous_phase(model, report, REPO / "build" / "chip_smoke_ref_4s.wav")
         phase("serve 0.6B Q8_0")
         served = serve_phase(model, report, REPO / "build" / "chip_smoke_ref_4s.wav")
-        batch = {k: batch[k] + cont[k] + served[k] for k in batch}
+        phase("demo 0.6B Q8_0")
+        demo = demo_phase(model, report, REPO / "build" / "chip_smoke_ref_4s.wav")
+        batch = {k: batch[k] + cont[k] + served[k] + demo[k] for k in batch}
     del model
     gc.collect()  # each slice's peak memory is its own
     torch.cuda.empty_cache()
@@ -2124,6 +2144,8 @@ def slice_17b_phase(report):
     log(f"slice 1.7B: launches during the requests {launches}")
     if launches["K1"] == 0 or launches["K2"] == 0:
         fail(f"the 1.7B requests did not go through both kernels: {launches}")
+    demo = demo_17b_phase(model, design, report)
+    launches = {k: launches[k] + demo[k] for k in launches}
     with greedy_predictor():
         toks = [run_request(model, seed, greedy=True, frames=24, method=f"{cv}_streaming",
                             args=(TEXT, "dylan", "Chinese"))[1] for seed in (7, 8)]
@@ -2621,6 +2643,284 @@ def serve_phase(model, report, long_ref):
     return launches
 
 
+# -- the browser demo server ---------------------------------------------------------------------
+
+
+def _demo_server(models):
+    """`demo_server.make_demo_server` over loaded models on a thread, its
+    usage store under build/ -> (server, thread, port)."""
+    import os
+
+    from faster_qwen3_tts_tpu_torch import demo_server
+
+    db = REPO / "build" / "demo_usage.sqlite3"
+    for path in (db, Path(str(db) + ".hmac-key")):
+        path.unlink(missing_ok=True)
+    old = os.environ.get("USAGE_DB_PATH")
+    os.environ["USAGE_DB_PATH"] = str(db)
+    try:
+        srv = demo_server.make_demo_server("127.0.0.1", 0, models=models, device="cuda")
+    finally:
+        if old is None:
+            os.environ.pop("USAGE_DB_PATH")
+        else:
+            os.environ["USAGE_DB_PATH"] = old
+    th = threading.Thread(target=srv.serve_forever, daemon=True)
+    th.start()
+    return srv, th, srv.server_address[1]
+
+
+def _demo_call(port, method, path, body=None, headers=None):
+    """-> (status, headers, body bytes); a dict body goes as JSON."""
+    import http.client
+
+    hdrs = dict(headers or {})
+    if isinstance(body, dict):
+        body = json.dumps(body).encode()
+        hdrs.setdefault("Content-Type", "application/json")
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request(method, path, body=body, headers=hdrs)
+        resp = conn.getresponse()
+        return resp.status, resp.headers, resp.read()
+    finally:
+        conn.close()
+
+
+def _wav_pcm16(data: bytes, what: str):
+    """A WAV's bytes -> its PCM16 samples; it must be mono 24 kHz 16-bit."""
+    import io
+    import wave
+
+    import numpy as np
+
+    with wave.open(io.BytesIO(data)) as w:
+        if (w.getnchannels(), w.getsampwidth(), w.getframerate()) != (1, 2, 24000):
+            fail(f"demo: {what} is not a mono 24 kHz PCM16 WAV ({w.getnchannels()} channels, "
+                 f"{w.getsampwidth()} bytes, {w.getframerate()} Hz)")
+        return np.frombuffer(w.readframes(w.getnframes()), "<i2")
+
+
+def demo_stream(port, body, headers=None, abort=False):
+    """POST /generate/stream and read its SSE events -> a record: status,
+    events, POST to first `chunk` event ms, total ms. abort: close the
+    socket after the first chunk event."""
+    import base64
+    import http.client
+    import socket
+
+    rec = {"mode": body.get("mode", "clone"), "ttfa_ms": None, "first_chunk_ms": None}
+    t0 = time.perf_counter()
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    conn.request("POST", "/generate/stream", body=json.dumps(body),
+                 headers={"Content-Type": "application/json", **(headers or {})})
+    resp = conn.getresponse()
+    rec["status"] = resp.status
+    if resp.status != 200:
+        rec["error"] = json.loads(resp.read())["error"]
+        conn.close()
+        return rec
+    events = []
+    while True:
+        line = resp.readline()
+        if not line:
+            break
+        if not line.startswith(b"data: "):
+            continue
+        ev = json.loads(line[6:])
+        events.append(ev)
+        if ev["type"] == "chunk" and rec["first_chunk_ms"] is None:
+            rec["first_chunk_ms"] = (time.perf_counter() - t0) * 1000.0
+            rec["ttfa_ms"] = ev["ttfa_ms"]
+            if abort:
+                conn.sock.shutdown(socket.SHUT_RDWR)
+                break
+    conn.close()
+    rec["ms"] = (time.perf_counter() - t0) * 1000.0
+    rec["types"] = [ev["type"] for ev in events]
+    rec["position"] = events[0].get("position") if events else None
+    if abort:
+        return rec
+    chunks = [ev for ev in events if ev["type"] == "chunk"]
+    samples = [_wav_pcm16(base64.b64decode(ev["wav_b64"]), f"chunk {ev['chunk_index']}").size for ev in chunks]
+    done = events[-1] if events else {}
+    if (not events or events[0]["type"] != "queued" or done.get("type") != "done" or not chunks
+            or rec["types"] != ["queued"] + ["chunk"] * len(chunks) + ["done"]):
+        fail(f"demo: {rec['mode']} stream events {rec['types']} ({done})")
+    if [ev["chunk_index"] for ev in chunks] != list(range(len(chunks))):
+        fail(f"demo: chunk_index runs {[ev['chunk_index'] for ev in chunks]}")
+    if abs(sum(samples) / 24000 - done["audio_s"]) > 1e-9 or min(samples) == 0:
+        fail(f"demo: audio_s {done['audio_s']} for chunks of {samples} samples")
+    rec.update(chunks=len(chunks), samples=sum(samples), audio_s=done["audio_s"], rtf=done["rtf"],
+               done_ttfa_ms=done["ttfa_ms"], usage=done["usage"])
+    return rec
+
+
+def demo_phase(model, report, long_ref):
+    """The browser demo server (`demo_server.make_demo_server`) over the
+    loaded 0.6B Q8_0 model, injected into its cache as ("0.6b", "Q8_0"):
+    POST /load with warmup (a cache hit that captures nothing), the 4.0 s
+    recording uploaded raw and as multipart (one ref_id), two concurrent
+    SSE streams at chunk 8 (x-vector and ICL from the upload; no eager frame
+    or prefill; one queued at position 1), one POST /generate, 400s for
+    chunk_size 5 and 1001 characters, a client that leaves after its first
+    chunk (the next request completes; no graph set stays leased), a login
+    with a daily limit of 1 (200, then 429) and the web-only gate (403
+    without the page token, 200 with it). -> launches during the requests."""
+    import base64
+
+    from faster_qwen3_tts_tpu_torch.engine import graphs
+    from faster_qwen3_tts_tpu_torch.usage_db import UsageDB
+
+    t_phase = time.perf_counter()
+    srv, th, port = _demo_server({("0.6b", "Q8_0"): model})
+    which = {"model": "0.6b", "quant": "Q8_0"}
+    reg = graphs.registry_for(model.params)
+    stats0 = dict(reg.stats)
+    t0 = time.perf_counter()
+    status, _, raw = _demo_call(port, "POST", "/load", dict(which, warmup=True))
+    load_ms = (time.perf_counter() - t0) * 1000.0
+    if status != 200 or json.loads(raw) != {"loaded": ["0.6b (Q8_0)"]}:
+        fail(f"demo: /load answered {status} {raw[:200]!r}")
+    recaptured = {k: reg.stats[k] - stats0[k] for k in ("captures", "prefill_captures")}
+    if any(recaptured.values()):
+        fail(f"demo: /load's warmup captured again what the slice had warmed: {recaptured}")
+
+    data = long_ref.read_bytes()
+    boundary = "fq3tChipSmokeBoundary"
+    multipart = (f'--{boundary}\r\nContent-Disposition: form-data; name="file"; filename="ref.wav"\r\n'
+                 f"Content-Type: audio/wav\r\n\r\n").encode() + data + f"\r\n--{boundary}--\r\n".encode()
+    ids = [json.loads(_demo_call(port, "POST", "/upload_ref", body, {"Content-Type": ctype})[2]).get("ref_id")
+           for body, ctype in ((data, "audio/wav"), (multipart, f"multipart/form-data; boundary={boundary}"))]
+    if ids[0] is None or ids[0] != ids[1]:
+        fail(f"demo: raw and multipart uploads gave ref_ids {ids}")
+    rid = ids[0]
+
+    bodies = [dict(which, text=BATCH_TEXTS[0], uploaded_ref=rid, xvec_only=True, chunk_size=CHUNK,
+                   max_new_tokens=SERVE_FRAMES),
+              dict(which, text=BATCH_TEXTS[1], uploaded_ref=rid, ref_text=REF_TEXT, chunk_size=CHUNK,
+                   max_new_tokens=SERVE_FRAMES)]
+    out = [None] * len(bodies)
+    threads = [threading.Thread(target=lambda i: out.__setitem__(i, demo_stream(port, bodies[i])), args=(i,))
+               for i in range(len(bodies))]
+    _reset_launches()
+    t0 = time.perf_counter()
+    with no_eager_frames("demo"), no_eager_prefills("demo"):
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+    streams_s = time.perf_counter() - t0
+    launches = _read_launches()
+    if any(r is None or r["status"] != 200 for r in out):
+        fail(f"demo: concurrent streams answered {out}")
+    for r, name in zip(out, ("x-vector", "ICL")):
+        r["name"] = name
+    if sorted(r["position"] for r in out) != [0, 1]:
+        fail(f"demo: queued positions {[r['position'] for r in out]}, expected 0 and 1")
+    if launches["K1"] == 0 or launches["K2"] == 0:
+        fail(f"demo: the streams did not go through both kernels: {launches}")
+
+    t0 = time.perf_counter()
+    status, _, raw = _demo_call(port, "POST", "/generate", dict(which, text=TEXT, ref_audio=str(long_ref),
+                                                                 xvec_only=True, max_new_tokens=24))
+    generate_ms = (time.perf_counter() - t0) * 1000.0
+    if status != 200 or json.loads(raw)["sample_rate"] != 24000:
+        fail(f"demo: /generate answered {status} {raw[:200]!r}")
+    generate_samples = _wav_pcm16(base64.b64decode(json.loads(raw)["wav_b64"]), "/generate").size
+
+    bad = [demo_stream(port, dict(which, text="x", chunk_size=5)),
+           demo_stream(port, dict(which, text="x" * 1001))]
+    if [r["status"] for r in bad] != [400, 400]:
+        fail(f"demo: bad requests answered {bad}")
+    leases0 = reg.leased()
+    aborted = demo_stream(port, dict(which, text=BATCH_TEXTS[2], uploaded_ref=rid, xvec_only=True,
+                                     max_new_tokens=4 * SERVE_FRAMES), abort=True)
+    follow = demo_stream(port, dict(which, text=BATCH_TEXTS[3], uploaded_ref=rid, xvec_only=True, max_new_tokens=16))
+    leases = reg.leased()
+    if aborted["status"] != 200 or aborted["first_chunk_ms"] is None or leases != leases0:
+        fail(f"demo: the client that left: {aborted}; graph sets leased before {leases0}, after the next "
+             f"request {leases}")
+
+    short = dict(which, text=BATCH_TEXTS[4], uploaded_ref=rid, xvec_only=True, max_new_tokens=8)
+    quota_db = REPO / "build" / "demo_usage_quota.sqlite3"
+    quota_db.unlink(missing_ok=True)
+    srv.usage_db = UsageDB(quota_db, hash_secret=b"chip smoke", daily_free_limit=1)
+    srv.oauth_parser = lambda h: {"sub": "smoke-user", "username": "smoke", "is_pro": False}
+    srv.require_login = True
+    quota = [demo_stream(port, short), demo_stream(port, short)]
+    srv.require_login, srv.oauth_parser = False, None
+    if [r["status"] for r in quota] != [200, 429] or quota[0]["usage"]["remaining"] != 0:
+        fail(f"demo: a daily limit of 1 answered {quota}")
+    srv.web_only = True
+    refused = demo_stream(port, short)
+    _, _, page = _demo_call(port, "GET", "/")
+    marker = b"window.__FQ3T_WEB_TOKEN__ = "
+    start = page.index(marker) + len(marker)
+    token = json.loads(page[start: page.index(b";", start)])
+    admitted = demo_stream(port, short, headers={"x-fq3t-web-token": token})
+    srv.web_only = False
+    if (refused["status"], admitted["status"]) != (403, 200):
+        fail(f"demo: web-only answered {refused['status']} without the token, {admitted['status']} with it")
+    st = json.loads(_demo_call(port, "GET", "/status")[2])
+    total = _read_launches()  # every request from the streams on
+    srv.shutdown()
+    srv.server_close()
+    th.join(timeout=60)
+    if st["queue_depth"] != 0 or st["loaded_models"] != ["0.6b (Q8_0)"]:
+        fail(f"demo: status {st}")
+    report["demo"] = {
+        "card": CARD, "load_ms": load_ms, "recaptured": recaptured, "streams": out, "streams_s": streams_s,
+        "generate_ms": generate_ms, "generate_samples": int(generate_samples),
+        "bad": [r["status"] for r in bad], "aborted": aborted, "after_abort": follow,
+        "leased_after_abort": leases, "quota": [r["status"] for r in quota],
+        "web_only": [refused["status"], admitted["status"]], "launches": launches,
+        "launches_all_requests": total, "phase_s": time.perf_counter() - t_phase}
+    return total
+
+
+def demo_17b_phase(custom, design, report):
+    """A `mode: "custom"` and a `mode: "design"` SSE request through the demo
+    server over the 1.7B model (no eager frame or prefill) -> their launches."""
+    t_phase = time.perf_counter()
+    srv, th, port = _demo_server({("1.7b-custom", "Q8_0"): custom, ("1.7b-design", "Q8_0"): design})
+    bodies = [{"mode": "custom", "model": "1.7b-custom", "quant": "Q8_0", "text": TEXT, "speaker": "aiden",
+               "language": "English", "chunk_size": CHUNK, "max_new_tokens": SERVE_FRAMES},
+              {"mode": "design", "model": "1.7b-design", "quant": "Q8_0", "text": TEXT, "instruct": DESIGN,
+               "language": "English", "chunk_size": CHUNK, "max_new_tokens": SERVE_FRAMES}]
+    _reset_launches()
+    with no_eager_frames("demo 1.7B"), no_eager_prefills("demo 1.7B"):
+        out = [demo_stream(port, body) for body in bodies]
+    launches = _read_launches()
+    srv.shutdown()
+    srv.server_close()
+    th.join(timeout=60)
+    if any(r["status"] != 200 for r in out) or launches["K1"] == 0 or launches["K2"] == 0:
+        fail(f"demo 1.7B: {out}, launches {launches}")
+    report.setdefault("demo", {})["1.7B"] = {"streams": out, "launches": launches,
+                                            "phase_s": time.perf_counter() - t_phase}
+    return launches
+
+
+def demo_line(report):
+    """The one `demo` line: POST to first chunk event beside the event's
+    ttfa_ms, done RTF and queued position of each stream, /generate ms,
+    the phases' seconds and K1 / K2 launches."""
+    d = report["demo"]
+    streams = [dict(r, name=r.get("name", f"1.7B {r['mode']}")) for r in d["streams"] + d["1.7B"]["streams"]]
+    parts = [f"{r['name']}: POST to first chunk {r['first_chunk_ms']:.1f} ms (ttfa_ms {r['ttfa_ms']:.1f}), "
+             f"done RTF {r['rtf']:.3f}, {r['audio_s']:.2f} s in {r['chunks']} chunks, queued at {r['position']}"
+             for r in streams]
+    log(f"demo ({CARD}): {'; '.join(parts)}; /load (warm, cache hit) {d['load_ms']:.1f} ms, captures "
+        f"{d['recaptured']}; the two concurrent streams {d['streams_s']:.2f} s; /generate {d['generate_ms']:.1f} ms "
+        f"({d['generate_samples']} samples); 400s {d['bad']}; a client that left after its first chunk "
+        f"({d['aborted']['first_chunk_ms']:.1f} ms), the next request {d['after_abort']['ms']:.1f} ms, graph sets "
+        f"leased {d['leased_after_abort']}; quota {d['quota']}; web-only {d['web_only']}; phase "
+        f"{d['phase_s']:.1f} s + 1.7B {d['1.7B']['phase_s']:.1f} s; launches K1 / K2: 0.6B streams "
+        f"{d['launches']['K1']} / {d['launches']['K2']}, 1.7B {d['1.7B']['launches']['K1']} / "
+        f"{d['1.7B']['launches']['K2']}")
+
+
 def cli_phase(report, tiny_dir):
     """`python -m faster_qwen3_tts_tpu_torch.cli clone` on the tiny own-format
     checkpoint, on the card, as a subprocess: rc 0 and a 24 kHz wav."""
@@ -2809,15 +3109,16 @@ def main() -> None:
     phase("slice 1.7B Q8_0")
     q8_17b = slice_17b_phase(report)
     phase("record")
+    demo_line(report)
     jaxish = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.") or
                     m == "faster_qwen3_tts_tpu" or m.startswith("faster_qwen3_tts_tpu."))
     if jaxish:
         fail(f"the port loaded jax or the JAX package: {jaxish[:8]}")
     # launches of every slice path: 0.6B Q8_0 x-vector, Q8_0 ICL, Q8_0 lockstep
-    # and continuous batches and the server's requests, 0.6B Q4_K_M and Q8_4
-    # x-vector, BF16 x-vector and lockstep batch, 1.7B Q8_0 CustomVoice /
-    # VoiceDesign / Base, the tiny engine streams held against parity_mode;
-    # K3's probe
+    # and continuous batches, the server's and the demo server's requests,
+    # 0.6B Q4_K_M and Q8_4 x-vector, BF16 x-vector and lockstep batch, 1.7B
+    # Q8_0 CustomVoice / VoiceDesign / Base and the demo's custom and design
+    # streams, the tiny engine streams held against parity_mode; K3's probe
     paths = (q8, icl, q8_batch, q4, bf16, bf16_batch, q8_17b, parity_launches)
     total = {k: sum(p.get(k, 0) for p in paths) for k in ("K1", "K2", "K4")}
     total["K3"] = k3_launches

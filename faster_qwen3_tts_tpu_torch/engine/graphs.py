@@ -407,6 +407,11 @@ class GraphRegistry:
                            if tuple(seg["segment_pool_id"]) == tuple(self._pool))
         return {"static_bytes": static, "pool_bytes": pool}
 
+    def leased(self) -> int:
+        """Sets out on lease now (held by a live session or batcher)."""
+        with self._lock:
+            return len(self.sets) - sum(len(free) for free in self._free.values())
+
     def free_count(self, key: GraphKey) -> int:
         with self._lock:
             return len(self._free.get(key, ()))

@@ -488,11 +488,13 @@ class _Handler(BaseHTTPRequestHandler):
     def log_message(self, fmt, *args) -> None:
         logger.debug("%s %s", self.address_string(), fmt % args)
 
-    def send_bytes(self, status: int, content_type: str, data: bytes) -> None:
+    def send_bytes(self, status: int, content_type: str, data: bytes, headers: Optional[Dict[str, str]] = None) -> None:
         try:
             self.send_response(status)
             self.send_header("Content-Type", content_type)
             self.send_header("Content-Length", str(len(data)))
+            for name, value in (headers or {}).items():
+                self.send_header(name, value)
             self.end_headers()
             self.wfile.write(data)
         except (BrokenPipeError, ConnectionResetError):

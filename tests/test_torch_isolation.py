@@ -5,6 +5,7 @@ import dataclasses
 import os
 import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -106,7 +107,7 @@ def test_port_runs_without_jax_or_the_jax_package(tmp_path):
         "srv.server_close()\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "             or k == 'faster_qwen3_tts_tpu' or k.startswith('faster_qwen3_tts_tpu.')\n"
-        "             or k.split('.')[0] in ('safetensors', 'aiohttp', 'ml_dtypes'))\n"
+        "             or k.split('.')[0] in ('safetensors', 'aiohttp', 'ml_dtypes', 'servers'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
@@ -115,6 +116,46 @@ def test_port_runs_without_jax_or_the_jax_package(tmp_path):
                           text=True, env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("ok")
+
+
+def test_demo_server_imports_only_the_port(tmp_path):
+    """In a fresh interpreter: import the demo server and its usage store,
+    bind a demo server (and stop it); neither jax, the JAX package, aiohttp
+    nor the JAX package's `servers` modules is loaded."""
+    script = tmp_path / "run.py"
+    script.write_text(
+        "import os, sys\n"
+        "os.environ['USAGE_DB_PATH'] = sys.argv[1]\n"
+        "from faster_qwen3_tts_tpu_torch import demo_server, usage_db\n"
+        "srv = demo_server.make_demo_server('127.0.0.1', 0, models={}, device='cpu')\n"
+        "assert srv.models.loaded() == [] and os.path.exists(sys.argv[1] + '.hmac-key')\n"
+        "srv.server_close()\n"
+        "bad = sorted(k for k in sys.modules if k.split('.')[0] in\n"
+        "             ('jax', 'faster_qwen3_tts_tpu', 'aiohttp', 'servers'))\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, str(script), str(tmp_path / "usage.sqlite3")], capture_output=True,
+                          text=True, env=env, timeout=120, cwd=tmp_path)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
+
+
+def test_demo_page_is_shipped():
+    """The demo's page is the JAX package's `servers/index.html` byte for
+    byte, and the package data and the source manifest ship it."""
+    import tomllib
+
+    from faster_qwen3_tts_tpu_torch import demo_server
+
+    assert demo_server.INDEX_HTML == Path(REPO) / "faster_qwen3_tts_tpu_torch" / "demo" / "index.html"
+    assert demo_server.INDEX_HTML.read_bytes() == (Path(REPO) / "servers" / "index.html").read_bytes()
+    with open(os.path.join(REPO, "pyproject.toml"), "rb") as f:
+        data = tomllib.load(f)["tool"]["setuptools"]["package-data"]["faster_qwen3_tts_tpu_torch"]
+    assert "demo/*.html" in data
+    with open(os.path.join(REPO, "MANIFEST.in")) as f:
+        assert "include faster_qwen3_tts_tpu_torch/demo/*.html" in f.read().splitlines()
 
 
 def test_no_port_module_imports_the_jax_package():
