@@ -4,6 +4,7 @@
     python3 chip_smoke.py                       # from the repository root, on a machine with a card
     python3 chip_smoke.py --report out.json     # also write every measurement to out.json
     python3 chip_smoke.py --kernels-only        # phases 1-4 only (no ok line)
+    python3 chip_smoke.py --restart-from DIR    # phase 10c's fresh process: restart from the bundle DIR
 
 Phases, each of which fails the run:
 1. device: a CUDA card must be visible; prints its name and power limit;
@@ -123,6 +124,18 @@ Phases, each of which fails the run:
    first chunk (the next request completes, no graph set stays leased), a
    login with a daily limit of 1 (200, then 429) and the web-only gate (403
    without the page token, 200 with it);
+10c. restart on the same Q8_0 model: `save_deploy_bundle` full float32 and
+   compact under build/ (sizes, seconds, the size the JAX writer gives the
+   manifest, which must be the file's); a fresh process (`--restart-from`)
+   runs `from_pretrained(<full bundle>)`, `warmup(first_chunk_size=4)` and
+   one greedy x-vector stream: its codes must equal this model's greedy
+   stream exactly and its card memory after the load be within 1 % of the
+   strict load's; printed: process start to first audio, the load phases
+   (pin, weights_read, device_transfer, transfer_mb) beside the strict
+   load's seconds, K1 / K2 launches (which must move); then the compact
+   bundle loaded in this process: every leaf the bf16 rounding of the
+   strict leaf, its greedy codes counted against this model's (not held:
+   compact rounds the quantization scales too);
 11. int4 slice: the same seeded 0.6B tree (one `init_numpy`) materialized
     in float32, BF16, Q8_0, Q4_K_M and Q8_4: the quant_delta row (prefill
     logit cosine and top-10 overlap against float32, projection bytes);
@@ -149,7 +162,12 @@ Phases, each of which fails the run:
     hidden by cosine, the first frame where greedy tokens part), K2 / K4 launches, us a
     launch, kernel ms a frame and frame ms beside the unfused figures of the
     run, `warmup` and three solo streams (TTFA, RTF, launches a decode
-    step; no eager frame or prefill), both models' graph memory;
+    step; no eager frame or prefill), both models' graph memory; the BF16
+    model written as a bundle and loaded with quant="Q8_0" (quantized on the
+    card): every int8 leaf and every leaf but the scales bitwise equal to
+    materialize's Q8_0, the scales' largest ulp distance printed; the Q8_4
+    model bundled (full float32) and loaded back: every leaf bitwise, greedy
+    codes equal, K1 / K2 / K4 launched;
 12. slice BF16: one x-vector request in BF16 (K1 only) and a B = 8 batch;
 13. slice 1.7B Q8_0: `from_pretrained("Qwen/Qwen3-TTS-12Hz-1.7B-CustomVoice",
    quant="Q8_0")`, `warmup()`, the prefill graphs check of 7b, the device
@@ -163,7 +181,12 @@ Phases, each of which fails the run:
    prefill), peak memory; a `mode: "custom"` and a `mode: "design"` SSE
    stream through the demo server over these weights (no eager frame or
    prefill, K1 and K2 launched); then
-   a 24-frame CustomVoice stream under torch.profiler, as in 7.
+   a 24-frame CustomVoice stream under torch.profiler, as in 7. After the
+   warmup, device init: `FQ3T_DEVICE_INIT=1 from_pretrained(...,
+   quant="Q8_0")` beside the host init's seconds: the same tree, shapes
+   and dtypes, constant leaves exact, every other leaf of >= 256 elements
+   with a std within 0.6-1.6x the host leaf's, one CustomVoice stream
+   (finite audio, K1 and K2 launched).
 
 Kernel launches are counted replay-aware: each wrapper counts its eager
 launches and those it records into a graph at capture; `engine.graphs`
@@ -1517,7 +1540,9 @@ def slice_phase(quant, n_requests, report, icl=False, tree=None, init_s=None):
         served = serve_phase(model, report, REPO / "build" / "chip_smoke_ref_4s.wav")
         phase("demo 0.6B Q8_0")
         demo = demo_phase(model, report, REPO / "build" / "chip_smoke_ref_4s.wav")
-        batch = {k: batch[k] + cont[k] + served[k] + demo[k] for k in batch}
+        phase("restart 0.6B Q8_0 from a deploy bundle")
+        restart = restart_phase(model, report)
+        batch = {k: batch[k] + cont[k] + served[k] + demo[k] + restart.get(k, 0) for k in batch}
     del model
     gc.collect()  # each slice's peak memory is its own
     torch.cuda.empty_cache()
@@ -1553,10 +1578,12 @@ def checkpoint_phase(report, tree, init_s):
     file_gb = (path / "model.safetensors").stat().st_size / 1e9
     n_tensors = len(st.read_header(path / "model.safetensors")[0])
     torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
     model = FasterQwen3TTS.from_pretrained(str(path), device="cuda", quant="Q8_0", strict=True)
     load_s = time.perf_counter() - t0
-    card_gb, card_peak_gb = torch.cuda.memory_allocated() / 1e9, torch.cuda.max_memory_allocated() / 1e9
+    card_gb = (torch.cuda.memory_allocated() - base) / 1e9  # what the load holds (the restart is held to it)
+    card_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     host_peak_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6  # kB: the process's peak so far
     cov = model.load_coverage
     full = all(int(v.split("/")[0]) == int(v.split("/")[1]) for k, v in cov.items()
@@ -1590,6 +1617,323 @@ def checkpoint_phase(report, tree, init_s):
         f"{compared} leaves bitwise equal to materialize of the same tree ({ref_s:.1f} s)")
     report["checkpoint_0.6B"] = row
     return model
+
+
+# -- the serving restart: deploy bundles, device quantization, device init --------------------------
+
+RESTART_SEED = 41  # the greedy x-vector stream held between the strict load and the restarted process
+_ITEMSIZE = {"bfloat16": 2, "float32": 4, "int8": 1, "uint8": 1}  # the dtypes a bundle's sections hold
+
+
+def _jax_writer_bytes(path) -> int:
+    """The bytes the JAX package's writer gives the bundle of this manifest
+    (sections in sorted dtype order, each 128-byte aligned); fails if a
+    section sits elsewhere in the file."""
+    meta = json.loads((Path(path) / "bundle.json").read_text())
+    offset = 0
+    for dt in sorted(meta["sections"]):
+        offset += (-offset) % 128
+        if meta["sections"][dt][0] != offset:
+            fail(f"bundle {path}: section {dt} at byte {meta['sections'][dt][0]}, the JAX writer puts it at {offset}")
+        offset += meta["sections"][dt][1] * _ITEMSIZE[dt]
+    return offset
+
+
+def write_bundle(model, path, compact):
+    """`model.save_deploy_bundle(path, compact_f32=compact)`, timed -> its record."""
+    import shutil
+
+    shutil.rmtree(path, ignore_errors=True)
+    t0 = time.perf_counter()
+    model.save_deploy_bundle(str(path), compact_f32=compact)
+    write_s = time.perf_counter() - t0
+    size, want = (Path(path) / "bundle.bin").stat().st_size, _jax_writer_bytes(path)
+    if size != want:
+        fail(f"bundle {path}: {size} bytes, the JAX writer would write {want}")
+    return {"gb": size / 1e9, "jax_writer_gb": want / 1e9, "write_s": write_s}
+
+
+def _max_ulps(a, b) -> int:
+    """The largest distance in float32 units of the last place between two tensors."""
+    import torch
+
+    def ordered(t):
+        i = t.float().contiguous().view(torch.int32).long()
+        return torch.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+    return int((ordered(a) - ordered(b)).abs().max()) if a.numel() else 0
+
+
+def _paths(node, prefix=""):
+    """(path, tensor) of every leaf of a tree, where it lies (dict keys sorted)."""
+    if isinstance(node, dict):
+        for k in sorted(node):
+            yield from _paths(node[k], f"{prefix}{k}/")
+    elif isinstance(node, (list, tuple)):
+        for i, v in enumerate(node):
+            yield from _paths(v, f"{prefix}{i}/")
+    else:
+        yield prefix[:-1], node
+
+
+def _leaf_pairs(a, b, what):
+    """The leaves of two port trees in one order; fails on another structure."""
+    fa, fb = dict(_paths(a)), dict(_paths(b))
+    if list(fa) != list(fb):
+        fail(f"{what}: the trees differ: {sorted(set(fa) ^ set(fb))[:6]}")
+    return [(k, fa[k], fb[k]) for k in fa]
+
+
+def restart_child(path):
+    """The restart phase's fresh process: `from_pretrained(<bundle>)`,
+    `warmup(first_chunk_size=4)`, one greedy x-vector stream; prints one
+    `RESTART {...}` line (load phases, card memory, codes, launches, the
+    epoch time of the first audio chunk)."""
+    import torch
+
+    from faster_qwen3_tts_tpu_torch.model import FasterQwen3TTS
+
+    if not torch.cuda.is_available():
+        fail("the restart needs the card")
+    t0 = time.perf_counter()
+    model = FasterQwen3TTS.from_pretrained(str(path), device="cuda")
+    load_s = time.perf_counter() - t0
+    card_gb = torch.cuda.memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    model.warmup(first_chunk_size=FIRST_CHUNK)
+    warmup_s = time.perf_counter() - t0
+    _reset_launches()
+    start = time.time()
+    req, codes = run_request(model, seed=RESTART_SEED, greedy=True)
+    launches = _read_launches()
+    jaxish = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "faster_qwen3_tts_tpu"))
+    if jaxish:
+        fail(f"the restarted process loaded jax or the JAX package: {jaxish[:8]}")
+    print("RESTART " + json.dumps({"load_s": load_s, "load_phases": model.load_phases, "card_gb": card_gb,
+                                   "warmup_s": warmup_s, "first_audio_epoch": start + req["ttfa_ms"] / 1000.0,
+                                   "request": req, "launches": launches, "codes": codes.tolist()}), flush=True)
+
+
+def restart_phase(model, report):
+    """The serving restart on the strictly loaded 0.6B Q8_0 model: its
+    bundles (full float32 and compact) written under build/, sizes and
+    seconds beside the JAX writer's size; a fresh process restarts from the
+    full bundle (`restart_child`) and must stream this model's greedy codes
+    exactly, with card memory within 1 % of the strict load's; the compact
+    bundle loaded here must hold every leaf's bf16 rounding (its greedy
+    codes are counted against this model's, not held). -> launches of the
+    restarted process's and the compact model's streams."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from faster_qwen3_tts_tpu_torch.model import FasterQwen3TTS
+
+    t_phase = time.perf_counter()
+    build = REPO / "build"
+    full, compact = build / "chip_smoke_bundle_0.6b", build / "chip_smoke_bundle_0.6b_compact"
+    files = {"full_f32": write_bundle(model, full, False), "compact": write_bundle(model, compact, True)}
+    for name, f in files.items():
+        log(f"restart 0.6B Q8_0 ({CARD}): {name} bundle {f['gb']:.3f} GB written in {f['write_s']:.1f} s "
+            f"(the JAX writer: {f['jax_writer_gb']:.3f} GB; predicted ~1.81 GB full, ~1.37 GB compact)")
+    _, want = run_request(model, seed=RESTART_SEED, greedy=True)
+    spawn = time.time()
+    proc = subprocess.run([sys.executable, str(REPO / "chip_smoke.py"), "--restart-from", str(full)],
+                          capture_output=True, text=True, timeout=600, cwd=REPO)
+    if proc.returncode != 0:
+        fail(f"the restart process exited {proc.returncode}: {proc.stderr[-3000:]}")
+    line = next((ln for ln in reversed(proc.stdout.splitlines()) if ln.startswith("RESTART ")), None)
+    if line is None:
+        fail(f"the restart process printed no RESTART line: {proc.stdout[-2000:]}")
+    child = json.loads(line[len("RESTART "):])
+    got = np.asarray(child["codes"])
+    to_audio_s = child["first_audio_epoch"] - spawn
+    strict = report["checkpoint_0.6B"]
+    log(f"restart 0.6B Q8_0 ({CARD}): fresh process to first audio {to_audio_s:.1f} s; from_pretrained(bundle) "
+        f"{child['load_s']:.2f} s (strict HF load of the same tree: {strict['load_s']:.1f} s; predicted <= 3 s), "
+        f"phases {child['load_phases']}; {child['card_gb']:.3f} GB on the card (strict load: "
+        f"{strict['card_gb']:.3f} GB); warmup {child['warmup_s']:.1f} s; stream TTFA "
+        f"{child['request']['ttfa_ms']:.1f} ms, {got.shape[0]} frames; launches {child['launches']}")
+    phases = child["load_phases"]
+    read_s = phases.get("weights_read", 0.0)
+    mb = phases["transfer_mb"]
+    log(f"restart 0.6B Q8_0 ({CARD}): read {mb / 1e3 / max(read_s, 1e-9):.2f} GB/s from the page cache "
+        f"(predicted >= 2), pinned copy and unpack {mb / 1e3 / max(phases['device_transfer'], 1e-9):.2f} GB/s "
+        f"(predicted >= 20 for the copy)")
+    if got.shape != want.shape or not (got == want).all():
+        fail(f"restart: the restarted process's greedy codes differ from the strict load's "
+             f"({got.shape} vs {want.shape})")
+    if abs(child["card_gb"] - strict["card_gb"]) > 0.01 * strict["card_gb"]:
+        fail(f"restart: {child['card_gb']:.3f} GB on the card after the bundle load, the strict load held "
+             f"{strict['card_gb']:.3f} GB")
+    if child["launches"]["K1"] == 0 or child["launches"]["K2"] == 0:
+        fail(f"restart: the restarted stream did not go through K1 and K2: {child['launches']}")
+
+    t0 = time.perf_counter()
+    cm = FasterQwen3TTS.from_pretrained(str(compact), device="cuda")
+    compact_load_s = time.perf_counter() - t0
+    n = 0
+    for key, a, b in _leaf_pairs(model.params, cm.params, "compact bundle"):
+        expect = a.to(torch.bfloat16).float() if a.dtype == torch.float32 else a
+        if b.dtype != a.dtype or not torch.equal(b, expect):
+            fail(f"compact bundle: {key} is not the bf16 rounding of the strict leaf")
+        n += 1
+    _reset_launches()
+    _, toks = run_request(cm, seed=RESTART_SEED, greedy=True)
+    launches = _read_launches()
+    if launches["K1"] == 0 or launches["K2"] == 0:
+        fail(f"compact: the stream did not go through K1 and K2: {launches}")
+    m = min(len(toks), len(want))
+    equal = int((toks[:m] == want[:m]).sum())
+    log(f"restart 0.6B Q8_0 compact ({CARD}): loaded in {compact_load_s:.2f} s ({cm.load_phases}); {n} leaves "
+        f"equal to the bf16 rounding of the strict leaves (scales too: not the model bit for bit); greedy codes "
+        f"equal to the strict model's: {equal}/{want.size} (reported, not held)")
+    compact_phases = cm.load_phases
+    del cm
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(full)
+    shutil.rmtree(compact)
+    phase_s = time.perf_counter() - t_phase
+    log(f"restart 0.6B Q8_0: phase {phase_s:.1f} s")
+    report["restart_0.6B_Q8_0"] = {"bundles": files, "child": {k: v for k, v in child.items() if k != "codes"},
+                                   "to_first_audio_s": to_audio_s, "codes_equal": True,
+                                   "compact": {"load_s": compact_load_s, "leaves": n, "codes_equal": equal,
+                                               "codes": int(want.size), "load_phases": compact_phases},
+                                   "phase_s": phase_s, "card": CARD}
+    return {k: child["launches"][k] + launches[k] for k in launches}
+
+
+def mixed_bundle_phase(model, report):
+    """The 0.6B Q8_4 model bundled (full float32) under build/ and loaded
+    back: every leaf bitwise, greedy codes equal the in-memory model's, K1,
+    K2 and K4 launched. -> launches of the bundle-loaded model's stream."""
+    import shutil
+
+    import torch
+
+    from faster_qwen3_tts_tpu_torch.model import FasterQwen3TTS
+
+    path = REPO / "build" / "chip_smoke_bundle_0.6b_q84"
+    f = write_bundle(model, path, False)
+    t0 = time.perf_counter()
+    bm = FasterQwen3TTS.from_pretrained(str(path), device="cuda")
+    load_s = time.perf_counter() - t0
+    pairs = _leaf_pairs(model.params, bm.params, "Q8_4 bundle")
+    for key, a, b in pairs:
+        if a.dtype != b.dtype or a.shape != b.shape or not torch.equal(a, b):
+            fail(f"Q8_4 bundle: {key} differs from the in-memory model's")
+    _, want = run_request(model, seed=RESTART_SEED, greedy=True)
+    _reset_launches()
+    _, got = run_request(bm, seed=RESTART_SEED, greedy=True)
+    launches = _read_launches()
+    if any(launches[k] == 0 for k in ("K1", "K2", "K4")):
+        fail(f"Q8_4 bundle: the stream did not go through K1, K2 and K4: {launches}")
+    if got.shape != want.shape or not (got == want).all():
+        fail("Q8_4 bundle: greedy codes differ from the in-memory model's")
+    log(f"restart 0.6B Q8_4 ({CARD}): bundle {f['gb']:.3f} GB (JAX writer {f['jax_writer_gb']:.3f} GB) written in "
+        f"{f['write_s']:.1f} s, loaded in {load_s:.2f} s ({bm.load_phases}); {len(pairs)} leaves bitwise; "
+        f"greedy codes equal ({got.shape[0]} frames); launches {launches}")
+    report["restart_0.6B_Q8_4"] = {"bundle": f, "load_s": load_s, "load_phases": bm.load_phases,
+                                   "leaves_bitwise": len(pairs), "launches": launches, "card": CARD}
+    del bm
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(path)
+    return launches
+
+
+def quantize_on_card_phase(host_quantized, bundle, report):
+    """The unquantized (BF16) bundle loaded with quant="Q8_0": quantized on
+    the card after the copy; every int8 leaf and every leaf that is not a
+    scale must equal the host quantization's (`host_quantized`, materialize
+    in Q8_0) bit for bit; the scales' largest distance in ulps is printed."""
+    import shutil
+
+    import torch
+
+    from faster_qwen3_tts_tpu_torch.model import FasterQwen3TTS
+
+    t0 = time.perf_counter()
+    qm = FasterQwen3TTS.from_pretrained(str(bundle), device="cuda", quant="Q8_0")
+    load_s = time.perf_counter() - t0
+    ulps, n_q = 0, 0
+    for key, a, b in _leaf_pairs(host_quantized, qm.params, "BF16 bundle quantized on the card"):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            fail(f"quantize on the card: {key} is {b.dtype} {tuple(b.shape)}, the host's {a.dtype} {tuple(a.shape)}")
+        if key.endswith("/1") and a.dtype == torch.float32 and a.dim() >= 2:  # QuantizedLinear.scale
+            ulps = max(ulps, _max_ulps(a, b))
+        elif not torch.equal(a, b):
+            fail(f"quantize on the card: {key} differs from the host quantization")
+        n_q += a.dtype == torch.int8
+    log(f"quantize on the card 0.6B BF16 bundle -> Q8_0 ({CARD}): loaded and quantized in {load_s:.2f} s "
+        f"({qm.load_phases}); {n_q} int8 leaves bitwise equal to the host quantization; scales' largest "
+        f"difference {ulps} ulp")
+    report["quantize_on_card_0.6B"] = {"load_s": load_s, "load_phases": qm.load_phases, "int8_leaves": n_q,
+                                       "scale_max_ulps": ulps, "card": CARD}
+    del qm
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(bundle)
+
+
+def device_init_phase(host_model, host_load_s, report):
+    """`FQ3T_DEVICE_INIT=1 from_pretrained(1.7B CustomVoice, quant="Q8_0")`:
+    the tree, shapes and dtypes of the host init's model, constant leaves
+    exact, each other leaf of >= 256 elements with a std within 0.6-1.6x
+    the host leaf's; then one CustomVoice stream (finite audio, K1 and K2
+    launched). -> launches of that stream."""
+    import os
+
+    import torch
+
+    from faster_qwen3_tts_tpu_torch.model import FasterQwen3TTS
+
+    os.environ["FQ3T_DEVICE_INIT"] = "1"
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dm = FasterQwen3TTS.from_pretrained(MODEL_17B, device="cuda", quant="Q8_0", seed=0)
+        load_s = time.perf_counter() - t0
+    finally:
+        del os.environ["FQ3T_DEVICE_INIT"]
+    n_const = n_random = 0
+    worst = (0.0, "")
+    for key, a, b in _leaf_pairs(host_model.params, dm.params, "device init"):
+        if a.dtype != b.dtype or a.shape != b.shape:
+            fail(f"device init: {key} is {b.dtype} {tuple(b.shape)}, the host init's {a.dtype} {tuple(a.shape)}")
+        flat = a.reshape(-1)
+        if flat.numel() and bool((flat == flat[0]).all()):
+            if not torch.equal(a, b):
+                fail(f"device init: the constant leaf {key} differs from the host init's")
+            n_const += 1
+        elif a.numel() >= 256:
+            ratio = float(b.float().std()) / max(float(a.float().std()), 1e-30)
+            if not 0.6 < ratio < 1.6:
+                fail(f"device init: {key} std {ratio:.3f}x the host init's")
+            worst = max(worst, (abs(math.log(ratio)), key))
+            n_random += 1
+    bundle_gb = sum(t.numel() * t.element_size() for _, t in _paths(host_model.params)) / 1e9
+    _reset_launches()
+    with greedy_predictor():
+        req, _ = run_request(dm, 38, method="generate_custom_voice_streaming", args=(TEXT, "aiden", "English"))
+    launches = _read_launches()
+    if launches["K1"] == 0 or launches["K2"] == 0:
+        fail(f"device init: the stream did not go through K1 and K2: {launches}")
+    log(f"device init 1.7B Q8_0 ({CARD}): FQ3T_DEVICE_INIT=1 from_pretrained {load_s:.2f} s ({dm.load_phases}) "
+        f"against the host init's {host_load_s:.1f} s; {n_const} constant leaves exact, {n_random} random leaves "
+        f"within 0.6-1.6x the host std (farthest {math.exp(worst[0]):.3f}x, {worst[1]}); a full-f32 bundle of "
+        f"this tree would hold {bundle_gb:.3f} GB (predicted ~3.17); stream {req['frames']} frames, TTFA "
+        f"{req['ttfa_ms']:.1f} ms; launches {launches}")
+    report["device_init_1.7B_Q8_0"] = {"load_s": load_s, "host_init_load_s": host_load_s,
+                                       "load_phases": dm.load_phases, "constant_leaves": n_const,
+                                       "random_leaves": n_random, "bundle_gb": bundle_gb, "request": req,
+                                       "launches": launches, "card": CARD}
+    del dm
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
 
 
 @contextlib.contextmanager
@@ -1697,6 +2041,13 @@ def slice_int4_phase(report, tree):
         log(f"quant_delta 0.6B {quant} ({CARD}): prefill logits against float32: cosine {cos:.6f}, top-10 "
             f"overlap {top}/10; projections {proj_gb:.3f} GB, {card_gb:.2f} GB on the card, materialize "
             f"{materialize_s:.1f} s")
+        if quant == "BF16":  # its bundle is quantized on the card at Q8_0, against Q8_0's host quantization
+            bf16_bundle = REPO / "build" / "chip_smoke_bundle_0.6b_bf16"
+            rec = write_bundle(model, bf16_bundle, False)
+            log(f"restart 0.6B BF16 ({CARD}): bundle {rec['gb']:.3f} GB written in {rec['write_s']:.1f} s")
+        elif quant == "Q8_0":
+            phase("quantize a BF16 bundle on the card")
+            quantize_on_card_phase(params, bf16_bundle, report)
         if mode != "none":
             t0 = time.perf_counter()
             model.warmup(chunk_sizes=(8, 12), first_chunk_size=FIRST_CHUNK)
@@ -1727,6 +2078,8 @@ def slice_int4_phase(report, tree):
                    "decode_steps": steps["steps"], "launches_per_step": per_step, "card_gb": card_gb,
                    "projection_gb": proj_gb, "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
             if mode == "mixed":
+                phase("restart 0.6B Q8_4 from a deploy bundle")
+                launches = {k: launches[k] + n for k, n in mixed_bundle_phase(model, report).items()}
                 _, tok_eng = run_request(model, seed=3, greedy=True, frames=16)
                 par, tok_par = run_request(model, seed=3, greedy=True, frames=16, voice_clone_prompt=voice,
                                            parity_mode=True)
@@ -2091,6 +2444,8 @@ def slice_17b_phase(report):
     warmup_s = time.perf_counter() - t0
     log(f"slice 1.7B Q8_0 ({CARD}): loaded in {load_s:.1f} s ({weights_gb:.2f} GB on the card), warmup "
         f"{warmup_s:.1f} s ({model.warmup_phases})")
+    phase("device init 1.7B Q8_0")
+    device_init = device_init_phase(model, load_s, report)
     design = FasterQwen3TTS(model.params, get_config("1.7b-design"), model.tokenizer)
     base = FasterQwen3TTS(model.params, get_config("1.7b"), model.tokenizer)
     prefill_graphs_phase(model, "1.7B Q8_0", report)
@@ -2145,7 +2500,7 @@ def slice_17b_phase(report):
     if launches["K1"] == 0 or launches["K2"] == 0:
         fail(f"the 1.7B requests did not go through both kernels: {launches}")
     demo = demo_17b_phase(model, design, report)
-    launches = {k: launches[k] + demo[k] for k in launches}
+    launches = {k: launches[k] + demo[k] + device_init[k] for k in launches}
     with greedy_predictor():
         toks = [run_request(model, seed, greedy=True, frames=24, method=f"{cv}_streaming",
                             args=(TEXT, "dylan", "Chinese"))[1] for seed in (7, 8)]
@@ -3039,10 +3394,16 @@ def main() -> None:
     parser.add_argument("--report", type=Path, help="write every measurement to this JSON file")
     parser.add_argument("--kernels-only", action="store_true",
                         help="stop after the build, kernel and probe phases (prints no ok line)")
+    parser.add_argument("--restart-from", type=Path, metavar="BUNDLE",
+                        help="the restart phase's fresh process: load BUNDLE, warm up, stream once, print "
+                             "one RESTART line (no ok line)")
     args = parser.parse_args()
     if not (REPO / "faster_qwen3_tts_tpu_torch" / "csrc").is_dir():
         fail("faster_qwen3_tts_tpu_torch/ is not beside chip_smoke.py: run it from the repository")
     sys.path.insert(0, str(REPO))
+    if args.restart_from:
+        restart_child(args.restart_from)
+        return
     import torch
 
     if not torch.cuda.is_available():

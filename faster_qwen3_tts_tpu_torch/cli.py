@@ -1,4 +1,4 @@
-"""Command line of the port: clone | custom | design | serve.
+"""Command line of the port: clone | custom | design | serve | bundle.
 
 The JAX package's CLI (`faster_qwen3_tts_tpu/cli.py`) over this port:
 
@@ -7,15 +7,19 @@ The JAX package's CLI (`faster_qwen3_tts_tpu/cli.py`) over this port:
     python -m faster_qwen3_tts_tpu_torch.cli custom "Hello." --speaker aiden --model <1.7B CustomVoice>
     python -m faster_qwen3_tts_tpu_torch.cli design "Hello." --instruct "A calm low voice." ...
     python -m faster_qwen3_tts_tpu_torch.cli serve --ref-audio ref.wav --xvec-only   # stdin REPL
+    python -m faster_qwen3_tts_tpu_torch.cli bundle OUT_DIR --model <dir or id> --quant Q8_0
 
-`--model` takes an own-format or HF checkpoint directory (strict unless
-`--no-strict`) or a model id, which random-inits. `--device` defaults to
+`--model` takes a deploy bundle, an own-format or HF checkpoint directory
+(strict unless `--no-strict`) or a model id, which random-inits. `bundle`
+writes the loaded model (at `--quant`) as a deploy bundle, float32 leaves
+stored as bfloat16 unless `--full-f32`; `--model OUT_DIR` then restarts
+from it. `--device` defaults to
 `cuda`. `--streaming` drains the streaming generator into one wav and prints
 the time to first audio and the RTF. `--backend native` loads
 `NativeQwen3TTS` (the voice-reference disk cache in `--ref-cache-dir`);
 `--backend jax`, the JAX package's default, selects this engine. `--fuse-qkv`
-loads the fused projection layout. Not here: the JAX package's `--attn`,
-`--aot-cache` and `bundle` (TPU machinery).
+loads the fused projection layout. Not here: the JAX package's `--attn`
+and `--aot-cache` (TPU machinery).
 """
 from __future__ import annotations
 
@@ -35,7 +39,7 @@ logger = logging.getLogger(__name__)
 
 def _add_global_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--model", default="Qwen/Qwen3-TTS-12Hz-0.6B-Base",
-                   help="model id (random init), own-format checkpoint dir, or HF checkpoint dir")
+                   help="model id (random init), deploy bundle, own-format checkpoint dir, or HF checkpoint dir")
     p.add_argument("--quant", default="BF16",
                    help="BF16 (default), Q8_0 (int8), Q4_K_M (int4) or Q8_4 (talker int8, predictor int4)")
     p.add_argument("--dtype", default="bf16", choices=["bf16", "fp16", "fp32"])
@@ -200,6 +204,17 @@ def cmd_serve(args) -> int:
     return 0
 
 
+def cmd_bundle(args) -> int:
+    """Write a deploy bundle from any loadable checkpoint or model id at
+    `--quant`, so that a serving restart skips the name mapping and the
+    quantization."""
+    model = _load_model(args)
+    model.save_deploy_bundle(args.out_dir, compact_f32=not args.full_f32)
+    print(f"deploy bundle written to {args.out_dir} "
+          f"(quant={args.quant}, restart via from_pretrained({args.out_dir!r}))")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(prog="faster-qwen3-tts-torch",
                                  description="Qwen3-TTS inference on PyTorch / CUDA")
@@ -240,6 +255,15 @@ def build_parser() -> argparse.ArgumentParser:
     ps.add_argument("--instruct", default=None)
     ps.add_argument("--outdir", default="outputs")
     ps.set_defaults(func=cmd_serve)
+
+    pb = sub.add_parser("bundle", help="write a deploy bundle (packed, optionally quantized weights): a restart "
+                                       "is one read and one copy to the card a dtype")
+    _add_global_flags(pb)
+    pb.add_argument("out_dir", help="bundle directory to create")
+    pb.add_argument("--full-f32", action="store_true",
+                    help="keep float32 leaves at full width (default: stored as bf16 and upcast at load, exact "
+                         "for bf16-sourced checkpoints)")
+    pb.set_defaults(func=cmd_bundle)
     return ap
 
 

@@ -28,7 +28,9 @@ captured at its first use. The native backend's cached-reference kwargs
 (`ref_spk`, `ref_rvq`, `ref_spk_emb`, `ref_codes`) are taken by
 `native_backend.NativeQwen3TTS` (`from_pretrained(backend="native")`); this
 class rejects them, as the JAX package's does. `from_pretrained(...,
-fuse_qkv=True)` loads the fused projection layout.
+fuse_qkv=True)` loads the fused projection layout. `save_deploy_bundle`
+writes the parameters as a deploy bundle, which `from_pretrained` loads back
+as a serving restart.
 """
 from __future__ import annotations
 
@@ -171,6 +173,7 @@ class FasterQwen3TTS:
         self._warmed_up = False
         self._voice_prompt_cache: Dict[Any, Any] = {}
         self._voice_extractor = None
+        self._source_path: Optional[str] = None  # the checkpoint directory, for save_deploy_bundle
 
     @classmethod
     def from_pretrained(
@@ -193,14 +196,21 @@ class FasterQwen3TTS:
         """Load a checkpoint directory, or random-init a published geometry.
         The parameters are the JAX package's, in its order.
 
-        model_name: a directory in the own format (`weights.save_pretrained`:
+        model_name: a deploy bundle directory (`save_deploy_bundle`, or the
+        JAX package's: bundle.bin + bundle.json; its leaves keep the dtypes
+        they were saved in, so `dtype` is not read; a quantized bundle takes
+        quant "none" or its own mode and raises `ValueError` on another, an
+        unquantized one is quantized on the device after the copy), a
+        directory in the own format (`weights.save_pretrained`:
         model.safetensors with '/' keys + config.json), a directory of
         upstream HF safetensors (+ config.json; strict unless strict=False:
         a missing or mismatched tensor raises `weights.StrictLoadError`, and
         so does a directory with no safetensors at all), or a model id /
-        preset name (`config.get_config`), which random-inits from `seed`.
-        The tokenizer is read from the directory; without its assets, or
-        without `transformers` to read them, the byte tokenizer is used and
+        preset name (`config.get_config`), which random-inits from `seed`:
+        on the host, or with `FQ3T_DEVICE_INIT=1` in the environment on the
+        device (`weights.init_all_device`: other values, the same tree),
+        quantized there. The tokenizer is read from the directory; without
+        its assets, or without `transformers` to read them, the byte tokenizer is used and
         a warning says so. Nothing is downloaded: `cache_dir` and
         `local_files_only` are accepted and not read, as in the JAX package.
 
@@ -219,9 +229,12 @@ class FasterQwen3TTS:
         (default False), the fused projection layout of the JAX package's
         `FQ3T_FUSE_QKV` (`quant.fuse_layer_weights`, applied after
         quantization), and `voice_ref_cache_dir` (native backend); any other
-        key is ignored with a warning. The model's `load_phases` holds the
-        seconds of weights_read, quantize, device_transfer (and fuse), and
-        `load_coverage` an HF checkpoint's per-submodel coverage."""
+        key is ignored with a warning; a bundle keeps its saved layout, so
+        `fuse_qkv` on one only warns. The model's `load_phases` holds the
+        seconds of weights_read, quantize, device_transfer (and fuse; for a
+        bundle also pin, the pinned buffer's allocation, and transfer_mb, the
+        megabytes copied), and `load_coverage` an HF checkpoint's
+        per-submodel coverage."""
         if backend == "native":
             from .native_backend import NativeQwen3TTS
 
@@ -265,7 +278,18 @@ class FasterQwen3TTS:
 
         is_dir = os.path.isdir(model_name)
         coverage: Dict[str, str] = {}
-        if is_dir and weights_lib.is_own_checkpoint(model_name):
+        bundle_mode = tree = params = None
+        if is_dir and weights_lib.is_deploy_bundle(model_name):
+            # the serving restart: one read into pinned memory, one copy a
+            # dtype section; the leaves keep the dtypes they were saved in
+            blobs, manifest, config, bundle_mode = weights_lib.read_deploy_bundle(
+                model_name, pin_memory=device.type == "cuda", mark=mark)
+            load_phases["transfer_mb"] = round(sum(b.numel() * b.element_size() for b in blobs.values()) / 1e6, 1)
+            if bundle_mode != "none" and mode not in ("none", bundle_mode):
+                # re-quantizing quantized weights would be lossy
+                raise ValueError(f"deploy bundle is quantized as {bundle_mode!r}; requested quant={quant!r} "
+                                 "conflicts")
+        elif is_dir and weights_lib.is_own_checkpoint(model_name):
             tree, config = weights_lib.load_pretrained(model_name)
         elif is_dir:
             config = get_config(model_name)
@@ -276,7 +300,11 @@ class FasterQwen3TTS:
             config = get_config(model_name)
             logger.warning("No local checkpoint for %s; using random-initialized weights (seed %d).",
                            model_name, seed)
-            tree = weights_lib.init_numpy(config, seed)
+            if os.environ.get("FQ3T_DEVICE_INIT", "0") == "1":
+                # drawn on the device (another generator than the host init's, as in JAX)
+                params = weights_lib.init_all_device(config, seed, dtype, device)
+            else:
+                tree = weights_lib.init_numpy(config, seed)
         tokenizer = PromptTokenizer(load_tokenizer(model_name if is_dir else None))
         if is_dir and isinstance(tokenizer.base, ByteTokenizer):
             has_assets = any(os.path.exists(os.path.join(model_name, f))
@@ -287,14 +315,29 @@ class FasterQwen3TTS:
                 "its tokenizer assets need `transformers`, which is not installed" if has_assets
                 else "no tokenizer assets (tokenizer.json / vocab.json)")
         mark("weights_read")
-        params = weights_lib.materialize(tree, dtype, mode, device, mark=mark)
-        del tree
-        if device.type == "cuda":
-            torch.cuda.synchronize(device)
-        mark("device_transfer")
+        if tree is not None:
+            params = weights_lib.materialize(tree, dtype, mode, device, mark=mark)
+            del tree
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            mark("device_transfer")
+        else:
+            if bundle_mode is not None:
+                params = weights_lib._device_unpack(blobs, manifest, device)  # synchronizes
+                del blobs
+                mark("device_transfer")
+            if mode != "none" and bundle_mode in (None, "none"):
+                # an unquantized bundle or a device init: quantized on the device
+                params = quant_lib.quantize_model_params(params, mode)
+                if device.type == "cuda":
+                    torch.cuda.synchronize(device)
+                mark("quantize")
         # after quantization, as the JAX package fuses; the unfused leaves go as each group is made (a
         # checkpoint saved fused is already in that layout)
-        if fuse_qkv and "wq" in params["talker"]["layers"]:
+        if fuse_qkv and bundle_mode is not None:
+            logger.warning("fuse_qkv=True on a deploy bundle is ignored: a bundle keeps the layout it was "
+                           "saved in.")
+        elif fuse_qkv and "wq" in params["talker"]["layers"]:
             for sub in ("talker", "predictor"):
                 quant_lib._fuse_layers(params[sub]["layers"])
             if device.type == "cuda":
@@ -303,7 +346,35 @@ class FasterQwen3TTS:
         model = cls(params, config, tokenizer, max_seq_len=max_seq_len)
         model.load_phases = load_phases
         model.load_coverage = coverage  # per submodel, for an HF checkpoint
+        model._source_path = model_name if is_dir else None
         return model
+
+    def save_deploy_bundle(self, path, compact_f32: bool = True) -> None:
+        """Write this model's parameters as they are now (quantized or not,
+        fused or not) as a deploy bundle (`weights.save_deploy_bundle`, in
+        the JAX layouts), so that `from_pretrained(path)` restarts with one
+        read and one copy a section: no name mapping, no host quantization.
+        compact_f32 stores the float32 leaves as bfloat16: exact for leaves
+        that came from bfloat16 (a real checkpoint's codec), not for random
+        float32 leaves or quantization scales. The tokenizer assets of the
+        directory the model came from are copied beside it."""
+        import shutil
+
+        host = weights_lib.host_tree(self.params)
+        weights_lib.save_deploy_bundle(path, host, self.config, quant_mode=quant_lib.infer_quant_mode(host),
+                                       compact_f32=compact_f32)
+        del host
+        src = self._source_path
+        copied = 0
+        if src and os.path.isdir(src):
+            for f in ("tokenizer.json", "tokenizer_config.json", "vocab.json", "merges.txt",
+                      "special_tokens_map.json"):
+                if os.path.exists(os.path.join(src, f)):
+                    shutil.copy2(os.path.join(src, f), os.path.join(path, f))
+                    copied += 1
+        if copied == 0:
+            logger.warning("save_deploy_bundle(%s): no tokenizer assets to copy (source: %r); "
+                           "from_pretrained on this bundle will use the byte tokenizer.", path, src)
 
     def warmup(self, prefill_len: int = 100, chunk_sizes: Optional[Tuple[int, ...]] = None,
                first_chunk_size: Optional[int] = None,

@@ -4,7 +4,10 @@ K2 and K4.
 Counterpart of faster_qwen3_tts_tpu/ops/quant.py: Q8_0 (int8, per-output-
 channel absmax), Q4_K_M (int4, group-wise scale and min, two nibbles a
 byte) and Q8_4 (talker int8, predictor int4), computed by the same host
-numpy code, so both packages hold bit-identical quantized weights. `dot`
+numpy code, so both packages hold bit-identical quantized weights (a tree
+of tensors, after a bundle unpack or a device init, is quantized on its
+device by `quantize_linear_torch` / `quantize_linear4_torch`, the same
+bits). `dot`
 routes by shape: a product with at most `GEMV_MAX_ROWS` rows (every decode
 projection) goes to the int8 GEMV kernel K2 or the int4 GEMV kernel K4; a
 larger one (the talker prefill, prompt text projection) is a plain matrix
@@ -84,6 +87,45 @@ def quantize_linear4(w, group: int = 32) -> QuantizedLinear4:
     return QuantizedLinear4(packed=packed, scale=scale.astype(np.float32), wmin=wmin.astype(np.float32))
 
 
+def _f32(x: float, device) -> torch.Tensor:
+    """A float32 divisor on the dividend's device: CUDA multiplies by the
+    reciprocal of a Python or CPU scalar, which can miss the quotient by an
+    ulp; a device tensor is divided by."""
+    return torch.tensor(x, dtype=torch.float32, device=device)
+
+
+def quantize_linear_torch(w: torch.Tensor) -> QuantizedLinear:
+    """`quantize_linear` on a tensor, on the tensor's device (the JAX
+    package's `quantize_linear_jnp`): the same float32 arithmetic (IEEE
+    division, round half to even, the 1e-12 floor), so `q` and `scale` are
+    the numpy version's bit for bit."""
+    wf = w.float()
+    scale = torch.clamp_min(wf.abs().amax(dim=-2, keepdim=True) / _f32(127.0, w.device), 1e-12)
+    t = wf / scale
+    del wf
+    q = t.round_().clamp_(-127, 127).to(torch.int8)
+    return QuantizedLinear(q=q, scale=scale)
+
+
+def quantize_linear4_torch(w: torch.Tensor, group: int = 32) -> QuantizedLinear4:
+    """`quantize_linear4` on a tensor, on the tensor's device (the JAX
+    package's `quantize_linear4_jnp`, plus the numpy version's one group
+    for a layer whose input width is not a multiple of `group`); bit for bit
+    the numpy version's."""
+    wf = w.float()
+    I, O = wf.shape[-2], wf.shape[-1]
+    if I % group:
+        group = I  # tiny layers: one group
+    g = wf.reshape(*wf.shape[:-2], I // group, group, O)
+    wmin = g.amin(dim=-2)  # [..., n_groups, O]
+    scale = torch.clamp_min((g.amax(dim=-2) - wmin) / _f32(15.0, w.device), 1e-12)
+    t = (g - wmin[..., None, :]) / scale[..., None, :]
+    del wf, g
+    q = t.round_().clamp_(0, 15).to(torch.uint8).reshape(*w.shape[:-2], I, O)
+    packed = (q[..., 0::2, :] << 4) | q[..., 1::2, :]
+    return QuantizedLinear4(packed=packed, scale=scale, wmin=wmin)
+
+
 def dequantize(w) -> torch.Tensor:
     """QuantizedLinear / QuantizedLinear4 / plain weight -> float32 tensor on
     the weight's device (the parity path, quality checks); the JAX package's
@@ -109,14 +151,20 @@ _LAYER_WEIGHTS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
 # term while the talker stays int8
 _MODES = {"int8": (quantize_linear, quantize_linear), "int4": (quantize_linear4, quantize_linear4),
           "mixed": (quantize_linear, quantize_linear4)}
+_TORCH_MODES = {"int8": (quantize_linear_torch, quantize_linear_torch),
+                "int4": (quantize_linear4_torch, quantize_linear4_torch),
+                "mixed": (quantize_linear_torch, quantize_linear4_torch)}
 
 
 def quantize_model_params(params: dict, mode: str = "int8") -> dict:
-    """Quantize the talker and predictor projections of a host numpy tree:
-    mode "int8" (Q8_0), "int4" (Q4_K_M) or "mixed" (Q8_4). Embeddings, norms,
-    the speaker projection and the codec keep their dtype, as in the JAX
-    package."""
-    quantize_talker, quantize_pred = _MODES[mode]
+    """Quantize the talker and predictor projections: mode "int8" (Q8_0),
+    "int4" (Q4_K_M) or "mixed" (Q8_4). A host numpy tree is quantized on the
+    host; a tree of tensors (the port's, after a bundle unpack or a device
+    init) on its tensors' device by the torch quantizers, with the same
+    bits. Embeddings, norms, the speaker projection and the codec keep their
+    dtype, as in the JAX package."""
+    on_device = isinstance(params["talker"]["codec_head"], torch.Tensor)
+    quantize_talker, quantize_pred = (_TORCH_MODES if on_device else _MODES)[mode]
 
     def quant_layers(layers: dict, quantize) -> dict:
         new = dict(layers)

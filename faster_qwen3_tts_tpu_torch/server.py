@@ -567,7 +567,7 @@ def warm(model, continuous: int = 0, batch: int = 1) -> None:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description="OpenAI-compatible TTS server over the PyTorch port")
     ap.add_argument("--model", default="Qwen/Qwen3-TTS-12Hz-0.6B-Base",
-                    help="model id (random init), own-format checkpoint dir, or HF checkpoint dir")
+                    help="model id (random init), deploy bundle, own-format checkpoint dir, or HF checkpoint dir")
     ap.add_argument("--quant", default="BF16",
                     help="BF16 (default), Q8_0 (int8), Q4_K_M (int4) or Q8_4 (talker int8, predictor int4)")
     ap.add_argument("--device", default="cuda")

@@ -25,6 +25,14 @@ ends in the same `materialize`:
 - `params_from_numpy(tree, device)` also takes trees made by the JAX package
   (`weights.init_all(cfg, device_put=False)`, optionally quantized);
   bfloat16 leaves of the JAX package (ml_dtypes) convert bit for bit.
+  `host_tree` is its inverse (the JAX layouts, CPU tensors, bf16 kept).
+- Deploy bundles, the JAX package's format byte for byte:
+  `save_deploy_bundle` / `is_deploy_bundle` / `read_deploy_bundle` (into
+  pinned memory) / `load_deploy_bundle`; `_device_unpack` is the device
+  half (one copy a dtype section, one allocation a leaf) and
+  `pack_transfer` ships a host tree the same way.
+- `init_all_device(cfg, seed, dtype, device)`: random init drawn on the
+  device from the sentinel skeleton (the JAX package's `init_all_device`).
 
 Files are read and written by `utils.safetensors`, which needs neither the
 `safetensors` package nor ml_dtypes.
@@ -281,6 +289,8 @@ def encoder_dims(cfg: CodecConfig):
 
 
 def _to_tensor(a) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):  # a leaf of `host_tree`
+        return a
     a = np.asarray(a)
     if a.dtype.name == "bfloat16":  # ml_dtypes leaf of the JAX package
         return torch.from_numpy(np.ascontiguousarray(a).view(np.int16)).view(torch.bfloat16)
@@ -313,30 +323,41 @@ def _trans_conv_weight(w: torch.Tensor) -> torch.Tensor:
     return w.flip(0).permute(1, 2, 0).contiguous()
 
 
-def _codec_layout(codec: dict) -> dict:
-    """The one place where codec conv weights change layout (see models/codec.py)."""
+def _jax_conv_weight(w: torch.Tensor) -> torch.Tensor:
+    """Inverse of `_conv_weight`: torch conv1d [Cout, Cin/groups, K] -> JAX [K, Cin/groups, Cout]."""
+    return w.permute(2, 1, 0).contiguous()
+
+
+def _jax_trans_conv_weight(w: torch.Tensor) -> torch.Tensor:
+    """Inverse of `_trans_conv_weight`: torch [Cin, Cout, K] -> JAX [K, Cin, Cout], unflipped."""
+    return w.permute(2, 0, 1).flip(0).contiguous()
+
+
+def _codec_layout(codec: dict, conv=_conv_weight, tconv=_trans_conv_weight) -> dict:
+    """The one place where codec conv weights change layout (see models/codec.py);
+    with the `_jax_*` transforms, the way back."""
     out = dict(codec)
     out["upsample"] = [
-        {**st, "up_w": _trans_conv_weight(st["up_w"]),
-         "convnext": {**st["convnext"], "dw_w": _conv_weight(st["convnext"]["dw_w"])}}
+        {**st, "up_w": tconv(st["up_w"]),
+         "convnext": {**st["convnext"], "dw_w": conv(st["convnext"]["dw_w"])}}
         for st in codec["upsample"]
     ]
     out["blocks"] = [
-        {**blk, "up_w": _trans_conv_weight(blk["up_w"]),
-         "units": [{**u, "c1_w": _conv_weight(u["c1_w"]), "c2_w": _conv_weight(u["c2_w"])}
+        {**blk, "up_w": tconv(blk["up_w"]),
+         "units": [{**u, "c1_w": conv(u["c1_w"]), "c2_w": conv(u["c2_w"])}
                    for u in blk["units"]]}
         for blk in codec["blocks"]
     ]
-    out["dec_in_w"] = _conv_weight(codec["dec_in_w"])
-    out["dec_out_w"] = _conv_weight(codec["dec_out_w"])
+    out["dec_in_w"] = conv(codec["dec_in_w"])
+    out["dec_out_w"] = conv(codec["dec_out_w"])
     return out
 
 
-def _speaker_encoder_layout(spk: dict) -> dict:
+def _speaker_encoder_layout(spk: dict, conv=_conv_weight, tconv=None) -> dict:
     """TDNN conv weights {"w": [K, Cin, Cout]} -> [Cout, Cin, K]; the (w, b)
     linears keep their [Cin, Cout] layout."""
     def tdnn(node):
-        return {**node, "w": _conv_weight(node["w"])}
+        return {**node, "w": conv(node["w"])}
 
     out = {}
     for name, node in spk.items():
@@ -348,20 +369,20 @@ def _speaker_encoder_layout(spk: dict) -> dict:
     return out
 
 
-def _codec_encoder_layout(enc: dict) -> dict:
+def _codec_encoder_layout(enc: dict, conv=_conv_weight, tconv=None) -> dict:
     """Every conv weight of the codec encoder -> [Cout, Cin/groups, K]."""
     out = dict(enc)
-    out["enc_in_w"] = _conv_weight(enc["enc_in_w"])
-    out["enc_mid_w"] = _conv_weight(enc["enc_mid_w"])
+    out["enc_in_w"] = conv(enc["enc_in_w"])
+    out["enc_mid_w"] = conv(enc["enc_mid_w"])
     out["blocks"] = [
-        {**blk, "down_w": _conv_weight(blk["down_w"]),
-         "units": [{**u, "c1_w": _conv_weight(u["c1_w"]), "c2_w": _conv_weight(u["c2_w"])}
+        {**blk, "down_w": conv(blk["down_w"]),
+         "units": [{**u, "c1_w": conv(u["c1_w"]), "c2_w": conv(u["c2_w"])}
                    for u in blk["units"]]}
         for blk in enc["blocks"]
     ]
     out["downsample"] = [
-        {**st, "down_w": _conv_weight(st["down_w"]),
-         "convnext": {**st["convnext"], "dw_w": _conv_weight(st["convnext"]["dw_w"])}}
+        {**st, "down_w": conv(st["down_w"]),
+         "convnext": {**st["convnext"], "dw_w": conv(st["convnext"]["dw_w"])}}
         for st in enc["downsample"]
     ]
     return out
@@ -371,15 +392,33 @@ _LAYOUTS = {"codec": _codec_layout, "speaker_encoder": _speaker_encoder_layout,
             "codec_encoder": _codec_encoder_layout}
 
 
-def params_from_numpy(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
-    """Host tree (numpy leaves, QuantizedLinear / QuantizedLinear4 nodes of
-    either package) -> the port's tree on `device` (the card unless the
-    caller asks for "cpu"). Conv weights of the codec and of the two
-    reference-audio encoders change layout here."""
-    out = _convert(tree, device)
+def _port_layouts(tree: Dict[str, Any]) -> Dict[str, Any]:
+    """The JAX layouts -> the port's, on the leaves' device."""
+    out = dict(tree)
     for name, layout in _LAYOUTS.items():
         if name in out:
             out[name] = layout(out[name])
+    return out
+
+
+def params_from_numpy(tree: Dict[str, Any], device="cuda") -> Dict[str, Any]:
+    """Host tree (numpy leaves, QuantizedLinear / QuantizedLinear4 nodes of
+    either package, or the CPU tensors of `host_tree`) -> the port's tree on
+    `device` (the card unless the caller asks for "cpu"). Conv weights of
+    the codec and of the two reference-audio encoders change layout here."""
+    return _port_layouts(_convert(tree, device))
+
+
+def host_tree(params: Dict[str, Any]) -> Dict[str, Any]:
+    """The inverse of `params_from_numpy`: the port's tree (on any device)
+    -> a host tree in the JAX layouts whose leaves are CPU tensors of the
+    same dtypes (bfloat16 stays bfloat16), QuantizedLinear(4) nodes kept,
+    fused `wqkv` / `w_gateup` leaves kept under their names.
+    `params_from_numpy(host_tree(p))` equals `p` bit for bit."""
+    out = _to_device(params, "cpu")
+    for name, layout in _LAYOUTS.items():
+        if name in out:
+            out[name] = layout(out[name], conv=_jax_conv_weight, tconv=_jax_trans_conv_weight)
     return out
 
 
@@ -1037,12 +1076,10 @@ def _finalize(params: Dict[str, Any], skeleton_ids: set, dtype, seed: int = 0) -
             if id(leaf) not in skeleton_ids:
                 return leaf  # imported: never read back
             a = np.asarray(leaf)
-            v = float(abs(np.float32(a.flat[0]))) if a.size else 0.0
-            if sub in ("talker", "predictor") and dtype != torch.float32:
-                v = abs(torch.tensor(v, dtype=torch.float32).to(dtype).float().item())
-            if not 0.0 < v < 1e-20:
+            scale = _sentinel_scale(a, sub, dtype)
+            if scale == 0.0:
                 return leaf  # a constant leaf (ones, zeros, fills)
-            return host.standard_normal(a.shape, dtype=np.float32) * (v / _INIT_SENTINEL)
+            return host.standard_normal(a.shape, dtype=np.float32) * scale
         return fn
 
     return {sub: _tree_map(regen(sub), params[sub]) for sub in sorted(params)}
@@ -1207,3 +1244,302 @@ def export_hf_layout(params: Dict[str, Any], cfg: Qwen3TTSConfig, path) -> None:
 
     os.makedirs(path, exist_ok=True)
     st.save_file(out, os.path.join(path, "model.safetensors"))
+
+
+# -- random init on the device ------------------------------------------------------------------------
+
+
+def _sentinel_scale(leaf: np.ndarray, sub: str, dtype) -> float:
+    """The init scale a skeleton leaf encodes, read back as the JAX package
+    reads it (the talker and predictor skeletons are built in `dtype`, so
+    their sentinels are rounded to it); 0.0 for a constant leaf (ones,
+    zeros, fills), which never holds 0 < |x| < 1e-20."""
+    v = float(abs(np.float32(leaf.flat[0]))) if leaf.size else 0.0
+    if sub in ("talker", "predictor") and dtype != torch.float32:
+        v = abs(torch.tensor(v, dtype=torch.float32).to(dtype).float().item())
+    return v / _INIT_SENTINEL if 0.0 < v < 1e-20 else 0.0
+
+
+def init_all_device(cfg: Qwen3TTSConfig, seed: int = 0, dtype=torch.bfloat16, device="cuda") -> Dict[str, Any]:
+    """Random init of talker, predictor and codec drawn on `device` (the
+    card unless the caller asks for "cpu"; the JAX package's
+    `init_all_device`): the host builds the sentinel skeleton only
+    (milliseconds), and every random leaf is drawn by a `torch.Generator`
+    of `device` seeded with `seed`, at the init scale its sentinel encodes,
+    one leaf at a time (its float32 draw is rounded to `dtype` and dropped
+    before the next). Constant leaves are exact. The tree, its shapes and
+    dtypes and the port's layouts are those of `init_all(cfg, seed, dtype)`;
+    the random values are not (another generator), as in the JAX package."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' requested but torch.cuda.is_available() is False")
+    rng = _SentinelRng()
+    skeleton = {
+        "talker": _init_talker(seed, cfg.talker, rng=rng),
+        "predictor": _init_predictor(seed + 1000, cfg.predictor, cfg.talker.hidden_size, rng=rng),
+        "codec": _init_codec(seed + 2000, cfg.codec, rng=rng),
+    }
+    gen = torch.Generator(device).manual_seed(seed)
+
+    def draw(sub):
+        leaf_dtype = dtype if sub in ("talker", "predictor") else torch.float32
+
+        def fn(leaf):
+            a = np.asarray(leaf)
+            scale = _sentinel_scale(a, sub, dtype)
+            if scale == 0.0:
+                return torch.from_numpy(np.ascontiguousarray(a)).to(device).to(leaf_dtype)
+            x = torch.randn(a.shape, generator=gen, dtype=torch.float32, device=device)
+            return x.mul_(scale).to(leaf_dtype)
+        return fn
+
+    params = _port_layouts({sub: _tree_map(draw(sub), skeleton[sub]) for sub in sorted(skeleton)})
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return params
+
+
+# -- deploy bundles: the packed form of a tree ---------------------------------------------------------
+#
+# The JAX package's format byte for byte, so that a bundle written by
+# either package loads in the other: `bundle.bin` holds one section per
+# dtype (sorted by name, each 128-byte aligned), every leaf's bytes back to
+# back in its section; `bundle.json` holds the version, the quant mode, the
+# sections ({dtype: [byte offset, elements]}), the manifest entries ([key,
+# dtype, shape, element offset], plus the dtype to upcast to in a compact
+# bundle) and the config. Keys are '/'-joined tree paths in the JAX
+# layouts; quantized nodes carry `@ql8` / `@ql4` in their path. A restart
+# from a bundle is one file read into pinned memory, one copy to the card
+# per section and one device-to-device copy per leaf: no name mapping, no
+# host quantization.
+
+_QL8_MARK = "@ql8"
+_QL4_MARK = "@ql4"
+_BUNDLE_VERSION = 2
+_BUNDLE_ALIGN = 128
+
+# the format's dtype names (numpy's) -> torch, for the dtypes a tree of either
+# package holds; the card has no ml_dtypes, so bfloat16 goes through torch
+_BUNDLE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "int8": torch.int8,
+                  "uint8": torch.uint8}
+_DTYPE_NAMES = {v: k for k, v in _BUNDLE_DTYPES.items()}
+
+
+def _flatten_typed(tree: Any, prefix: str = "") -> Dict[str, torch.Tensor]:
+    """Tree -> {'/'-joined path: contiguous CPU tensor}, dict keys sorted,
+    quantized nodes (of either package) marked in the path. Leaves may be
+    numpy (ml_dtypes bfloat16 too) or tensors on any device."""
+    fields = getattr(tree, "_fields", None)
+    if fields == ("q", "scale"):
+        base = prefix[:-1] + _QL8_MARK
+        return {**_flatten_typed(tree.q, f"{base}/q/"), **_flatten_typed(tree.scale, f"{base}/scale/")}
+    if fields == ("packed", "scale", "wmin"):
+        base = prefix[:-1] + _QL4_MARK
+        return {**_flatten_typed(tree.packed, f"{base}/packed/"), **_flatten_typed(tree.scale, f"{base}/scale/"),
+                **_flatten_typed(tree.wmin, f"{base}/wmin/")}
+    out: Dict[str, torch.Tensor] = {}
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            out.update(_flatten_typed(tree[k], f"{prefix}{k}/"))
+        return out
+    if isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            out.update(_flatten_typed(v, f"{prefix}{i}/"))
+        return out
+    return {prefix[:-1]: _to_tensor(tree).detach().to("cpu").contiguous()}
+
+
+def _rebuild_typed(flat: Dict[str, Any]) -> Any:
+    """Inverse of `_flatten_typed` (lists where the source had tuples, as in
+    the JAX package)."""
+    root: Dict[str, Any] = {}
+    for name, leaf in flat.items():
+        _set_deep(root, name.split("/"), leaf)
+
+    def convert(node):
+        if isinstance(node, list):
+            return [convert(v) for v in node]
+        if not isinstance(node, dict):
+            return node
+        out = {}
+        for k, v in node.items():
+            v = convert(v)
+            if k.endswith(_QL8_MARK):
+                out[k[: -len(_QL8_MARK)]] = quant_lib.QuantizedLinear(q=v["q"], scale=v["scale"])
+            elif k.endswith(_QL4_MARK):
+                out[k[: -len(_QL4_MARK)]] = quant_lib.QuantizedLinear4(packed=v["packed"], scale=v["scale"],
+                                                                       wmin=v["wmin"])
+            else:
+                out[k] = v
+        return out
+
+    return convert(root)
+
+
+def _pack_blobs(flat: Dict[str, torch.Tensor]):
+    """-> (blobs {dtype name: 1-D CPU tensor}, manifest of (key, dtype name,
+    shape, element offset)): one blob per dtype, in the order the dtypes
+    first appear, each leaf's elements back to back."""
+    order: Dict[str, list] = {}
+    for key, t in flat.items():
+        order.setdefault(_DTYPE_NAMES[t.dtype], []).append(key)
+    entries, blobs = [], {}
+    for dt, keys in order.items():
+        offset = 0
+        for key in keys:
+            t = flat[key]
+            entries.append((key, dt, tuple(int(s) for s in t.shape), offset))
+            offset += t.numel()
+        blobs[dt] = torch.cat([flat[k].reshape(-1) for k in keys])
+    return blobs, tuple(entries)
+
+
+def _norm_manifest(manifest):
+    """Entries -> (key, store dtype, shape, offset, out dtype); a 4-field
+    entry (the uncompacted form) is stored as it comes out."""
+    return tuple((e[0], e[1], tuple(e[2]), e[3], e[4] if len(e) > 4 else e[1]) for e in manifest)
+
+
+def _device_unpack(blobs: Dict[str, torch.Tensor], manifest, device="cuda") -> Dict[str, Any]:
+    """The device half of a bundle load: per dtype section one host-to-device
+    copy (asynchronous from pinned memory), then each leaf copied out of its
+    section into an allocation of its own (reshaped; upcast where the
+    manifest's out dtype differs, in a compact bundle), then the section is
+    dropped; so every leaf is aligned for K2 / K4 and keeps no section alive.
+    The port's layouts are made on the device. Synchronizes before it
+    returns, so that a caller's timing holds the copies. -> the port's tree."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' requested but torch.cuda.is_available() is False")
+    manifest = _norm_manifest(manifest)
+    flat: Dict[str, torch.Tensor] = {}
+    for dt in sorted(blobs):
+        section = blobs[dt].to(device, non_blocking=True)
+        for key, store_dt, shape, off, out_dt in manifest:
+            if store_dt != dt:
+                continue
+            n = math.prod(shape)
+            seg = section[off:off + n].view(shape)
+            flat[key] = seg.clone() if out_dt == dt else seg.to(_BUNDLE_DTYPES[out_dt])
+        del section
+    params = _port_layouts(_rebuild_typed({e[0]: flat.pop(e[0]) for e in manifest}))
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return params
+
+
+def pack_transfer(params: Any, sharding=None, device="cuda") -> Dict[str, Any]:
+    """A host tree in the JAX layouts -> the port's tree on `device` (the
+    card unless the caller asks for "cpu") through the bundle's packed form:
+    one pinned host-to-device copy per dtype and one copy a leaf, bit for
+    bit `params_from_numpy(params, device)`. `sharding` takes None only: the
+    port runs on one card."""
+    if sharding is not None:
+        raise ValueError("pack_transfer: sharding takes None only (the port runs on one card)")
+    device = torch.device(device)
+    blobs, manifest = _pack_blobs(_flatten_typed(params))
+    if device.type == "cuda":
+        blobs = {dt: b.pin_memory() for dt, b in blobs.items()}
+    return _device_unpack(blobs, manifest, device)
+
+
+def is_deploy_bundle(path) -> bool:
+    return os.path.exists(os.path.join(path, "bundle.bin")) and os.path.exists(os.path.join(path, "bundle.json"))
+
+
+def _raw_bytes(t: torch.Tensor) -> np.ndarray:
+    """A contiguous CPU tensor's bytes as a uint8 numpy view (bfloat16
+    through an int16 view)."""
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return t.numpy().reshape(-1).view(np.uint8)
+
+
+def save_deploy_bundle(path, params: Any, cfg: Qwen3TTSConfig, quant_mode: str = "none",
+                       compact_f32: bool = False) -> None:
+    """Write a host tree in the JAX layouts (`host_tree` of a model's
+    parameters, or a host tree of either package, quantized or not) as a
+    deploy bundle, the JAX package's files byte for byte. compact_f32 stores
+    the float32 leaves as bfloat16 (rounded to nearest even) and upcasts
+    them at the unpack: exact for leaves that came from bfloat16, as a real
+    checkpoint's do; a random float32 leaf, and the float32 scales and mins
+    of quantized weights, lose their low mantissa bits."""
+    os.makedirs(path, exist_ok=True)
+    flat = _flatten_typed(params)
+    out_dt = {}
+    if compact_f32:
+        for k, t in flat.items():
+            if t.dtype == torch.float32:
+                flat[k] = t.to(torch.bfloat16)
+                out_dt[k] = "float32"
+    blobs, manifest = _pack_blobs(flat)
+    del flat
+    if out_dt:
+        manifest = tuple((k, dt, sh, off, out_dt.get(k, dt)) for (k, dt, sh, off) in manifest)
+    sections = {}
+    offset = 0
+    with open(os.path.join(path, "bundle.bin"), "wb") as f:
+        for dt in sorted(blobs):
+            pad = (-offset) % _BUNDLE_ALIGN
+            f.write(b"\0" * pad)
+            offset += pad
+            raw = _raw_bytes(blobs[dt])
+            sections[dt] = [offset, int(blobs[dt].numel())]
+            f.write(raw.data)
+            offset += raw.size
+    with open(os.path.join(path, "bundle.json"), "w") as f:
+        json.dump({
+            "version": _BUNDLE_VERSION,
+            "quant": quant_mode,
+            "sections": sections,
+            "entries": [list(e) for e in manifest],
+            "config": _config_to_dict(cfg),
+        }, f)
+
+
+def _read_into(path: str, out: np.ndarray) -> None:
+    """Fill `out` (uint8) with the file's bytes, read straight into it."""
+    view = memoryview(out)
+    with open(path, "rb", buffering=0) as f:
+        pos = 0
+        while pos < out.size:
+            n = f.readinto(view[pos:])
+            if not n:
+                raise ValueError(f"{path}: {out.size} bytes expected, the file ended after {pos}")
+            pos += n
+
+
+def read_deploy_bundle(path, pin_memory: bool = False, mark: Optional[Callable[[str], None]] = None):
+    """The host half of a bundle load -> (blobs {dtype name: 1-D CPU
+    tensor}, manifest, cfg, quant mode). The file is read straight into one
+    buffer, pinned when `pin_memory` (for a copy to the card; a failed
+    pinning raises), and each section is a typed view of it. `mark("pin")`
+    is called after the allocation, so that a caller can time it apart from
+    the read."""
+    with open(os.path.join(path, "bundle.json")) as f:
+        meta = json.load(f)
+    if meta.get("version") != _BUNDLE_VERSION:
+        raise ValueError(f"unsupported bundle version {meta.get('version')}")
+    cfg = config_from_dict(meta["config"])
+    manifest = _norm_manifest(meta["entries"])
+    fname = os.path.join(path, "bundle.bin")
+    buf = torch.empty(os.path.getsize(fname), dtype=torch.uint8, pin_memory=pin_memory)
+    if mark is not None:
+        mark("pin")
+    _read_into(fname, buf.numpy())
+    blobs = {}
+    for dt, (byte_off, n) in meta["sections"].items():
+        dtype = _BUNDLE_DTYPES[dt]
+        blobs[dt] = buf[byte_off:byte_off + n * dtype.itemsize].view(dtype)
+    return blobs, manifest, cfg, meta.get("quant", "none")
+
+
+def load_deploy_bundle(path, device="cuda"):
+    """-> (the port's tree on `device`, cfg, quant mode): one file read into
+    pinned memory, one copy to the card per dtype section, one copy a leaf.
+    With device "cuda" and no card it raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("device='cuda' requested but torch.cuda.is_available() is False")
+    blobs, manifest, cfg, mode = read_deploy_bundle(path, pin_memory=device.type == "cuda")
+    return _device_unpack(blobs, manifest, device), cfg, mode

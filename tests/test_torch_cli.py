@@ -1,9 +1,11 @@
 """The port's command line (faster_qwen3_tts_tpu_torch/cli.py): the parse and
-validation cases of tests/test_cli.py (less --aot-cache, --attn and bundle,
-which are not ported), the flags it passes to from_pretrained (--backend,
+validation cases of tests/test_cli.py (less --aot-cache and --attn, which
+are not ported), the flags it passes to from_pretrained (--backend,
 --ref-cache-dir and --fuse-qkv among them), and `clone` runs end to end on
-the CPU from a tiny own-format checkpoint, one through the native backend."""
+the CPU from a tiny own-format checkpoint, one through the native backend,
+one from a deploy bundle that `bundle` wrote."""
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -34,10 +36,18 @@ def test_custom_and_design_flags():
 
 
 @pytest.mark.parametrize("argv", [["clone", "hi", "--backend", "ggml"], ["clone", "hi", "--aot-cache", "d"],
-                                  ["clone", "hi", "--attn", "xla"], ["bundle", "out"]])
+                                  ["clone", "hi", "--attn", "xla"], ["bundle"]])
 def test_unported_flags_are_refused(argv):
     with pytest.raises(SystemExit):
         build_parser().parse_args(argv)
+
+
+def test_bundle_flags_parse():
+    args = build_parser().parse_args(["bundle", "/tmp/out_bundle", "--model", "ckpt_dir", "--quant", "Q8_0"])
+    assert args.command == "bundle" and args.func is cli.cmd_bundle
+    assert args.out_dir == "/tmp/out_bundle" and args.quant == "Q8_0" and args.model == "ckpt_dir"
+    assert not args.full_f32 and args.device == "cuda"
+    assert build_parser().parse_args(["bundle", "out", "--full-f32"]).full_f32
 
 
 def test_clone_requires_ref(capsys):
@@ -153,4 +163,34 @@ def test_clone_native_backend_end_to_end_on_the_cpu(tmp_path, capsys):
         assert rc == 0 and "wrote" in capsys.readouterr().out
         wavs.append(audio.read_wav(out)[0])
     assert sorted(p.suffix for p in (tmp_path / "refs").iterdir()) == [".json", ".rvq", ".spk"]
+    assert wavs[0].size > 0 and np.array_equal(wavs[0], wavs[1])
+
+
+def test_bundle_then_clone_from_it_on_the_cpu(tmp_path, capsys):
+    """`bundle OUT --quant Q8_0 --full-f32` from a tiny own-format checkpoint
+    writes a quantized deploy bundle; `clone --model OUT` restarts from it
+    and writes the wav that `clone --model <checkpoint> --quant Q8_0` writes
+    (without --full-f32 the codec would be rounded to bf16)."""
+    from faster_qwen3_tts_tpu_torch import weights
+    from faster_qwen3_tts_tpu_torch.config import tiny_test_config
+    from faster_qwen3_tts_tpu_torch.utils import audio
+
+    cfg = dataclasses.replace(tiny_test_config(), tts_bos_token_id=300, tts_eos_token_id=301,
+                              tts_pad_token_id=302)
+    weights.save_pretrained(str(tmp_path / "ckpt"), weights.init_numpy(cfg, seed=0), cfg)
+    out_dir = tmp_path / "bundle"
+    assert cli.main(["bundle", str(out_dir), "--model", str(tmp_path / "ckpt"), "--quant", "Q8_0",
+                     "--full-f32", "--device", "cpu"]) == 0
+    assert "deploy bundle written" in capsys.readouterr().out
+    assert weights.is_deploy_bundle(str(out_dir))
+    assert json.loads((out_dir / "bundle.json").read_text())["quant"] == "int8"
+    ref = tmp_path / "ref.wav"
+    audio.write_wav(ref, (0.3 * np.sin(np.arange(24000) / 20)).astype(np.float32), 24000)
+    wavs = []
+    for model, quant in ((str(out_dir), "BF16"), (str(tmp_path / "ckpt"), "Q8_0")):
+        out = tmp_path / f"out_{len(wavs)}.wav"
+        assert cli.main(["clone", "Hello from a bundle.", "--model", model, "--quant", quant, "--xvec-only",
+                         "--ref-audio", str(ref), "--max-new-tokens", "6", "--seed", "0", "--device", "cpu",
+                         "-o", str(out)]) == 0
+        wavs.append(audio.read_wav(out)[0])
     assert wavs[0].size > 0 and np.array_equal(wavs[0], wavs[1])

@@ -31,7 +31,8 @@ def test_port_runs_without_jax_or_the_jax_package(tmp_path):
     built only from the port's config, tokenizer and audio helpers; load an
     own-format and an HF checkpoint, run a request through the native
     backend (its reference cache and host library) and one through the
-    fused layout, and bind the server. Neither jax, the
+    fused layout, write a deploy bundle (compact and full) and load it back,
+    load once with FQ3T_DEVICE_INIT=1, and bind the server. Neither jax, the
     JAX package, safetensors, aiohttp nor ml_dtypes is loaded."""
     script = tmp_path / "run.py"
     script.write_text(
@@ -103,6 +104,19 @@ def test_port_runs_without_jax_or_the_jax_package(tmp_path):
         "n = sum(len(a) for a, _, _ in fm.generate_voice_clone_streaming(\n"
         "    'Hi.', 'English', voice_clone_prompt=prompt, max_new_tokens=6, chunk_size=4, seed=0))\n"
         "assert n > 0\n"
+        "for compact in (False, True):\n"
+        "    fm.save_deploy_bundle(os.path.join(d, 'bundle'), compact_f32=compact)\n"
+        "    bm = FasterQwen3TTS.from_pretrained(os.path.join(d, 'bundle'), device='cpu', quant='Q8_0')\n"
+        "    assert torch.equal(bm.params['talker']['layers']['wqkv'].q, fm.params['talker']['layers']['wqkv'].q)\n"
+        "assert bm.load_phases['transfer_mb'] > 0\n"
+        "n = sum(len(a) for a, _, _ in bm.generate_voice_clone_streaming(\n"
+        "    'Hi.', 'English', voice_clone_prompt=prompt, max_new_tokens=6, chunk_size=4, seed=0))\n"
+        "assert n > 0\n"
+        "import faster_qwen3_tts_tpu_torch.model as model_mod\n"
+        "model_mod.get_config = lambda name: cfg\n"
+        "os.environ['FQ3T_DEVICE_INIT'] = '1'\n"
+        "dm = FasterQwen3TTS.from_pretrained('0.6b', device='cpu', quant='Q8_4')\n"
+        "assert isinstance(dm.params['predictor']['layers']['wq'], type(m4.params['predictor']['layers']['wq']))\n"
         "srv = server.make_server(m, '127.0.0.1', 0)\n"
         "srv.server_close()\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"

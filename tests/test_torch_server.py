@@ -386,3 +386,53 @@ def test_backend_and_fuse_flags_reach_from_pretrained(monkeypatch, flags, expect
     with pytest.raises(RuntimeError, match="stop before"):
         srv.main(["--model", "ckpt", "--device", "cpu", *flags])
     assert (seen["backend"], seen["fuse_qkv"]) == expect
+
+
+def test_server_serves_from_a_deploy_bundle(tmp_path, monkeypatch):
+    """`server.main(["--model", <bundle dir>])` restarts from a deploy bundle
+    with no code of its own and answers a request (tiny geometry, CPU)."""
+    import dataclasses
+
+    from faster_qwen3_tts_tpu_torch import weights
+    from faster_qwen3_tts_tpu_torch.config import tiny_test_config
+    from faster_qwen3_tts_tpu_torch.model import FasterQwen3TTS
+    from faster_qwen3_tts_tpu_torch.ops import quant
+    from faster_qwen3_tts_tpu_torch.utils.tokenizer import ByteTokenizer, PromptTokenizer
+
+    cfg = dataclasses.replace(tiny_test_config(), tts_bos_token_id=300, tts_eos_token_id=301,
+                              tts_pad_token_id=302)
+    FasterQwen3TTS(weights.init_all(cfg, device="cpu", quant="int8"), cfg, PromptTokenizer(ByteTokenizer()),
+                   max_seq_len=128).save_deploy_bundle(str(tmp_path / "bundle"))
+    from faster_qwen3_tts_tpu_torch.utils.audio import write_wav
+
+    write_wav(tmp_path / "ref.wav", (0.3 * np.sin(np.arange(12000) / 20)).astype(np.float32), 24000)
+    voices = tmp_path / "voices.json"
+    voices.write_text(json.dumps({"x": {"ref_audio": str(tmp_path / "ref.wav"), "xvec_only": True}}))
+    started = []
+    real = srv.make_server
+
+    def capture(*a, **kw):
+        started.append(real(*a, **kw))
+        return started[-1]
+
+    monkeypatch.setattr(srv, "make_server", capture)
+    t = threading.Thread(target=srv.main, args=([
+        "--model", str(tmp_path / "bundle"), "--device", "cpu", "--quant", "Q8_0", "--host", "127.0.0.1",
+        "--port", "0", "--max-new-tokens", "8", "--voices", str(voices)],), daemon=True)
+    t.start()
+    deadline = time.time() + 120
+    while not started and time.time() < deadline and t.is_alive():
+        time.sleep(0.05)
+    assert started, "the server did not start"
+    s = started[0]
+    try:
+        url = f"http://127.0.0.1:{s.server_address[1]}"
+        status, _, body = post(url, {"input": "Hello from a bundle.", "voice": "x", "response_format": "pcm"})
+        assert status == 200 and len(body) > 0 and len(body) % 2 == 0
+        assert np.abs(np.frombuffer(body, np.int16)).max() > 0
+        assert s.model.load_phases["transfer_mb"] > 0
+        assert isinstance(s.model.params["talker"]["layers"]["wq"], quant.QuantizedLinear)
+    finally:
+        s.shutdown()
+        t.join(timeout=30)
+    assert not t.is_alive()
