@@ -27,7 +27,12 @@ Phases, each of which fails the run:
    scales and zeros, its error stated, and the bf16 matmul), one float32
    case and one replay in a CUDA graph; K2 and K4 also at the shapes of
    the fused projection layout (wqkv I 1024 / 2048, O 4096; w_gateup
-   1024 x 6144 and 2048 x 12288) with 1, 8 and 16 rows;
+   1024 x 6144 and 2048 x 12288) with 1, 8 and 16 rows; K1 at one tp = 2
+   rank's heads (8 query / 4 kv), one lane and a dp group's two lanes (bf16
+   and float32), and K2 at every 0.6B and 1.7B tp = 2 shard shape (column
+   shards O / 2, row shards I / 2) with 1 and 2 bf16 rows, the row shards
+   also with 1, 2 and 4 float32 rows as the mesh feeds them (float32 cases
+   at atol 1e-4 / rtol 1e-5);
 4. probe: K3 streams the stacked int8 weights of the Pallas probe it
    replaces (L=28, I=2048, O=12288, the 1.7B gate+up stack, and L=28,
    I=1024, O=6144), timed with CUDA events, then held against its plain
@@ -49,7 +54,10 @@ Phases, each of which fails the run:
    stream also in Q4_K_M and Q8_4 (equal tokens, audio within 1e-3); then
    `parity_mode=True` against the engine on the card for float32, Q8_0,
    Q4_K_M and Q8_4 weights, greedy and sampled with one seed: equal tokens;
-6. cli: `python -m faster_qwen3_tts_tpu_torch.cli clone` on the tiny
+6. mesh refusals: `from_pretrained(<tiny dir>, dp=2, tp=2)` on one card
+   raises the device-count ValueError, a tp group or dp groups over cuda:0
+   and cuda:1 NotImplementedError;
+   cli: `python -m faster_qwen3_tts_tpu_torch.cli clone` on the tiny
    checkpoint as a subprocess on the card (rc 0, a 24 kHz wav); examples:
    each script of examples_torch/ as a subprocess on the card at the tiny
    geometry (extract_speaker to .npy and .spk, generate_with_embedding from
@@ -167,7 +175,21 @@ Phases, each of which fails the run:
     card): every int8 leaf and every leaf but the scales bitwise equal to
     materialize's Q8_0, the scales' largest ulp distance printed; the Q8_4
     model bundled (full float32) and loaded back: every leaf bitwise, greedy
-    codes equal, K1 / K2 / K4 launched;
+    codes equal, K1 / K2 / K4 launched; the (dp, tp) mesh, after each of
+    F32, Q8_0 and Q8_4: the tree sharded on a 2 x 2 mesh of one card
+    (`make_mesh(4, dp=2, tp=2, devices=[cuda:0] * 4)`, `FasterQwen3TTS(
+    shard_params(...), mesh=mesh)`); F32: a 4-lane greedy lockstep batch
+    against the unsharded model (prefill logits within
+    MESH_F32_LOGIT_REL, every lane's first frame equal); F32 and Q8_0: the
+    same prompts' prefill logits again with a planted fault (the last tp
+    rank's partials dropped), which must fall outside the limit
+    (MESH_F32_LOGIT_REL, MESH_Q8_LOGIT_REL for Q8_0's bf16); Q8_0 and Q8_4:
+    `warmup`, a 4-lane lockstep batch of 32 frames (two lanes a dp group,
+    no eager frame or prefill; K4 must launch under Q8_4), Q8_0 also a solo
+    tp stream and the unsharded model's batch and stream: captured frame ms
+    against unsharded, launches a group's frame against the count the
+    sharded layers make, K1 / K2 shapes at capture (K1 at 4 kv heads, K2 at
+    the shard widths), graph memory, lane TTFA and aggregate RTF;
 12. slice BF16: one x-vector request in BF16 (K1 only) and a B = 8 batch;
 13. slice 1.7B Q8_0: `from_pretrained("Qwen/Qwen3-TTS-12Hz-1.7B-CustomVoice",
    quant="Q8_0")`, `warmup()`, the prefill graphs check of 7b, the device
@@ -378,6 +400,12 @@ K1_CASES = [(2048, 0, 33), (2048, 5, 133), (2048, 56, 300), (2048, 0, 2048), (17
 # every lane at its last pass (17 live)
 K1_BATCH_CASES = [(2048, [(0, 40), (5, 85), (56, 300), (0, 120), (20, 180), (0, 220), (31, 291), (0, 300)]),
                   (17, [(0, 17)] * 8)]
+# K1 at one tp = 2 rank's heads (8 query / 4 kv): the talker at 128 live
+# slots and the predictor's last pass
+K1_TP2_CASES = [(2048, 5, 133), (17, 0, 17)]
+# K1 at a tp = 2 rank's heads over the two lanes of a dp group (the mesh's
+# own launch shape), in bf16 (the Q8_0 / Q8_4 mesh) and float32 (the F32 mesh)
+K1_TP2_BATCH_CASES = [(2048, [(5, 133), (0, 40)]), (17, [(0, 17)] * 2)]
 # K2: every Q8_0 projection shape of the 0.6B and 1.7B talkers and the
 # predictor they share
 K2_SHAPES = {(1024, 2048): "wq/lm_heads", (1024, 1024): "wk/wv/mtp_proj/text_proj",
@@ -387,6 +415,16 @@ K2_SHAPES = {(1024, 2048): "wq/lm_heads", (1024, 1024): "wk/wv/mtp_proj/text_pro
 # the 0.6B shapes also at the rows of an 8-lane pool: 8 (talker, predictor
 # passes 2-15) and 16 (the predictor's first pass, two rows a lane)
 K2_SHAPES_06B = ((1024, 2048), (1024, 1024), (2048, 1024), (1024, 3072), (3072, 1024))
+# K2 at the tp = 2 shard widths (`parallel.mesh.shard_params`): column shards
+# O / 2, row shards I / 2; the 0.6B predictor shares the 0.6B talker's widths
+K2_TP2_SHAPES = {(1024, 1024): "0.6B wq, wo rows, lm_heads", (1024, 512): "0.6B wk/wv",
+                 (1024, 1536): "0.6B gate/up, codec_head", (1536, 1024): "0.6B down rows",
+                 (2048, 1024): "1.7B wq", (2048, 512): "1.7B wk/wv", (1024, 2048): "1.7B wo rows",
+                 (2048, 3072): "1.7B gate/up", (3072, 2048): "1.7B down rows", (2048, 1536): "1.7B codec_head"}
+# the row shards again with float32 rows, as the mesh feeds them
+# (`models.layers._row`: float32 partials into the reduction), at a group's
+# 1 and 2 lanes and the predictor's first pass of 2 lanes (4 rows)
+K2_TP2_ROW_SHAPES = ((1024, 1024), (1536, 1024), (1024, 2048), (3072, 2048))
 # the fused projection layout (`quant.fuse_layer_weights`): K2 and K4 at 1, 8
 # and 16 rows at the widths no unfused projection has
 FUSED_SHAPES = {(1024, 4096): "fused wqkv: 0.6B talker, predictor", (1024, 6144): "fused w_gateup: 0.6B, predictor",
@@ -410,16 +448,17 @@ def kernel_phase(report):
     dev = torch.device("cuda")
     g = torch.Generator().manual_seed(0)
     k1_cases, k2_cases = [], []
-    for S, lo, hi in K1_CASES:
-        q = torch.randn(1, 1, 16, 128, generator=g).to(dev, torch.bfloat16)
-        k = torch.randn(1, S, 8, 128, generator=g).to(dev, torch.bfloat16)
-        v = torch.randn(1, S, 8, 128, generator=g).to(dev, torch.bfloat16)
+    # the whole heads (16 query / 8 kv), then one tp = 2 rank's (8 / 4; GQA ratio 2 in both)
+    for S, lo, hi, hq, hkv in [c + (16, 8) for c in K1_CASES] + [c + (8, 4) for c in K1_TP2_CASES]:
+        q = torch.randn(1, 1, hq, 128, generator=g).to(dev, torch.bfloat16)
+        k = torch.randn(1, S, hkv, 128, generator=g).to(dev, torch.bfloat16)
+        v = torch.randn(1, S, hkv, 128, generator=g).to(dev, torch.bfloat16)
         s = torch.arange(S)
         mask = ((s >= lo) & (s < hi)).to(torch.int32)[None].to(dev)
         out = attention.decode_attention(q, k, v, mask)
         torch.cuda.synchronize()
         ref = attention.decode_attention_plain(q.float(), k.float(), v.float(), mask)
-        name = f"K1 S_max={S} live=[{lo},{hi})"
+        name = f"K1 S_max={S} live=[{lo},{hi})" + ("" if hkv == 8 else f" heads {hq}/{hkv} (a tp=2 rank; {CARD})")
         err = check_close(name, out, ref, k1_cases)
         n = _copies(2 * k.numel() * k.element_size())
         ks, vs = [k] + [k.clone() for _ in range(n - 1)], [v] + [v.clone() for _ in range(n - 1)]
@@ -435,19 +474,23 @@ def kernel_phase(report):
         }
         live = hi - lo
         # q, the live K/V rows, the mask, out; 4 flops per live (query head, slot, d)
-        timed.update(bound(2 * q.numel() * 2 + 2 * live * 8 * 128 * 2 + S * 4, 4 * live * 16 * 128,
+        timed.update(bound(2 * q.numel() * 2 + 2 * live * hkv * 128 * 2 + S * 4, 4 * live * hq * 128,
                            q.dtype))
-        k1_cases[-1].update(timed)
+        k1_cases[-1].update(timed, heads=(hq, hkv))
         del ks, vs
         log(f"{name}: max_abs_err {err:.3e} (atol {ATOL}, rtol {RTOL}); device ms per call: kernel "
             f"{timed['ms']:.5f}, plain {timed['plain_ms']:.5f}, SDPA {_fmt(timed['library_ms'])}, bound "
             f"{timed['bound_ms']:.5f} ({timed['bound_by']}); eager call ms: kernel "
             f"{timed['eager_ms']:.4f}, plain {timed['plain_eager_ms']:.4f}")
-    for S, ranges in K1_BATCH_CASES:
+    # an 8-lane pool at the whole heads, then a dp group's 2 lanes at a tp = 2 rank's heads in bf16 and float32
+    batch_cases = ([(S, ranges, 16, 8, torch.bfloat16) for S, ranges in K1_BATCH_CASES]
+                   + [(S, ranges, 8, 4, dt) for dt in (torch.bfloat16, torch.float32)
+                      for S, ranges in K1_TP2_BATCH_CASES])
+    for S, ranges, hq, hkv, dt in batch_cases:
         B = len(ranges)
-        q = torch.randn(B, 1, 16, 128, generator=g).to(dev, torch.bfloat16)
-        k = torch.randn(B, S, 8, 128, generator=g).to(dev, torch.bfloat16)
-        v = torch.randn(B, S, 8, 128, generator=g).to(dev, torch.bfloat16)
+        q = torch.randn(B, 1, hq, 128, generator=g).to(dev, dt)
+        k = torch.randn(B, S, hkv, 128, generator=g).to(dev, dt)
+        v = torch.randn(B, S, hkv, 128, generator=g).to(dev, dt)
         s = torch.arange(S)
         mask = torch.stack([((s >= lo) & (s < hi)).to(torch.int32) for lo, hi in ranges]).to(dev)
         out = attention.decode_attention(q, k, v, mask)
@@ -455,7 +498,10 @@ def kernel_phase(report):
         ref = attention.decode_attention_plain(q.float(), k.float(), v.float(), mask)
         live = sum(hi - lo for lo, hi in ranges)
         name = f"K1 B={B} S_max={S} live {min(hi - lo for lo, hi in ranges)}-{max(hi - lo for lo, hi in ranges)}"
-        err = check_close(name, out, ref, k1_cases)
+        if hkv != 8:
+            name += f" heads {hq}/{hkv} {str(dt).replace('torch.', '')} (a dp group's lanes on a tp=2 rank; {CARD})"
+        tol = (ATOL, RTOL) if dt == torch.bfloat16 else (ATOL_F32, RTOL_F32)
+        err = check_close(name, out, ref, k1_cases, *tol)
         n = _copies(2 * k.numel() * k.element_size())
         ks, vs = [k] + [k.clone() for _ in range(n - 1)], [v] + [v.clone() for _ in range(n - 1)]
         bmask = (mask > 0)[:, None, None, :]
@@ -469,47 +515,58 @@ def kernel_phase(report):
             "plain_eager_ms": eager_ms(lambda i: attention.decode_attention_plain(q, k, v, mask)),
         }
         # q, every lane's live K/V rows, the masks, out; 4 flops per live (query head, slot, d)
-        timed.update(bound(2 * q.numel() * 2 + 2 * live * 8 * 128 * 2 + B * S * 4, 4 * live * 16 * 128, q.dtype))
-        k1_cases[-1].update(timed, batch=B)
+        es = q.element_size()
+        timed.update(bound(2 * q.numel() * es + 2 * live * hkv * 128 * es + B * S * 4, 4 * live * hq * 128, q.dtype))
+        k1_cases[-1].update(timed, batch=B, heads=(hq, hkv))
         del ks, vs
-        log(f"{name}: max_abs_err {err:.3e} (atol {ATOL}, rtol {RTOL}); device ms per call: kernel "
+        log(f"{name}: max_abs_err {err:.3e} (atol {tol[0]}, rtol {tol[1]}); device ms per call: kernel "
             f"{timed['ms']:.5f}, plain {timed['plain_ms']:.5f}, SDPA {_fmt(timed['library_ms'])}, bound "
             f"{timed['bound_ms']:.5f} ({timed['bound_by']}); eager call ms: kernel "
             f"{timed['eager_ms']:.4f}, plain {timed['plain_eager_ms']:.4f}")
     rng = np.random.default_rng(0)
-    for I, O, what, rows, fused in _gemv_cases(lambda I, O: (1, 2, 8, 16) if (I, O) in K2_SHAPES_06B else (1, 2)):
+    cases = _gemv_cases(lambda I, O: (1, 2, 8, 16) if (I, O) in K2_SHAPES_06B else (1, 2))
+    # the column (O / 2) and row (I / 2) shards of a tp = 2 mesh, at a group's 1 and 2 lanes
+    cases += [(I, O, f"tp=2 shard: {what}", (1, 2), "tp2") for (I, O), what in K2_TP2_SHAPES.items()]
+    cases += [(I, O, f"tp=2 row shard, float32 rows: {K2_TP2_SHAPES[I, O]}", (1, 2, 4), "tp2_f32")
+              for I, O in K2_TP2_ROW_SHAPES]
+    for I, O, what, rows, fused in cases:
         ql = quant.quantize_linear(rng.standard_normal((I, O)).astype("float32") * I**-0.5)
         qw, sc = torch.from_numpy(ql.q).to(dev), torch.from_numpy(ql.scale).to(dev)
         n = _copies(qw.numel())
         qs = [qw] + [qw.clone() for _ in range(n - 1)]
         packed = [w.t().contiguous() for w in qs]  # [O, I], the layout torch's int8 call takes
-        sc_bf16 = sc.reshape(O).to(torch.bfloat16)
+        f32 = fused == "tp2_f32"
+        dt = torch.float32 if f32 else torch.bfloat16
+        sc_lib = sc.reshape(O).to(dt)
         wbf = [qw.to(torch.bfloat16)] + [qw.to(torch.bfloat16) for _ in range(max(2, n // 2) - 1)]
+        tol = (ATOL_F32, RTOL_F32) if f32 else (ATOL, RTOL)
         for M in rows:
-            x = torch.randn(M, I, generator=g).to(dev, torch.bfloat16)
+            x = torch.randn(M, I, generator=g).to(dev, dt)
             out = quant.int8_gemv(x, qw, sc)
             torch.cuda.synchronize()
             ref = quant.int8_gemv_plain(x.float(), qw, sc)
             name = f"K2 M={M} I={I} O={O} ({what}{f'; {CARD}' if fused else ''})"
-            err = check_close(name, out, ref, k2_cases)
+            err = check_close(name, out, ref, k2_cases, *tol)
             timed = {
                 "ms": device_ms(lambda i: quant.int8_gemv(x, qs[i], sc), n),
                 "plain_ms": device_ms(lambda i: quant.int8_gemv_plain(x, qs[i], sc), n),
                 "library_ms": library_time(
-                    name, lambda i: torch._weight_int8pack_mm(x, packed[i], sc_bf16), n),
-                # the BF16 slice's own product: twice the weight bytes
-                "bf16_matmul_ms": device_ms(lambda i: torch.matmul(x, wbf[i]), len(wbf)),
+                    name, lambda i: torch._weight_int8pack_mm(x, packed[i], sc_lib), n),
+                # the BF16 slice's own product: twice the weight bytes (bf16 rows only)
+                "bf16_matmul_ms": None if f32 else device_ms(lambda i: torch.matmul(x, wbf[i]), len(wbf)),
                 "eager_ms": eager_ms(lambda i: quant.int8_gemv(x, qw, sc)),
                 "plain_eager_ms": eager_ms(lambda i: quant.int8_gemv_plain(x, qw, sc)),
             }
             timed["gb_s"] = qw.numel() / timed["ms"] / 1e6
             # x, q, scale, y; 2 flops per (row, weight)
-            timed.update(bound(M * I * 2 + I * O + O * 4 + M * O * 2, 2 * M * I * O, x.dtype))
-            k2_cases[-1].update(timed, shape=(M, I, O), fused=fused)
-            log(f"{name}: max_abs_err {err:.3e} (atol {ATOL}, rtol {RTOL}); device ms per call: "
+            es = x.element_size()
+            timed.update(bound(M * I * es + I * O + O * 4 + M * O * es, 2 * M * I * O, x.dtype))
+            k2_cases[-1].update(timed, shape=(M, I, O), fused=fused is True, tp2=fused in ("tp2", "tp2_f32"),
+                                rows_dtype=str(dt).replace("torch.", ""))
+            log(f"{name}: max_abs_err {err:.3e} (atol {tol[0]}, rtol {tol[1]}); device ms per call: "
                 f"kernel {timed['ms']:.5f} ({timed['gb_s']:.0f} GB/s of weights), plain "
                 f"{timed['plain_ms']:.5f}, int8 library call {_fmt(timed['library_ms'])}, bf16 matmul "
-                f"{timed['bf16_matmul_ms']:.5f}, bound {timed['bound_ms']:.5f} ({timed['bound_by']}); "
+                f"{_fmt(timed['bf16_matmul_ms'])}, bound {timed['bound_ms']:.5f} ({timed['bound_by']}); "
                 f"eager call ms: kernel {timed['eager_ms']:.4f}, plain {timed['plain_eager_ms']:.4f}")
         del qs, packed, wbf
     k4_cases = k4_phase(g)
@@ -1978,6 +2035,299 @@ def _tree_gb(node) -> float:
 K4_EXPECTED = {"Q8_0": {"K2": 752, "K4": 0}, "Q4_K_M": {"K2": 0, "K4": 752}, "Q8_4": {"K2": 197, "K4": 555}}
 
 
+# the (dp, tp) mesh phase: F32 talker prefill logits of the 2 x 2 mesh against
+# the unsharded model, max |diff| over the largest |logit| (PERF.md states the
+# limit: the tp partials summed in another order, and cuBLAS at the shard widths)
+MESH_F32_LOGIT_REL = 1e-3
+# the same gap of the Q8_0 mesh (bf16 activations): its limit lies between two
+# readings that PERF.md states, the floor of bf16 itself (the unsharded
+# model's prefill logits at 1 and 2 rows of a batch differ by 0.0625, 1.6e-2 of
+# the largest logit) and a planted fault (`_fault_gap`), which must exceed it
+MESH_Q8_LOGIT_REL = 8e-2
+MESH_F32_FRAMES = 8  # frames a lane of the F32 batches (captured at first use)
+
+
+@contextlib.contextmanager
+def kept_prompts(prompts):
+    """For the block, keep (group params, tie, mask) of every graph set's
+    prefill in `prompts`, in call order (the order of the tapped logits)."""
+    from faster_qwen3_tts_tpu_torch.engine import graphs
+
+    set_prefill = graphs.GraphSet.prefill
+
+    def keep(gset, params, tie, mask, *a, **k):
+        prompts.append((params, tie.clone(), mask.clone()))
+        return set_prefill(gset, params, tie, mask, *a, **k)
+
+    graphs.GraphSet.prefill = keep
+    try:
+        yield prompts
+    finally:
+        graphs.GraphSet.prefill = set_prefill
+
+
+def _fault_gap(prompts, cfg, ref_logits):
+    """The kept prompts' talker prefill logits, eager, over every dp group
+    -> (gap of the mesh as it is, gap with a planted fault: the last tp
+    rank's partial dropped from every row-parallel reduction), each max
+    |diff| from `ref_logits` over its largest |logit|."""
+    import torch
+
+    from faster_qwen3_tts_tpu_torch.models import layers
+    from faster_qwen3_tts_tpu_torch.models import talker as talker_lib
+
+    def gap():
+        got = torch.cat([talker_lib.prefill(params["talker"], cfg.talker, tie, mask)[1].float().cpu()
+                         for params, tie, mask in prompts])
+        return float((got - ref_logits).abs().max() / ref_logits.abs().max())
+
+    clean, reduce = gap(), layers.all_reduce
+    layers.all_reduce = lambda parts: reduce(parts[:-1])
+    try:
+        return clean, gap()
+    finally:
+        layers.all_reduce = reduce
+
+
+def _mesh_frame_launches(cfg, quant, tp):
+    """Kernel launches of one dp group's frame on a tp mesh: K1 once a rank
+    a talker layer and a predictor decode pass (14); int8 projections once a
+    rank (mtp_proj is replicated: once), int4 ones whole, once."""
+    t, p = cfg.talker.num_hidden_layers, cfg.predictor.num_hidden_layers
+    k1 = tp * (t + 14 * p)
+    talker = tp * (7 * t + 1)  # 7 projections a layer, the codec head
+    if quant == "Q8_0":
+        return {"K1": k1, "K2": talker + tp * (15 * 7 * p + 15) + 15, "K4": 0}
+    return {"K1": k1, "K2": talker, "K4": 15 * 7 * p + 15 + 15}  # Q8_4: the predictor in int4, whole
+
+
+@contextlib.contextmanager
+def sharded_shapes(tally):
+    """For the block, count K1 launches by (lanes, query heads, kv heads) and
+    K2 launches by (rows, I, O): the engine's calls of the two wrappers (on
+    the card at eager runs and captures)."""
+    from faster_qwen3_tts_tpu_torch.models import layers
+    from faster_qwen3_tts_tpu_torch.ops import quant as quant_ops
+
+    attn, gemv = layers.decode_attention, quant_ops.int8_gemv
+
+    def attn_counted(q, k, *a):
+        key = (q.shape[0], q.shape[2], k.shape[2])
+        tally.setdefault("K1", {})[key] = tally.setdefault("K1", {}).get(key, 0) + 1
+        return attn(q, k, *a)
+
+    def gemv_counted(x, q, scale):
+        key = (x.numel() // x.shape[-1],) + tuple(q.shape)
+        tally.setdefault("K2", {})[key] = tally.setdefault("K2", {}).get(key, 0) + 1
+        return gemv(x, q, scale)
+
+    gemv_counted.launches = gemv.launches  # int8_gemv counts on the module's name for it
+    layers.decode_attention, quant_ops.int8_gemv = attn_counted, gemv_counted
+    try:
+        yield tally
+    finally:
+        layers.decode_attention, quant_ops.int8_gemv = attn, gemv
+        gemv.launches = gemv_counted.launches
+
+
+def _replay_ms(gset, n=20):
+    """A frame graph's device ms a replay (CUDA events over n replays of a
+    free set: masked lanes, the timing only)."""
+    import torch
+
+    for _ in range(3):
+        gset.frame_graph.replay()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        gset.frame_graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def _set_of(reg, batch, greedy):
+    return next(g for g in reg.sets if g.key.batch == batch and g.key.sampling.do_sample != greedy)
+
+
+def mesh_refusals(tiny_dir):
+    """On a machine with one card `from_pretrained(dp=2, tp=2)` raises the JAX
+    package's device-count ValueError, and a tp group or dp groups over two
+    distinct cards raise NotImplementedError (ROADMAP A.8) before touching
+    one."""
+    import torch
+
+    from faster_qwen3_tts_tpu_torch.model import FasterQwen3TTS
+    from faster_qwen3_tts_tpu_torch.parallel import mesh as mesh_lib
+
+    n, said = torch.cuda.device_count(), None
+    try:
+        FasterQwen3TTS.from_pretrained(str(tiny_dir), dp=2, tp=2)
+        if n < 4:
+            fail(f"from_pretrained(dp=2, tp=2) on {n} card(s) did not raise")
+    except ValueError as e:
+        if n >= 4 or f"needs 4 devices; only {n} visible" not in str(e):
+            fail(f"from_pretrained(dp=2, tp=2) on {n} card(s): {e}")
+        said = str(e)
+    for dp, tp in ((1, 2), (2, 1)):
+        try:
+            mesh_lib.make_mesh(2, dp=dp, tp=tp, devices=[torch.device("cuda", 0), torch.device("cuda", 1)])
+            fail(f"a dp={dp} x tp={tp} mesh over cuda:0 and cuda:1 did not raise")
+        except NotImplementedError as e:
+            if "ROADMAP A.8" not in str(e):
+                fail(f"a dp={dp} x tp={tp} mesh over two cards: {e}")
+    log(f"mesh refusals: from_pretrained(dp=2, tp=2) on {n} card: ValueError '{said}'; a tp group and dp "
+        "groups over cuda:0, cuda:1: NotImplementedError")
+
+
+def mesh_phase(params, plain, quant, report):
+    """The 0.6B tree of this quant mode on a 2 x 2 mesh of one card,
+    `make_mesh(4, dp=2, tp=2, devices=[cuda:0] * 4)`, through
+    `FasterQwen3TTS(shard_params(params, mesh), ..., mesh=mesh)`: F32, a
+    4-lane greedy lockstep batch of 8 frames a lane against the unsharded
+    model `plain` (talker prefill logits within MESH_F32_LOGIT_REL, the first
+    frame's 16 codes of every lane equal; Q8_0's within MESH_Q8_LOGIT_REL;
+    both limits held against a planted fault, `_fault_gap`); Q8_0 and Q8_4,
+    `warmup` then a
+    4-lane lockstep batch of 32 frames (two lanes a dp group; no eager frame
+    or prefill), Q8_0 also a solo tp stream (dp group 0) of 32 frames and
+    the unsharded model's batch and stream: captured frame ms (CUDA events)
+    against unsharded, launches a frame (each group's frame graph) against
+    the count the sharded layers make, K1 / K2 by shape at the captures,
+    graph memory, lane TTFA and aggregate RTF. -> the phase's launches."""
+    import numpy as np
+    import torch
+
+    from faster_qwen3_tts_tpu_torch.engine import graphs
+    from faster_qwen3_tts_tpu_torch.model import FasterQwen3TTS
+    from faster_qwen3_tts_tpu_torch.parallel import mesh as mesh_lib
+
+    t_phase = time.perf_counter()
+    mesh = mesh_lib.make_mesh(4, dp=2, tp=2, devices=[torch.device("cuda", 0)] * 4)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    sharded = mesh_lib.shard_params(params, mesh)
+    torch.cuda.synchronize()
+    row = {"shard_s": time.perf_counter() - t0, "sharded_gb": (torch.cuda.memory_allocated() - base) / 1e9}
+    model = FasterQwen3TTS(sharded, plain.config, plain.tokenizer, mesh=mesh)
+    reqs = [{"text": BATCH_TEXTS[i], "voice_clone_prompt": _xvec_prompt(200 + i), "xvec_only": True}
+            for i in range(4)]
+    total = {"K1": 0, "K2": 0, "K4": 0}
+    prompts = []
+    if quant == "F32":
+        ref, ref_tok = lockstep_run(plain, reqs, MESH_F32_FRAMES)
+        with sharded_shapes({}) as shapes, kept_prompts(prompts):
+            got, tok = lockstep_run(model, reqs, MESH_F32_FRAMES)
+        total = dict(got["launches"])
+        gap = float((got["logits"] - ref["logits"]).abs().max())
+        scale = float(ref["logits"].abs().max())
+        agree = [_agreement(r, t) for r, t in zip(ref_tok, tok)]
+        eager_rel, fault_rel = _fault_gap(prompts, plain.config, ref["logits"])
+        row.update(logits_max_abs_diff=gap, logits_max_abs=scale, logits_rel=gap / scale,
+                   eager_logits_rel=eager_rel, fault_logits_rel=fault_rel,
+                   argmax_equal=bool((got["logits"].argmax(-1) == ref["logits"].argmax(-1)).all()),
+                   agreement=agree, shapes=shapes)
+        log(f"mesh 2x2 F32 ({CARD}): 4-lane prefill logits against unsharded: max abs diff {gap:.3e} of "
+            f"{scale:.3f} (relative {gap / scale:.2e}, limit {MESH_F32_LOGIT_REL:.0e}; eager {eager_rel:.2e}, "
+            f"with the last rank's partials dropped {fault_rel:.2e}), argmax equal "
+            f"{row['argmax_equal']}; greedy lanes: equal frames " +
+            ", ".join(f"{a['equal_frames']}/{a['frames']}" for a in agree) + ", first difference " +
+            ", ".join(str(a["first_difference"]) for a in agree) + f"; K1 by (lanes, heads) {shapes.get('K1')}")
+        if not gap / scale <= MESH_F32_LOGIT_REL:
+            fail(f"mesh F32: prefill logits {gap / scale:.2e} relative from unsharded (limit {MESH_F32_LOGIT_REL})")
+        if not fault_rel > MESH_F32_LOGIT_REL:
+            fail(f"mesh F32: a dropped partial moves the logits only {fault_rel:.2e} (limit {MESH_F32_LOGIT_REL})")
+        if any(not (r[0] == t[0]).all() for r, t in zip(ref_tok, tok)):
+            fail(f"mesh F32: the first frame's greedy codes differ from unsharded: {agree}")
+    else:
+        warm = dict(chunk_sizes=(CHUNK,), first_chunk_size=FIRST_CHUNK, do_sample=False, subtalker_dosample=False,
+                    min_new_tokens=BATCH_FRAMES)
+        t0 = time.perf_counter()
+        sizes = (1, 4) if quant == "Q8_0" else (4,)  # B = 4: two sets of 2 lanes, one a dp group; B = 1: group 0
+        with sharded_shapes({}) as shapes:
+            model.warmup(batch_sizes=sizes, **warm)
+        row.update(warmup_s=time.perf_counter() - t0, warmup_phases=model.warmup_phases, shapes=shapes)
+        with no_eager_frames(f"mesh {quant} lockstep"), no_eager_prefills(f"mesh {quant} lockstep"), \
+                kept_prompts(prompts):
+            got, tok = lockstep_run(model, reqs, FRAMES)
+        total = {k: total[k] + got["launches"][k] for k in total}
+        regs = graphs.registries(model.params)
+        expect = _mesh_frame_launches(plain.config, quant, 2)
+        frame = [_set_of(r, 2, True).frame_launches for r in regs]
+        if any(f != expect for f in frame):
+            fail(f"mesh {quant}: a dp group's frame launches {frame}, expected {expect}")
+        row.update(lockstep={k: got[k] for k in ("steps", "wall_s", "ttfa_ms", "aggregate_rtf", "launches",
+                                                   "launches_per_step")},
+                   frame_launches_per_group=frame[0], lockstep_step_ms=sum(_replay_ms(_set_of(r, 2, True))
+                                                                           for r in regs))
+        need = ("K1", "K2") if quant == "Q8_0" else ("K1", "K2", "K4")
+        if any(got["launches"][k] == 0 for k in need):
+            fail(f"mesh {quant}: the lockstep batch did not launch {need}: {got['launches']}")
+        if quant == "Q8_0":
+            plain.warmup(batch_sizes=sizes, **warm)
+            ref, ref_tok = lockstep_run(plain, reqs, FRAMES)
+            solo_kw = dict(seed=1, greedy=True, voice_clone_prompt=reqs[0]["voice_clone_prompt"],
+                           min_new_tokens=BATCH_FRAMES)
+            _reset_launches()
+            with no_eager_frames("mesh Q8_0 solo tp stream"), no_eager_prefills("mesh Q8_0 solo tp stream"):
+                solo, solo_tok = run_request(model, **solo_kw)
+            counted = _read_launches()
+            total = {k: total[k] + counted[k] for k in total}
+            plain_solo, plain_tok = run_request(plain, **solo_kw)
+            preg = graphs.registry_for(plain.params)
+            row.update(solo=solo, solo_launches=counted, plain_solo=plain_solo,
+                       plain_lockstep={k: ref[k] for k in ("steps", "wall_s", "ttfa_ms", "aggregate_rtf")},
+                       solo_frame_ms=_replay_ms(_set_of(regs[0], 1, True)),
+                       plain_frame_ms=_replay_ms(_set_of(preg, 1, True)),
+                       plain_step_ms=_replay_ms(_set_of(preg, 4, True)),
+                       plain_frame_launches=_set_of(preg, 1, True).frame_launches,
+                       agreement=[_agreement(r, t) for r, t in zip(ref_tok, tok)],
+                       solo_agreement=_agreement(plain_tok, solo_tok),
+                       logits_rel=float((got["logits"] - ref["logits"]).abs().max() / ref["logits"].abs().max()))
+            row["eager_logits_rel"], row["fault_logits_rel"] = _fault_gap(prompts, plain.config, ref["logits"])
+            if solo["frames"] == 0 or counted["K1"] == 0 or counted["K2"] == 0:
+                fail(f"mesh Q8_0 solo tp stream: {solo['frames']} frames, launches {counted}")
+            if not row["logits_rel"] <= MESH_Q8_LOGIT_REL:
+                fail(f"mesh Q8_0: prefill logits {row['logits_rel']:.2e} relative from unsharded (limit "
+                     f"{MESH_Q8_LOGIT_REL})")
+            if not row["fault_logits_rel"] > MESH_Q8_LOGIT_REL:
+                fail(f"mesh Q8_0: a dropped partial moves the logits only {row['fault_logits_rel']:.2e} (limit "
+                     f"{MESH_Q8_LOGIT_REL})")
+            log(f"mesh 2x2 Q8_0 solo tp stream ({CARD}): TTFA {solo['ttfa_ms']:.1f} ms, stream RTF "
+                f"{solo['stream_rtf']:.3f} (unsharded {plain_solo['ttfa_ms']:.1f} ms, {plain_solo['stream_rtf']:.3f}); "
+                f"captured frame {row['solo_frame_ms']:.3f} ms against unsharded {row['plain_frame_ms']:.3f} ms; "
+                f"launches a frame {frame[0]} against unsharded {row['plain_frame_launches']}; greedy codes against "
+                f"unsharded: {row['solo_agreement']['equal_frames']}/{row['solo_agreement']['frames']} frames equal, "
+                "lockstep lanes " + ", ".join(f"{a['equal_frames']}/{a['frames']}" for a in row["agreement"]) +
+                f" (bf16; prefill logits {row['logits_rel']:.2e} relative from unsharded, limit "
+                f"{MESH_Q8_LOGIT_REL:.0e}; eager {row['eager_logits_rel']:.2e}, with the last rank's partials "
+                f"dropped {row['fault_logits_rel']:.2e})")
+        mem = model.warmup_phases
+        log(f"mesh 2x2 {quant} lockstep B=4 ({CARD}): {got['steps']} steps, aggregate RTF {got['aggregate_rtf']:.3f}"
+            + (f" (unsharded {row['plain_lockstep']['aggregate_rtf']:.3f})" if quant == "Q8_0" else "")
+            + "; lane TTFA " + ", ".join(f"{x:.0f}" for x in got["ttfa_ms"]) + " ms; a step's two group frames "
+            f"{row['lockstep_step_ms']:.3f} ms" + (f" against one unsharded B=4 frame {row['plain_step_ms']:.3f} ms"
+                                                  if quant == "Q8_0" else "")
+            + f"; launches a group frame {frame[0]}; graph memory static {mem['graph_static_gb']:.3f} GB, pool "
+            f"{mem['graph_pool_gb']} GB; capture shapes K1 {shapes.get('K1')}, K2 rows x I x O "
+            f"{sorted(shapes.get('K2', {}))}; warmup {row['warmup_s']:.1f} s")
+        kv = plain.config.talker.num_key_value_heads // 2
+        if not any(h == kv for _, _, h in shapes.get("K1", {})):
+            fail(f"mesh {quant}: K1 never ran at {kv} kv heads: {shapes.get('K1')}")
+        if quant == "Q8_0" and not {(2, 1024, 512), (2, 1536, 1024)} <= set(shapes.get("K2", {})):
+            fail(f"mesh Q8_0: K2 not at the shard shapes: {sorted(shapes.get('K2', {}))}")
+    row["shapes"] = {k: {str(key): n for key, n in d.items()} for k, d in row.get("shapes", {}).items()}
+    row["phase_s"] = time.perf_counter() - t_phase
+    log(f"mesh 2x2 {quant}: sharded in {row['shard_s']:.2f} s ({row['sharded_gb']:.2f} GB on the card), phase "
+        f"{row['phase_s']:.1f} s, launches {total}")
+    report.setdefault("mesh_2x2", {})[quant] = row
+    del model, sharded
+    gc.collect()
+    torch.cuda.empty_cache()
+    return total
+
+
 def slice_int4_phase(report, tree):
     """The 0.6B Base tree that the checkpoint phase exported (one
     `init_numpy(seed=0)`), materialized on the card in float32, BF16, Q8_0,
@@ -2095,6 +2445,9 @@ def slice_int4_phase(report, tree):
             if quant in FUSED_EXPECTED:
                 phase(f"fused 0.6B {quant}")
                 launches = {k: launches[k] + n for k, n in fused_phase(model, quant, report).items()}
+        if quant in ("F32", "Q8_0", "Q8_4"):
+            phase(f"mesh 2x2 0.6B {quant}")
+            launches = {k: launches[k] + n for k, n in mesh_phase(params, model, quant, report).items()}
         del model, params, sess
         gc.collect()
         torch.cuda.empty_cache()
@@ -2540,7 +2893,8 @@ def tapped_lanes(rec):
     """For the block, keep in rec["lanes"][s] the valid token frames of lane s
     of each lockstep batch, in rec["steps"] the frames decoded, in
     rec["start"] the kernel launches counted when the engine began (after
-    the prompts were built), and in rec["logits0"] lane 0's prefill logits."""
+    the prompts were built), in rec["logits0"] lane 0's prefill logits and
+    in rec["logits"] each graph set's (one a dp group under a mesh)."""
     from faster_qwen3_tts_tpu_torch.engine import generate as gen_lib
     from faster_qwen3_tts_tpu_torch.engine import graphs
 
@@ -2549,7 +2903,8 @@ def tapped_lanes(rec):
 
     def prefill(gset, *a, **k):  # on the card a replay: the set keeps the logits
         set_prefill(gset, *a, **k)
-        rec["logits0"] = gset.logits[0].float().clone()  # read after the run
+        rec.setdefault("logits0", gset.logits[0].float().clone())  # read after the run
+        rec.setdefault("logits", []).append(gset.logits.float().clone())
 
     def recording(*a, **k):
         rec["start"] = _read_launches()
@@ -2762,7 +3117,8 @@ def lockstep_run(model, requests, frames, greedy=True):
         samples.append(audio.size)
     steps = rec["steps"]
     tokens = [np.concatenate(rec["lanes"][s]) for s in range(B)]
-    return {"logits0": rec["logits0"].cpu(), "B": B, "frames_per_lane": [int(t.shape[0]) for t in tokens],
+    return {"logits0": rec["logits0"].cpu(), "logits": torch.cat(rec["logits"]).cpu(), "B": B,
+            "frames_per_lane": [int(t.shape[0]) for t in tokens],
             "steps": steps, "wall_s": wall,
             "ttfa_ms": [first[s] for s in range(B)], "aggregate_rtf": sum(samples) / 24000 / wall,
             "launches": launches, "launches_per_step": {k: v / steps for k, v in launches.items()}}, tokens
@@ -3347,6 +3703,7 @@ def slice_batch_phase(model, quant, report):
             total[k] += rec["launches"][k]
         rec["shapes"] = tally
         logits0 = rec.pop("logits0")
+        rec.pop("logits")
         if solo:  # B = 1 ran first; lane 0 is request 0 at every B
             ref0 = logits0 if B == 1 else ref0
             agree = [_agreement(solo[i][1], t) for i, t in enumerate(toks)]
@@ -3447,6 +3804,8 @@ def main() -> None:
     cli_phase(report, tiny_dir)
     phase("examples")
     examples_phase(report)
+    phase("mesh refusals")
+    mesh_refusals(tiny_dir)
     phase("checkpoint + slice 0.6B Q8_0 + ICL")
     from faster_qwen3_tts_tpu_torch import weights
     from faster_qwen3_tts_tpu_torch.config import get_config

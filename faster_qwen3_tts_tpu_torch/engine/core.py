@@ -8,7 +8,11 @@ done flags, history mask and frame counts stay on the device, so the host
 reads the device once per chunk, on the packed result. The KV cache is
 written in place. Continuous batching writes a B=1 stream into one lane of a
 running batch (`insert_slot`) and ends a lane (`release_slot`) with device
-writes only.
+writes only. Under a (dp, tp) mesh these functions run one dp group: its
+parameters' talker and predictor are `Ranks` of the tp ranks' subtrees, its
+state one `DecodeState` whose KV cache is a `Ranks` of per-rank caches
+(kv_heads / tp heads each, `mesh.kv_cache_spec`), and every sampling draws
+once for the group from the gathered logits.
 """
 from __future__ import annotations
 
@@ -22,7 +26,9 @@ from faster_qwen3_tts_tpu_torch.config import PredictorConfig, TalkerConfig
 
 from ..models import predictor as predictor_lib
 from ..models import talker as talker_lib
+from ..models import layers
 from ..models.layers import KVCache
+from ..parallel.mesh import as_ranks, group, kv_cache_spec, shard_shape
 from ..ops.sampling import (
     SamplingParams,
     apply_repetition_penalty,
@@ -35,7 +41,7 @@ from ..ops.sampling import (
 class DecodeState:
     """Everything the device needs to generate the next frame."""
 
-    cache: KVCache  # talker static KV cache [L, B, S_max, kv, hd]
+    cache: KVCache  # talker static KV cache [L, B, S_max, kv, hd] (a tp group: Ranks of [.., kv / tp, hd])
     pos: torch.Tensor  # [B] int32 next cache write position
     num_pads: torch.Tensor  # [B] int32 left-pad counts (mask + rope offset)
     token: torch.Tensor  # [B] int32 current codebook-0 token (already sampled)
@@ -45,17 +51,6 @@ class DecodeState:
     generator: Optional[torch.Generator]  # sampling noise source
     done: torch.Tensor  # [B] bool EOS (or length bound) reached
     n_frames: torch.Tensor  # [B] int32 frames emitted so far
-
-
-def expand_cache(cache: KVCache, max_seq: int) -> KVCache:
-    """Embed a length-P prefill cache at offset 0 of a length-max_seq cache."""
-    L, B, P, KV, HD = cache.k.shape
-    if P > max_seq:
-        raise ValueError(f"prefill length {P} exceeds max_seq_len {max_seq}")
-    full = KVCache.zeros(L, B, max_seq, KV, HD, cache.k.dtype, cache.k.device)
-    full.k[:, :, :P] = cache.k
-    full.v[:, :, :P] = cache.v
-    return full
 
 
 def start_state(
@@ -91,12 +86,14 @@ def start_state(
     extra = (torch.arange(V, device=device) == eos) if min_new_tokens > 0 else None
     token = sample_logits(logits, sampling, suppress, extra, generator=generator, noise=noise)
     if into is not None:
-        if into.cache.max_seq != max_seq or into.token.shape[0] != B or P > max_seq:
+        slots = layers.cache_max_seq(into.cache)
+        if slots != max_seq or into.token.shape[0] != B or P > max_seq:
             raise ValueError(f"prefill of {B} x {P} rows into a state of {into.token.shape[0]} lanes, "
-                             f"max_seq {into.cache.max_seq} (asked {max_seq})")
-        for buf, part in ((into.cache.k, cache_p.k), (into.cache.v, cache_p.v)):
-            buf[:, :, :P].copy_(part)
-            buf[:, :, P:].zero_()
+                             f"max_seq {slots} (asked {max_seq})")
+        for dst, src in zip(as_ranks(into.cache), as_ranks(cache_p)):
+            for buf, part in ((dst.k, src.k), (dst.v, src.v)):
+                buf[:, :, :P].copy_(part)
+                buf[:, :, P:].zero_()
         into.pos.fill_(P)
         into.num_pads.copy_((1 - pad_mask).sum(dim=-1))
         into.token.copy_(token)
@@ -105,7 +102,7 @@ def start_state(
             t.zero_()
         into.generator = generator
         return into, logits
-    cache = expand_cache(cache_p, max_seq)
+    cache = layers.expand_cache(cache_p, max_seq)
     state = DecodeState(
         cache=cache,
         pos=torch.full((B,), P, dtype=torch.int32, device=device),
@@ -126,15 +123,19 @@ start_state.eager_cuda = 0
 
 def zeros_state(
     talker_cfg: TalkerConfig, batch: int, max_seq: int, dtype: torch.dtype, device: torch.device,
-    generator: Optional[torch.Generator],
+    generator: Optional[torch.Generator], tp: int = 1,
 ) -> DecodeState:
     """An empty pool of `batch` lanes, every one done (masked) until a stream
     is inserted. A done lane still runs the frame on its frozen position; its
-    frames are invalid and its cache lane is overwritten on insertion."""
+    frames are invalid and its cache lane is overwritten on insertion. With
+    tp > 1 the cache is a `Ranks` of tp caches, each a tp rank's shard by
+    `mesh.kv_cache_spec` (kv_heads / tp heads)."""
     L, KV, HD = talker_cfg.num_hidden_layers, talker_cfg.num_key_value_heads, talker_cfg.head_dim
     i32 = dict(dtype=torch.int32, device=device)
+    shape = shard_shape((L, batch, max_seq, KV, HD), kv_cache_spec(), {"tp": tp})
+    cache = group(KVCache.zeros(*shape, dtype, device) for _ in range(tp))
     return DecodeState(
-        cache=KVCache.zeros(L, batch, max_seq, KV, HD, dtype, device),
+        cache=cache,
         pos=torch.zeros((batch,), **i32),
         num_pads=torch.zeros((batch,), **i32),
         token=torch.zeros((batch,), **i32),
@@ -156,10 +157,12 @@ def insert_slot(state: DecodeState, slot_state: DecodeState, slot: int) -> Decod
     tensors, the KV cache lane included, with no second cache and no host
     read. `slot_state` must have the pool's max_seq. The pool keeps its own
     generator, as the JAX pool keeps its key. Returns `state`."""
-    if slot_state.cache.max_seq != state.cache.max_seq:
-        raise ValueError(f"slot cache max_seq {slot_state.cache.max_seq} != pool {state.cache.max_seq}")
-    state.cache.k[:, slot].copy_(slot_state.cache.k[:, 0])
-    state.cache.v[:, slot].copy_(slot_state.cache.v[:, 0])
+    if layers.cache_max_seq(slot_state.cache) != layers.cache_max_seq(state.cache):
+        raise ValueError(f"slot cache max_seq {layers.cache_max_seq(slot_state.cache)} != pool "
+                         f"{layers.cache_max_seq(state.cache)}")
+    for dst, src in zip(as_ranks(state.cache), as_ranks(slot_state.cache)):
+        dst.k[:, slot].copy_(src.k[:, 0])
+        dst.v[:, slot].copy_(src.v[:, 0])
     for name in _LANE_FIELDS:
         getattr(state, name)[slot].copy_(getattr(slot_state, name)[0])
     return state
@@ -194,7 +197,7 @@ def _decode_frame(
     if device.type == "cuda" and not torch.cuda.is_current_stream_capturing():
         _decode_frame.eager_cuda += 1
     eos = talker_cfg.codec_eos_token_id
-    max_seq = state.cache.max_seq
+    max_seq = layers.cache_max_seq(state.cache)
     V = talker_cfg.vocab_size
 
     eos_now = state.token == eos

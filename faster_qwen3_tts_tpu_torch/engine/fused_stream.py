@@ -6,6 +6,9 @@ decoder's fixed transposed-conv trim deficit. Emitting the window-local
 samples [ctx * up - D, (ctx + chunk) * up - D) makes consecutive chunks
 exactly contiguous in absolute sample positions. Tokens stay int tensors:
 the JAX package's float-value transport works around a TPU-only problem.
+Under a (dp, tp) mesh each dp group vocodes its own lanes on its replicated
+codec (one window graph a group's set), where GSPMD partitions the JAX
+package's B-lane window over dp.
 """
 from __future__ import annotations
 

@@ -1,12 +1,13 @@
 """Host-side generation drivers over the device engine.
 
-Port of faster_qwen3_tts_tpu/engine/generate.py without its TPU-only
-parts (the mesh, the parity engine): prompt padding buckets,
+Port of faster_qwen3_tts_tpu/engine/generate.py without its parity
+engine (`engine/parity.py` holds the port's): prompt padding buckets,
 `GenerationSession`, `fast_generate` (non-streaming),
 `fast_generate_streaming_fused` (streaming; chunks vocoded on the device
 after their decode, or left to the caller's host vocode while an ICL stream
 with a short reference warms in) and `fast_generate_streaming_batch` (B
-streams in lockstep on one batch). The host reads the device once per chunk.
+streams in lockstep on one batch, split over the dp groups of a mesh). The
+host reads the device once per chunk.
 Each session leases a graph set (`engine/graphs.py`) from its prefill until
 the driver ends or is closed; on the card its chunks are graph replays. The
 streaming drivers dispatch ahead where the JAX drivers do: chunk k+1 is
@@ -31,6 +32,7 @@ import torch
 from faster_qwen3_tts_tpu_torch.config import Qwen3TTSConfig
 
 from ..ops.sampling import SamplingParams
+from ..parallel import mesh as mesh_lib
 from . import core, fused_stream, graphs
 
 PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048)
@@ -103,8 +105,39 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def lane_groups(params, batch: int, mesh=None) -> List[Tuple[Dict[str, Any], slice]]:
+    """Where a batch of `batch` lanes runs -> [(parameters, lanes)]. A plain
+    tree runs every lane. A sharded tree (`mesh.shard_params`) splits the
+    lanes over its dp groups when `mesh` is passed, dp > 1 and dp divides
+    the batch (the JAX package's rule); otherwise dp group 0 runs every lane
+    (the JAX package replicates such a batch over dp: the same codes)."""
+    placed = mesh_lib.mesh_of(params)
+    if placed is None:
+        if mesh is not None:
+            raise ValueError("mesh= needs parameters placed on that mesh (mesh.shard_params)")
+        return [(params, slice(0, batch))]
+    if mesh is not None and (mesh.shape != placed.shape or list(mesh.devices.flat) != list(placed.devices.flat)):
+        raise ValueError(f"the parameters are placed on {placed}, not on {mesh}")
+    dp = placed.shape["dp"]
+    if mesh is not None and dp > 1 and batch % dp == 0:
+        n = batch // dp
+        return [(mesh_lib.group_params(params, g), slice(g * n, (g + 1) * n)) for g in range(dp)]
+    return [(mesh_lib.group_params(params, 0), slice(0, batch))]
+
+
+class _Part:
+    """One dp group's share of a session: its parameters, its lanes, its
+    prompt on its device, its graph key, seed and leased set."""
+
+    def __init__(self, params, lanes: slice, tie, mask, tth, tpe, key: graphs.GraphKey, seed: int):
+        self.params, self.lanes = params, lanes
+        self.tie, self.mask, self.tth, self.tpe = tie, mask, tth, tpe
+        self.key, self.seed = key, seed
+        self.graphs: Optional[graphs.GraphSet] = None
+
+
 class GenerationSession:
-    """One request's chunk pump over a leased graph set (single device).
+    """One request's chunk pump over leased graph sets.
 
     The prompt is host numpy at its own length (padded to the prefill and
     trailing-text buckets, cast and uploaded here) or device tensors at
@@ -116,7 +149,15 @@ class GenerationSession:
     graphs).
     The `*_async` methods queue a chunk and return its device tensors
     without reading them; they stay valid until the next chunk is queued.
-    `close()` (or the session's collection) returns the set."""
+    `close()` (or the session's collection) returns the set.
+
+    Sharded parameters (`mesh.shard_params`): the lanes run on the dp
+    groups `lane_groups` gives (split over dp with `mesh`, else all on group
+    0), each group with its own set (its tp ranks in one frame graph) and
+    seed (seed + group index); the chunks' rows and audio are concatenated
+    in lane order. The JAX package draws one replicated key for the whole
+    batch, so sampled lanes split over dp part from an unsharded run; the
+    `noise` arguments (CPU) slice one draw for the whole batch per group."""
 
     def __init__(
         self,
@@ -131,66 +172,93 @@ class GenerationSession:
         pred_sampling: SamplingParams,
         min_new_tokens: int,
         seed: Optional[int] = None,
+        mesh=None,
     ):
         self.params = params
         self.cfg = cfg
         self.sampling = sampling
         self.pred_sampling = pred_sampling
         self.min_new_tokens = min_new_tokens
-        embed = params["talker"]["codec_embed"]
-        self.device, dtype = embed.device, embed.dtype
         bucket = prefill_bucket(tie.shape[1], max_seq_len)
         t_bucket = tth_bucket(trailing_text.shape[1])
-        put = lambda a, dt: torch.as_tensor(np.asarray(a)).to(self.device, dt)
-        if isinstance(tie, torch.Tensor):
-            # a device prompt (`PromptBuilder.build_device`) at its exact buckets passes through untouched
-            if (tie.shape[1], trailing_text.shape[1]) != (bucket, t_bucket) or tie.dtype != dtype \
-                    or trailing_text.dtype != dtype or tie.device != self.device:
-                raise ValueError(f"a device prompt must be at its buckets ({bucket}, {t_bucket}) in {dtype} on "
-                                 f"{self.device}: tie {tuple(tie.shape)} {tie.dtype} on {tie.device}, "
-                                 f"tth {tuple(trailing_text.shape)} {trailing_text.dtype}")
-            self.tie, self.mask, self.tth = tie, attention_mask, trailing_text
-        else:
-            tie_b, mask_b = _pad_left(tie, attention_mask, bucket)
-            self.tie = put(tie_b, dtype)
-            self.mask = put(mask_b, torch.int32)
-            self.tth = put(_pad_trailing(trailing_text, tts_pad_embed, t_bucket), dtype)
-        self.tpe = put(tts_pad_embed, dtype)
         if seed is None:
             seed = int(np.random.default_rng().integers(0, 2**31 - 1))
         self.seed = seed
         self.max_seq_len = max_seq_len
-        self.key = graphs.make_key(params, self.tie.shape[0], max_seq_len, t_bucket, sampling, pred_sampling,
-                                   min_new_tokens)
+        device_prompt = isinstance(tie, torch.Tensor)
+        if not device_prompt:
+            tie_b, mask_b = _pad_left(tie, attention_mask, bucket)
+            tth_b = _pad_trailing(trailing_text, tts_pad_embed, t_bucket)
+        self.parts: List[_Part] = []
+        for g, (gparams, lanes) in enumerate(lane_groups(params, tie.shape[0], mesh)):
+            embed = mesh_lib.replica(gparams["talker"])["codec_embed"]
+            device, dtype = embed.device, embed.dtype
+            put = lambda a, dt: torch.as_tensor(np.asarray(a)).to(device, dt)
+            if device_prompt:
+                # a device prompt (`PromptBuilder.build_device`) at its exact buckets passes through untouched
+                if (tie.shape[1], trailing_text.shape[1]) != (bucket, t_bucket) or tie.dtype != dtype \
+                        or trailing_text.dtype != dtype or tie.device != device:
+                    raise ValueError(f"a device prompt must be at its buckets ({bucket}, {t_bucket}) in {dtype} on "
+                                     f"{device}: tie {tuple(tie.shape)} {tie.dtype} on {tie.device}, "
+                                     f"tth {tuple(trailing_text.shape)} {trailing_text.dtype}")
+                whole = lanes == slice(0, tie.shape[0])
+                ptie, pmask, ptth = ((tie, attention_mask, trailing_text) if whole
+                                     else (tie[lanes], attention_mask[lanes], trailing_text[lanes]))
+            else:
+                ptie, pmask, ptth = put(tie_b[lanes], dtype), put(mask_b[lanes], torch.int32), put(tth_b[lanes], dtype)
+            key = graphs.make_key(gparams, lanes.stop - lanes.start, max_seq_len, t_bucket, sampling,
+                                  pred_sampling, min_new_tokens)
+            self.parts.append(_Part(gparams, lanes, ptie, pmask, ptth, put(tts_pad_embed, dtype), key, seed + g))
+        first = self.parts[0]
+        # the first (or only) part's, as a session of one device has them
+        self.device, self.key = first.tie.device, first.key
+        self.tie, self.mask, self.tth, self.tpe = first.tie, first.mask, first.tth, first.tpe
         self.graphs: Optional[graphs.GraphSet] = None
-        self._lease: Optional[graphs.Lease] = None
+        self._leases: List[graphs.Lease] = []
         self.state: Optional[core.DecodeState] = None
         self.prefill_ms = 0.0
 
     def close(self) -> None:
-        """Return the graph set (idempotent)."""
-        if self._lease is not None:
-            self._lease.release()
+        """Return the graph sets (idempotent)."""
+        for lease in self._leases:
+            lease.release()
 
-    def prefill(self, block: bool = True) -> None:
-        """Lease the set and run the prefill into its static state (on the
-        card a replay of the bucket's graph); with block=False its time folds
-        into the first chunk's (prefill_ms stays 0)."""
+    def prefill(self, block: bool = True, noise: Optional[torch.Tensor] = None) -> None:
+        """Lease the sets and run the prefill into their static states (on
+        the card a replay of the bucket's graph); with block=False its time
+        folds into the first chunk's (prefill_ms stays 0). `noise` [B, V]
+        replaces the first draw (CPU)."""
         t0 = time.perf_counter()
-        if self.graphs is None:  # a set of this request's key, captured if none is free
-            reg = graphs.registry_for(self.params)
-            self.graphs = reg.lease(self.params, self.cfg, self.key)
-            self._lease = graphs.Lease(self, reg, self.graphs)
-        self.graphs.load_text(self.tth, self.tpe)
-        self.graphs.prefill(self.params, self.tie, self.mask, self.seed)
+        for part in self.parts:
+            if part.graphs is None:  # a set of this part's key, captured if none is free
+                reg = graphs.registry_for(part.params)
+                part.graphs = reg.lease(part.params, self.cfg, part.key)
+                self._leases.append(graphs.Lease(self, reg, part.graphs))
+            part.graphs.load_text(part.tth, part.tpe)
+            part.graphs.prefill(part.params, part.tie, part.mask, part.seed,
+                                None if noise is None else noise[part.lanes])
+        self.graphs = self.parts[0].graphs
         self.state = self.graphs.state
         if block:
-            _sync(self.device)
+            for part in self.parts:
+                _sync(part.tie.device)
             self.prefill_ms = (time.perf_counter() - t0) * 1000.0
 
-    def decode_chunk_async(self, chunk_size: int) -> torch.Tensor:
-        """Queue one chunk -> its packed rows [chunk, B, 18], not read."""
-        return self.graphs.run_chunk(self.params, chunk_size)
+    def _lanes(self, tensors: List[torch.Tensor], dim: int) -> torch.Tensor:
+        """The parts' outputs in lane order (on the first part's device)."""
+        if len(tensors) == 1:
+            return tensors[0]
+        return torch.cat([t.to(self.device) for t in tensors], dim=dim)
+
+    def _chunk(self, part: _Part, chunk_size: int, noise) -> torch.Tensor:
+        if noise is not None:
+            noise = [(p[:, part.lanes], t[part.lanes]) for p, t in noise]
+        return part.graphs.run_chunk(part.params, chunk_size, noise)
+
+    def decode_chunk_async(self, chunk_size: int, noise=None) -> torch.Tensor:
+        """Queue one chunk -> its packed rows [chunk, B, 18], not read.
+        `noise`: per frame (predictor [15, B, Vp], talker [B, V]) draws (CPU)."""
+        return self._lanes([self._chunk(part, chunk_size, noise) for part in self.parts], dim=1)
 
     def decode_chunk(self, chunk_size: int) -> Tuple[np.ndarray, bool]:
         """One chunk, read once -> (valid frames [n, 16] int32, done)."""
@@ -201,20 +269,27 @@ class GenerationSession:
     def set_codec_history(self, frames: np.ndarray, ctx: int) -> None:
         """The vocoder's left context of a single stream: the last `ctx` of
         frames [n >= ctx, 16] (an ICL stream's reference codes first)."""
-        self.graphs.set_history(np.asarray(frames)[None], ctx)
+        self.set_codec_history_batch(np.asarray(frames)[None], ctx)
 
     def set_codec_history_batch(self, frames_b: np.ndarray, ctx: int) -> None:
         """Every lane's vocoder left context: the last `ctx` frames of
         frames_b [B, >= ctx, 16] (each lane's own history, or its ICL
-        reference tail)."""
-        self.graphs.set_history(frames_b, ctx)
+        reference tail), each part's lanes into its set (the JAX
+        `_put_hist`)."""
+        frames_b = np.asarray(frames_b)
+        for part in self.parts:
+            part.graphs.set_history(frames_b[part.lanes], ctx)
 
     def decode_chunk_fused_async(self, chunk_size: int, ctx: int):
         """Queue one chunk and the window vocode of every lane over the
         history set for width `ctx` (none for ctx 0) -> (audio [B, chunk *
-        up], packed), not read."""
-        packed = self.graphs.run_chunk(self.params, chunk_size)
-        return self.graphs.vocode(self.params, chunk_size, ctx), packed
+        up], packed), not read. Each part vocodes its lanes on its group's
+        replicated codec."""
+        packed, audio = [], []
+        for part in self.parts:
+            packed.append(part.graphs.run_chunk(part.params, chunk_size))
+            audio.append(part.graphs.vocode(part.params, chunk_size, ctx))
+        return self._lanes(audio, dim=0), self._lanes(packed, dim=1)
 
 
 def fast_generate(
@@ -289,6 +364,7 @@ def fast_generate_streaming_batch(
     repetition_penalty: float = 1.05,
     chunk_size: int = 12,
     seed: Optional[int] = None,
+    mesh=None,
     context_frames: int = CONTEXT_FRAMES,
     first_chunk_size: Optional[int] = None,
     ref_codes_list: Optional[List[Optional[np.ndarray]]] = None,
@@ -311,14 +387,16 @@ def fast_generate_streaming_batch(
     grows min(decoded, context_frames)) or every lane carries at least
     context_frames ICL reference frames (ctx = context_frames from chunk 0,
     over each lane's reference tail). Otherwise chunks are `plain` (audio
-    None) and the caller vocodes each lane on the host. Unlike the JAX
-    package, there is no mesh."""
+    None) and the caller vocodes each lane on the host. `mesh`: the mesh
+    sharded parameters are placed on; the lanes split over its dp groups
+    when dp divides B (`lane_groups`), each group's lanes vocoded on its
+    own replicated codec."""
     sess = GenerationSession(
         params, cfg, tie, attention_mask, trailing_text, tts_pad_embed, max_seq_len,
         SamplingParams(temperature, top_k, top_p, do_sample, repetition_penalty),
         predictor_sampling(subtalker_dosample, subtalker_top_k, subtalker_top_p,
                            subtalker_temperature),
-        min_new_tokens, seed,
+        min_new_tokens, seed, mesh=mesh,
     )
     B = tie.shape[0]
     refs = list(ref_codes_list) if ref_codes_list is not None else [None] * B

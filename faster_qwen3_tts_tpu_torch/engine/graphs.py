@@ -13,7 +13,8 @@ cannot outlive its process, so nothing is written to disk.
 
 A `GraphSet` owns everything one key of static shapes and static arguments
 needs (`GraphKey`: lanes, max_seq, the trailing-text bucket, dtype and
-quant mode of the parameters, both samplings, min_new_tokens): the static
+quant mode of the parameters, both samplings, min_new_tokens, and the
+(dp, tp) shape of the mesh for a dp group's parameters): the static
 `DecodeState` (KV cache, positions, tokens, flags), the trailing-text,
 pad-embedding and suppress-mask buffers, a prompt buffer pair (tie, mask)
 per prompt bucket and the last prefill's logits, the packed chunk rows
@@ -26,6 +27,12 @@ at the end of the captured frame the new state is copied back into the same
 tensors, which is what JAX's donation does: each replay continues from the
 last one. A second live session of one key gets a set of its own, which
 captures its prefill graphs at their first use.
+
+Under a mesh the engine runs one set per dp group, leased from that
+group's registry (`mesh.group_params`, whose tree is told apart by its
+first shard); its frame graph captures every tp rank of the group, the
+partial sums and the logit gathers included, and its KV cache is one
+cache per rank.
 
 A `GraphRegistry` per parameter tree (`registry_for`) leases sets: a live
 session holds its set until it is closed (or collected); a second live
@@ -58,6 +65,7 @@ import torch
 from ..ops import attention as attention_ops
 from ..ops import quant as quant_ops
 from ..ops.sampling import SamplingParams, make_suppress_mask
+from ..parallel import mesh as mesh_lib
 from . import core, fused_stream
 
 ROWS = 32  # packed chunk rows a set starts with (the non-streaming chunk); grown on demand
@@ -87,12 +95,25 @@ class GraphKey(NamedTuple):
     sampling: SamplingParams
     pred_sampling: SamplingParams
     min_new_tokens: int
+    mesh: Optional[Tuple[int, int]] = None  # (dp, tp) of a dp group's parameters; None unsharded
+
+    @property
+    def tp(self) -> int:
+        return self.mesh[1] if self.mesh else 1
+
+
+def _replica_tree(params):
+    """A tree's replicated view: rank 0's talker and predictor of a dp group."""
+    return {k: mesh_lib.replica(v) for k, v in params.items()}
 
 
 def make_key(params, batch: int, max_seq: int, text_rows: int, sampling: SamplingParams,
              pred_sampling: SamplingParams, min_new_tokens: int) -> GraphKey:
-    return GraphKey(batch, max_seq, text_rows, params["talker"]["codec_embed"].dtype,
-                    quant_ops.infer_quant_mode(params), sampling, pred_sampling, min_new_tokens)
+    mesh = getattr(params, "mesh", None)
+    shape = (mesh.shape["dp"], mesh.shape["tp"]) if mesh is not None else None
+    tree = _replica_tree(params)
+    return GraphKey(batch, max_seq, text_rows, tree["talker"]["codec_embed"].dtype,
+                    quant_ops.infer_quant_mode(tree), sampling, pred_sampling, min_new_tokens, shape)
 
 
 def warmup_windows(chunk_sizes: Sequence[int], first_chunk_size: Optional[int],
@@ -132,7 +153,7 @@ class GraphSet:
         tcfg = cfg.talker
         B, ncg = key.batch, tcfg.num_code_groups
         self.generator = torch.Generator(device=device)
-        self.state = core.zeros_state(tcfg, B, key.max_seq, key.dtype, device, self.generator)
+        self.state = core.zeros_state(tcfg, B, key.max_seq, key.dtype, device, self.generator, key.tp)
         self.tth = torch.zeros((B, key.text_rows, tcfg.hidden_size), dtype=key.dtype, device=device)
         self.tpe = torch.zeros((B, 1, tcfg.hidden_size), dtype=key.dtype, device=device)
         self.suppress = make_suppress_mask(tcfg.vocab_size, tcfg.codec_eos_token_id, device)
@@ -269,7 +290,8 @@ class GraphSet:
     def static_bytes(self) -> int:
         """Bytes of the set's static buffers (outside the graph pool)."""
         st = self.state
-        tensors = [st.cache.k, st.cache.v, st.pos, st.num_pads, st.token, st.past_hidden, st.gen_step, st.seen,
+        caches = [t for c in mesh_lib.as_ranks(st.cache) for t in (c.k, c.v)]
+        tensors = [*caches, st.pos, st.num_pads, st.token, st.past_hidden, st.gen_step, st.seen,
                    st.done, st.n_frames, self.tth, self.tpe, self.suppress, self.out, self.logits, self.packed,
                    *(t for pair in self.prompts.values() for t in pair), *self.hists.values(),
                    *self.audio.values()]
@@ -322,7 +344,8 @@ class GraphSet:
         """An empty pool (`core.zeros_state`): every lane done, all zeros."""
         self.generator.manual_seed(seed)
         st = self.state
-        for t in (st.cache.k, st.cache.v, st.pos, st.num_pads, st.token, st.past_hidden, st.gen_step,
+        caches = [t for c in mesh_lib.as_ranks(st.cache) for t in (c.k, c.v)]
+        for t in (*caches, st.pos, st.num_pads, st.token, st.past_hidden, st.gen_step,
                   st.seen, st.n_frames, self.tth):
             t.zero_()
         st.done.fill_(True)
@@ -451,16 +474,21 @@ def _anchors(params):
     """Two tensors that identify a tree's graphs: its codec embedding and its
     talker's first attention projection. The second tells a fused tree
     (`quant.fuse_layer_weights`, which shares every other leaf) from the tree
-    it was fused from, so each gets its own graphs."""
-    layers = params["talker"]["layers"]
-    w = layers["wqkv"] if "wqkv" in layers else layers["wq"]
-    return params["talker"]["codec_embed"], (w[0] if isinstance(w, tuple) else w)
+    it was fused from, so each gets its own graphs. A dp group's tree is told
+    apart by its first shard (rank 0's leaves, its group's own copies)."""
+    talker = mesh_lib.replica(params["talker"])
+    stack = talker["layers"]
+    w = stack["wqkv"] if "wqkv" in stack else stack["wq"]
+    return talker["codec_embed"], (w[0] if isinstance(w, tuple) else w)
 
 
 def registry_for(params) -> GraphRegistry:
     """The registry of a parameter tree; it lives as long as the tree's codec
     embedding and attention projection (the tree is not referenced: callers
     pass it in)."""
+    if mesh_lib.is_sharded(params):
+        raise TypeError("registry_for takes a plain tree or one dp group's (mesh.group_params); "
+                        "registries(params) gives every group's registry of a sharded tree")
     anchors = _anchors(params)
     key = tuple(id(a) for a in anchors)
     reg = _REGISTRIES.get(key)
@@ -469,3 +497,12 @@ def registry_for(params) -> GraphRegistry:
         for a in anchors:
             weakref.finalize(a, _REGISTRIES.pop, key, None)
     return reg
+
+
+def registries(params) -> List[GraphRegistry]:
+    """The registry of a plain tree, or of every dp group of a sharded tree
+    (`mesh.shard_params`), in group order."""
+    mesh = mesh_lib.mesh_of(params)
+    if mesh is None:
+        return [registry_for(params)]
+    return [registry_for(mesh_lib.group_params(params, g)) for g in range(mesh.shape["dp"])]

@@ -30,7 +30,9 @@ captured at its first use. The native backend's cached-reference kwargs
 class rejects them, as the JAX package's does. `from_pretrained(...,
 fuse_qkv=True)` loads the fused projection layout. `save_deploy_bundle`
 writes the parameters as a deploy bundle, which `from_pretrained` loads back
-as a serving restart.
+as a serving restart. `from_pretrained(dp=, tp=)` (or a
+`parallel.mesh.shard_params` tree with its mesh) serves over a (dp, tp)
+device mesh: tp-sharded weights, a lockstep batch's lanes split over dp.
 """
 from __future__ import annotations
 
@@ -54,6 +56,7 @@ from .engine import generate as gen_lib
 from .engine.fused_stream import codec_deficit
 from .models import codec as codec_lib
 from .ops import quant as quant_lib
+from .parallel import mesh as mesh_lib
 from .prompt import PromptBuilder
 
 logger = logging.getLogger(__name__)
@@ -150,11 +153,20 @@ class _StreamVocoder:
         return new_audio
 
 
+def _pool_bytes(regs) -> Optional[int]:
+    """Bytes of the registries' graph pools, None where one is not known."""
+    sizes = [r.memory()["pool_bytes"] for r in regs]
+    return None if any(b is None for b in sizes) else sum(sizes)
+
+
 class FasterQwen3TTS:
     """The PyTorch engine with the JAX package's API."""
 
     def __init__(self, params: Dict[str, Any], config: Qwen3TTSConfig, tokenizer: PromptTokenizer,
-                 max_seq_len: int = 2048):
+                 max_seq_len: int = 2048, mesh=None):
+        placed = mesh_lib.mesh_of(params)
+        if mesh is not None and placed is None:
+            raise ValueError("mesh= needs parameters placed on it (parallel.mesh.shard_params)")
         if params["talker"]["codec_embed"].device.type == "cuda":
             # Process-wide: float32 products and convolutions (the codec) in
             # full float32 (cuDNN defaults to TF32), bf16 products reduced in
@@ -166,9 +178,15 @@ class FasterQwen3TTS:
         self.config = config
         self.tokenizer = tokenizer
         self.max_seq_len = max_seq_len
+        # The (dp, tp) device mesh of sharded parameters (`from_pretrained(dp=, tp=)`, or a
+        # `shard_params` tree, whose mesh it is when none is passed), or None on one device.
+        self.mesh = mesh if mesh is not None else placed
+        # the replicated leaves (dp group 0, tp rank 0) feed the prompt, the codec facade and the encoders
+        local = params if placed is None else mesh_lib.local_tree(params)
         self.sample_rate = config.codec.sample_rate
-        self.prompt_builder = PromptBuilder(params, config)
-        self._speech_tokenizer = SpeechTokenizerFacade(params, config)
+        self.prompt_builder = PromptBuilder(local, config)
+        self._speech_tokenizer = SpeechTokenizerFacade(local, config)
+        self._local_params = local
         self.device_chunk = 32  # frames per chunk in non-streaming generation
         self._warmed_up = False
         self._voice_prompt_cache: Dict[Any, Any] = {}
@@ -225,7 +243,18 @@ class FasterQwen3TTS:
         names, "BF16" / "F32" (none), "Q8_0" / "int8" (weight-only int8 for
         the talker and predictor projections), "Q4_K_M" / "int4" (group-wise
         int4) or "Q8_4" / "mixed" (talker int8, predictor int4). dp / tp:
-        None or 1 (the multi-chip mesh is not ported). kwargs: `fuse_qkv`
+        serving over a (dp, tp) mesh (`parallel.mesh`; either set builds
+        one): tp shards attention heads and MLP columns Megatron style
+        (tp must divide num_key_value_heads of the talker and the
+        predictor), dp splits a lockstep batch's lanes
+        (`generate_voice_clone_streaming_batch`). On "cuda" dp * tp > 1
+        needs that many visible cards and then raises NotImplementedError:
+        a mesh over distinct cards waits for a multi-card run (ROADMAP A.8;
+        one card's mesh of repeated devices is `parallel.mesh.make_mesh(
+        devices=["cuda:0"] * n)` with `shard_params`); "cpu" builds a mesh of cpu
+        entries, as the JAX tests' virtual devices. The tree is loaded (a
+        bundle unpacked), quantized, then sharded; `fuse_qkv` under a mesh
+        warns and keeps the unfused layout. kwargs: `fuse_qkv`
         (default False), the fused projection layout of the JAX package's
         `FQ3T_FUSE_QKV` (`quant.fuse_layer_weights`, applied after
         quantization), and `voice_ref_cache_dir` (native backend); any other
@@ -250,10 +279,6 @@ class FasterQwen3TTS:
         if attn_implementation == "xla":
             logger.warning("attn_implementation='xla': the port always runs its decode-attention kernel "
                            "(K1) on the card; the argument is ignored.")
-        for name, n in (("dp", dp), ("tp", tp)):
-            if n not in (None, 1):
-                raise ValueError(f"{name}={n}: the multi-chip mesh is not ported; the port runs on one card "
-                                 "(dp and tp take None or 1).")
         fuse_qkv = bool(kwargs.pop("fuse_qkv", False))
         if kwargs.pop("voice_ref_cache_dir", None) is not None:
             logger.warning("voice_ref_cache_dir is read by backend='native' only; ignored.")
@@ -315,6 +340,16 @@ class FasterQwen3TTS:
                 "its tokenizer assets need `transformers`, which is not installed" if has_assets
                 else "no tokenizer assets (tokenizer.json / vocab.json)")
         mark("weights_read")
+        mesh = None
+        if dp is not None or tp is not None:
+            dp_, tp_ = dp or 1, tp or 1
+            n = dp_ * tp_
+            visible = torch.cuda.device_count() if device.type == "cuda" else n  # cpu: a mesh of cpu entries
+            if visible < n:
+                raise ValueError(f"dp={dp_} x tp={tp_} needs {n} devices; only {visible} visible")
+            if config.talker.num_key_value_heads % tp_ or config.predictor.num_key_value_heads % tp_:
+                raise ValueError(f"tp={tp_} must divide num_key_value_heads")
+            mesh = mesh_lib.make_mesh(n, dp=dp_, tp=tp_, devices=None if device.type == "cuda" else [device] * n)
         if tree is not None:
             params = weights_lib.materialize(tree, dtype, mode, device, mark=mark)
             del tree
@@ -337,17 +372,31 @@ class FasterQwen3TTS:
         if fuse_qkv and bundle_mode is not None:
             logger.warning("fuse_qkv=True on a deploy bundle is ignored: a bundle keeps the layout it was "
                            "saved in.")
+        elif fuse_qkv and mesh is not None:
+            logger.warning("fuse_qkv=True is a one-device layout; ignored under a (dp, tp) mesh (tp shards "
+                           "the unfused per-head projections).")
         elif fuse_qkv and "wq" in params["talker"]["layers"]:
             for sub in ("talker", "predictor"):
                 quant_lib._fuse_layers(params[sub]["layers"])
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             mark("fuse")
-        model = cls(params, config, tokenizer, max_seq_len=max_seq_len)
+        if mesh is not None:
+            params = mesh_lib.shard_params(params, mesh)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            mark("shard")
+        model = cls(params, config, tokenizer, max_seq_len=max_seq_len, mesh=mesh)
         model.load_phases = load_phases
         model.load_coverage = coverage  # per submodel, for an HF checkpoint
         model._source_path = model_name if is_dir else None
         return model
+
+    def _unsharded_params(self) -> Dict[str, Any]:
+        """The parameters as one tree: a sharded model's gathered from dp
+        group 0 (`mesh.gather_params`), as the JAX package reads sharded
+        arrays through `np.asarray`."""
+        return self.params if self.mesh is None else mesh_lib.gather_params(self.params)
 
     def save_deploy_bundle(self, path, compact_f32: bool = True) -> None:
         """Write this model's parameters as they are now (quantized or not,
@@ -360,7 +409,7 @@ class FasterQwen3TTS:
         directory the model came from are copied beside it."""
         import shutil
 
-        host = weights_lib.host_tree(self.params)
+        host = weights_lib.host_tree(self._unsharded_params())
         weights_lib.save_deploy_bundle(path, host, self.config, quant_mode=quant_lib.infer_quant_mode(host),
                                        compact_f32=compact_f32)
         del host
@@ -425,9 +474,9 @@ class FasterQwen3TTS:
         sampling = SamplingParams(temperature, top_k, top_p, do_sample, repetition_penalty)
         pred = gen_lib.predictor_sampling(subtalker_dosample, subtalker_top_k, subtalker_top_p,
                                           subtalker_temperature)
-        reg = graphs_lib.registry_for(self.params)
-        stats0 = dict(reg.stats)
-        pool0 = reg.memory()["pool_bytes"]
+        regs = graphs_lib.registries(self.params)
+        stats0 = [dict(r.stats) for r in regs]
+        pool0 = _pool_bytes(regs)
         xvec = {"ref_spk_embedding": [np.zeros(2048, np.float32)], "x_vector_only_mode": [True],
                 "icl_mode": [False], "ref_code": [None]}
         tie, tam, tth, tpe, _ = self._prepare_generation("Warm up the engine.", voice_clone_prompt=xvec)
@@ -443,15 +492,22 @@ class FasterQwen3TTS:
         buckets = tuple(sorted({b for b in gen_lib.SERVED_PREFILL_BUCKETS if b <= self.max_seq_len}
                                | {gen_lib.prefill_bucket(prefill_len, self.max_seq_len)}))
         windows = graphs_lib.warmup_windows(chunk_sizes, first_chunk_size, gen_lib.CONTEXT_FRAMES)
+
+        def warm(B: int, mesh, windows, buckets) -> None:
+            # the sets a batch of B lanes leases: one per dp group it runs on (`gen_lib.lane_groups`)
+            for params, lanes in gen_lib.lane_groups(self.params, B, mesh):
+                key = graphs_lib.make_key(params, lanes.stop - lanes.start, self.max_seq_len, sess.key.text_rows,
+                                          sampling, pred, min_new_tokens)
+                graphs_lib.registry_for(params).warm(params, self.config, key, windows, prefill_buckets=buckets)
+
         for B in dict.fromkeys(batch_sizes):
-            reg.warm(self.params, self.config, sess.key._replace(batch=B), windows, prefill_buckets=buckets)
+            warm(B, self.mesh, windows, buckets)  # a lockstep batch splits over dp; a solo stream runs on group 0
             mark(f"graphs_B{B}")
         if pool_slots:
             ctx = gen_lib.CONTEXT_FRAMES
             # the pool is filled by lane copies, never prefilled
-            reg.warm(self.params, self.config, sess.key._replace(batch=pool_slots),
-                     [(c, ctx) for c in chunk_sizes])
-            reg.warm(self.params, self.config, sess.key, prefill_buckets=buckets)  # admission's prefill, solo chunk
+            warm(pool_slots, None, [(c, ctx) for c in chunk_sizes], ())
+            warm(1, None, (), buckets)  # admission's prefill, solo chunk
             mark(f"graphs_pool{pool_slots}")
         warm_text = "The quick brown fox jumps over the lazy dog warms buckets."
         self._prepare_generation(warm_text, voice_clone_prompt=xvec, xvec_only=True)
@@ -465,13 +521,14 @@ class FasterQwen3TTS:
         if self.params["talker"]["codec_embed"].device.type == "cuda":
             torch.cuda.synchronize()
         mark("prompt_assembly")
-        mem = reg.memory()
-        phases["graph_static_gb"] = mem["static_bytes"] / 1e9  # every set of this model, not only these
+        pool = _pool_bytes(regs)
+        # every set of this model (of every dp group), not only these
+        phases["graph_static_gb"] = sum(r.memory()["static_bytes"] for r in regs) / 1e9
         phases["graph_pool_gb_before"] = None if pool0 is None else pool0 / 1e9
-        phases["graph_pool_gb"] = None if mem["pool_bytes"] is None else mem["pool_bytes"] / 1e9
-        phases["captures"] = reg.stats["captures"] - stats0["captures"]
-        phases["prefill_captures"] = reg.stats["prefill_captures"] - stats0["prefill_captures"]
-        phases["capture_s"] = round(reg.stats["capture_s"] - stats0["capture_s"], 3)
+        phases["graph_pool_gb"] = None if pool is None else pool / 1e9
+        for name in ("captures", "prefill_captures", "capture_s"):
+            phases[name] = sum(r.stats[name] - s0[name] for r, s0 in zip(regs, stats0))
+        phases["capture_s"] = round(phases["capture_s"], 3)
         phases["prefill_buckets"] = list(buckets)
         phases["total_s"] = round(time.perf_counter() - t0, 3)
         self.warmup_phases = phases
@@ -548,7 +605,7 @@ class FasterQwen3TTS:
         if self._voice_extractor is None:
             from .models.voice_extract import VoiceExtractor
 
-            self._voice_extractor = VoiceExtractor(self.params, self.config)
+            self._voice_extractor = VoiceExtractor(self._local_params, self.config)
         return self._voice_extractor
 
     @staticmethod
@@ -676,11 +733,13 @@ class FasterQwen3TTS:
 
     def _device_prompt_ok(self, prefer_device: bool, non_streaming_mode: bool) -> bool:
         """The device-assembly gate: a streaming-layout request whose caller
-        prefers it. The lockstep batch pads its prompts in host numpy and
-        `parity_mode` reads them on the host, so both pass prefer_device=False;
-        a whole-text (non-streaming) layout is built on the host. Unlike the
-        JAX package there is no mesh and no switch to turn it off."""
-        return prefer_device and not non_streaming_mode
+        prefers it, on a model without a mesh. The lockstep batch pads its
+        prompts in host numpy and `parity_mode` reads them on the host, so
+        both pass prefer_device=False; a whole-text (non-streaming) layout is
+        built on the host, and so is every prompt under a mesh (the session
+        places each dp group's lanes on its device), as in the JAX package.
+        Unlike the JAX package there is no switch to turn it off."""
+        return prefer_device and not non_streaming_mode and self.mesh is None
 
     def _prepare_generation_custom(self, text, language, speaker, instruct=None, non_streaming_mode=True,
                                    prefer_device: bool = True):
@@ -785,7 +844,8 @@ class FasterQwen3TTS:
         if parity_mode:
             from .engine import parity as parity_lib
 
-            codec_ids, timing = parity_lib.parity_generate(self.params, self.config, tie, tam, tth, tpe, **kw)
+            codec_ids, timing = parity_lib.parity_generate(self._unsharded_params(), self.config, tie, tam, tth,
+                                                           tpe, **kw)
         else:
             codec_ids, timing = gen_lib.fast_generate(self.params, self.config, tie, tam, tth, tpe,
                                                       device_chunk=self.device_chunk, **kw)
@@ -851,7 +911,7 @@ class FasterQwen3TTS:
             from .engine import parity as parity_lib
 
             stream = ((frames, None, timing) for frames, timing in parity_lib.parity_generate_streaming(
-                self.params, self.config, tie, tam, tth, tpe, **kw))
+                self._unsharded_params(), self.config, tie, tam, tth, tpe, **kw))
         else:
             stream = gen_lib.fast_generate_streaming_fused(
                 self.params, self.config, tie, tam, tth, tpe,
@@ -915,7 +975,8 @@ class FasterQwen3TTS:
         timing) in chunk order; a slot stops appearing once its stream hit
         EOS. Every lane is vocoded on the device when all are x-vector or
         all carry >= 24 ICL reference frames; a mixed batch vocodes each lane
-        with its own host vocoder."""
+        with its own host vocoder. Under a mesh the lanes split over its dp
+        groups when dp divides B (else dp group 0 runs them all)."""
         if not requests:
             return
         prepared = []
@@ -947,7 +1008,7 @@ class FasterQwen3TTS:
             self.params, self.config, tie, mask, tth, tpe, max_seq_len=self.max_seq_len,
             max_new_tokens=max_new_tokens, min_new_tokens=min_new_tokens, temperature=temperature,
             top_k=top_k, top_p=top_p, do_sample=do_sample, repetition_penalty=repetition_penalty,
-            chunk_size=chunk_size, first_chunk_size=first_chunk_size, seed=seed,
+            chunk_size=chunk_size, first_chunk_size=first_chunk_size, seed=seed, mesh=self.mesh,
             ref_codes_list=ref_codes, subtalker_dosample=subtalker_dosample,
             subtalker_top_k=subtalker_top_k, subtalker_top_p=subtalker_top_p,
             subtalker_temperature=subtalker_temperature,

@@ -5,6 +5,15 @@ tensors with every per-layer weight stacked along a leading layer axis (the
 JAX layout, so trees convert leaf for leaf); the layer loop is a plain Python
 loop over views of those stacks. Every product accumulates in f32 and is
 rounded back to the activation dtype right after, where the JAX code rounds.
+
+Under a (dp, tp) mesh (`parallel.mesh`) a tp group's stacks come as `Ranks`
+of per-rank dicts: each rank runs `LayerShape(num_heads / tp, num_kv_heads
+/ tp, ...)` on its column slices (q / k / v, gate / up) with its own KV
+cache, and the row-parallel partials (wo, w_down) are summed in rank order.
+Inside, every function works on a list of ranks (`mesh.as_ranks`; a plain
+dict is one rank, whose products are the unsharded ones), and what it
+returns per rank is put back by `mesh.group` (one rank plain, several a
+`Ranks`).
 """
 from __future__ import annotations
 
@@ -16,6 +25,7 @@ import torch.nn.functional as F
 
 from ..ops.attention import decode_attention, prefill_attention, prefill_mask
 from ..ops.quant import QuantizedLinear, QuantizedLinear4, dot
+from ..parallel.mesh import all_gather, all_reduce, as_ranks, group
 
 
 @dataclasses.dataclass
@@ -92,6 +102,13 @@ class LayerShape:
         return tuple(t == "sliding_attention" for t in self.layer_types)
 
 
+def rank_shape(shape: LayerShape, tp: int) -> LayerShape:
+    """The geometry one of `tp` ranks runs: its share of the heads."""
+    if tp == 1:
+        return shape
+    return dataclasses.replace(shape, num_heads=shape.num_heads // tp, num_kv_heads=shape.num_kv_heads // tp)
+
+
 def unstack_layers(stacked: Dict[str, object]) -> List[Dict[str, object]]:
     """Stacked per-layer params -> one dict of views per layer."""
 
@@ -109,98 +126,177 @@ def _num_layers(stacked) -> int:
     return (w[0] if isinstance(w, (QuantizedLinear, QuantizedLinear4)) else w).shape[0]
 
 
-def _qkv(lp, x: torch.Tensor, shape: LayerShape):
+def cache_max_seq(cache) -> int:
+    """The slots of a KV cache, or of a tp group's per-rank caches."""
+    return as_ranks(cache)[0].max_seq
+
+
+def expand_cache(cache, max_seq: int):
+    """A length-P prefill cache (or each rank's of a tp group) at offset 0 of
+    a zeroed length-max_seq cache."""
+    full = []
+    for c in as_ranks(cache):
+        L, B, P, KV, HD = c.k.shape
+        if P > max_seq:
+            raise ValueError(f"prefill length {P} exceeds max_seq_len {max_seq}")
+        full.append(KVCache.zeros(L, B, max_seq, KV, HD, c.k.dtype, c.k.device))
+        full[-1].k[:, :, :P] = c.k
+        full[-1].v[:, :, :P] = c.v
+    return group(full)
+
+
+def _column(lps, x: torch.Tensor, name: str) -> List[torch.Tensor]:
+    """A column-parallel projection of x (replicated over the ranks) -> each
+    rank's output columns. A replicated int4 weight (`mesh.shard_params`
+    keeps QuantizedLinear4 whole) runs whole, once; each rank takes its
+    columns."""
+    w = lps[0][name]
+    if len(lps) > 1 and isinstance(w, QuantizedLinear4):
+        return list(dot(x, w).chunk(len(lps), dim=-1))
+    return [dot(x, lp[name]) for lp in lps]
+
+
+def _row(lps, parts: List[torch.Tensor], name: str) -> torch.Tensor:
+    """A row-parallel projection of the ranks' input slices, reduced: one
+    rank's product as it is; over tp ranks the partials summed in rank
+    order (`mesh.all_reduce`) and rounded once (an int8 weight's partials
+    in float32: K2 takes float32 rows and applies the scale in its
+    epilogue); a replicated int4 weight runs whole, once, on the gathered
+    input (the unsharded product)."""
+    w = lps[0][name]
+    if len(lps) == 1:
+        return dot(parts[0], w)
+    if isinstance(w, QuantizedLinear4):
+        return dot(all_gather(parts), w)
+    dtype = parts[0].dtype
+    if isinstance(w, QuantizedLinear):
+        parts = [p.float() for p in parts]
+    return all_reduce([dot(p, lp[name]) for p, lp in zip(parts, lps)]).to(dtype)
+
+
+def column_gathered(params, x: torch.Tensor, weight) -> torch.Tensor:
+    """x @ weight(params) over a plain subtree or a tp group's `Ranks`: the
+    column shards' products gathered in rank order (`mesh.all_gather`,
+    before any sampling); a replicated int4 weight runs whole, once."""
+    ranks = as_ranks(params)
+    w = weight(ranks[0])
+    if len(ranks) == 1 or isinstance(w, QuantizedLinear4):
+        return dot(x, w)
+    return all_gather([dot(x, weight(r)) for r in ranks])
+
+
+def _qkv(lps, x: torch.Tensor, shape: LayerShape):
+    """-> per rank (q, k, v) [B, S, heads, head_dim] of the rank's heads
+    (`shape` is the rank's), q and k RMS-normed."""
     B, S, _ = x.shape
     qd = shape.num_heads * shape.head_dim
     kd = shape.num_kv_heads * shape.head_dim
-    if "wqkv" in lp:
-        # the fused layout (ops.quant.fuse_layer_weights): one product, split
-        # into views; the norms and RoPE below write new tensors, and the
-        # cache write copies v, so no split is made contiguous
-        y = dot(x, lp["wqkv"])
-        q, k, v = y[..., :qd], y[..., qd:qd + kd], y[..., qd + kd:]
+    if "wqkv" in lps[0]:
+        # the fused layout (ops.quant.fuse_layer_weights; never sharded): one product, split into views; the
+        # norms and RoPE below write new tensors, and the cache write copies v, so no split is made contiguous
+        y = dot(x, lps[0]["wqkv"])
+        parts = [(y[..., :qd], y[..., qd:qd + kd], y[..., qd + kd:])]
     else:
-        q, k, v = dot(x, lp["wq"]), dot(x, lp["wk"]), dot(x, lp["wv"])
-    q = q.reshape(B, S, shape.num_heads, shape.head_dim)
-    k = k.reshape(B, S, shape.num_kv_heads, shape.head_dim)
-    v = v.reshape(B, S, shape.num_kv_heads, shape.head_dim)
-    # Qwen3 per-head q/k RMSNorm
-    return rms_norm(lp["q_norm"], q, shape.rms_eps), rms_norm(lp["k_norm"], k, shape.rms_eps), v
+        parts = zip(_column(lps, x, "wq"), _column(lps, x, "wk"), _column(lps, x, "wv"))
+    out = []
+    for lp, (q, k, v) in zip(lps, parts):
+        q = q.reshape(B, S, shape.num_heads, shape.head_dim)
+        k = k.reshape(B, S, shape.num_kv_heads, shape.head_dim)
+        v = v.reshape(B, S, shape.num_kv_heads, shape.head_dim)
+        # Qwen3 per-head q/k RMSNorm
+        out.append((rms_norm(lp["q_norm"], q, shape.rms_eps), rms_norm(lp["k_norm"], k, shape.rms_eps), v))
+    return out
 
 
-def _mlp(lp, x: torch.Tensor) -> torch.Tensor:
-    if "w_gateup" in lp:
-        y = dot(x, lp["w_gateup"])
+def _mlp(lps, x: torch.Tensor) -> torch.Tensor:
+    if "w_gateup" in lps[0]:
+        y = dot(x, lps[0]["w_gateup"])
         inter = y.shape[-1] // 2
-        gate, up = y[..., :inter], y[..., inter:]
+        gates, ups = [y[..., :inter]], [y[..., inter:]]
     else:
-        gate = dot(x, lp["w_gate"])
-        up = dot(x, lp["w_up"])
-    return dot(F.silu(gate.float()).to(x.dtype) * up, lp["w_down"])
+        gates, ups = _column(lps, x, "w_gate"), _column(lps, x, "w_up")
+    return _row(lps, [F.silu(g.float()).to(x.dtype) * u for g, u in zip(gates, ups)], "w_down")
 
 
-def layer_prefill(lp, x, cos, sin, mask, shape: LayerShape):
-    """One layer over a padded sequence. x: [B, S, H]; mask [B, S, S] bool.
-    Returns (y, (k, v)) with k/v [B, S, kv, hd] for the cache."""
-    h = rms_norm(lp["ln1"], x, shape.rms_eps)
-    q, k, v = _qkv(lp, h, shape)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
-    attn = prefill_attention(q, k, v, mask)
-    B, S = attn.shape[:2]
-    x = x + dot(attn.reshape(B, S, -1), lp["wo"])
-    x = x + _mlp(lp, rms_norm(lp["ln2"], x, shape.rms_eps))
-    return x, (k, v)
+def layer_prefill(lps, x, cos, sin, mask, shape: LayerShape):
+    """One layer over a padded sequence. x: [B, S, H]; mask [B, S, S] bool;
+    `lps` the layer's dict of each rank. Returns (y, per rank (k, v)) with
+    k/v [B, S, kv / tp, hd] for the cache: each rank attends with its heads."""
+    h = rms_norm(lps[0]["ln1"], x, shape.rms_eps)
+    attn, kv = [], []
+    for q, k, v in _qkv(lps, h, rank_shape(shape, len(lps))):
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        a = prefill_attention(q, k, v, mask)
+        attn.append(a.reshape(a.shape[0], a.shape[1], -1))
+        kv.append((k, v))
+    x = x + _row(lps, attn, "wo")
+    x = x + _mlp(lps, rms_norm(lps[0]["ln2"], x, shape.rms_eps))
+    return x, kv
 
 
-def layer_decode(lp, x, cos, sin, k_cache, v_cache, write_pos, length_mask, shape: LayerShape):
-    """One layer for one token. x: [B, 1, H]; k_cache/v_cache [B, S_max, kv,
-    hd] are written IN PLACE at `write_pos` [B]; length_mask [B, S_max]."""
-    h = rms_norm(lp["ln1"], x, shape.rms_eps)
-    q, k, v = _qkv(lp, h, shape)
-    q = apply_rope(q, cos, sin)
-    k = apply_rope(k, cos, sin)
+def layer_decode(lps, x, cos, sin, k_caches, v_caches, write_pos, length_mask, shape: LayerShape):
+    """One layer for one token. x: [B, 1, H]; `lps` the layer's dict of each
+    rank, and k_caches / v_caches each rank's [B, S_max, kv / tp, hd], written
+    IN PLACE at `write_pos` [B]; length_mask [B, S_max]. Each rank writes and
+    reads its own heads' cache (K1 at kv / tp heads)."""
+    h = rms_norm(lps[0]["ln1"], x, shape.rms_eps)
     rows = torch.arange(x.shape[0], device=x.device)
-    k_cache[rows, write_pos] = k[:, 0]
-    v_cache[rows, write_pos] = v[:, 0]
-    attn = decode_attention(q, k_cache, v_cache, length_mask)
-    x = x + dot(attn.reshape(x.shape[0], 1, -1), lp["wo"])
-    x = x + _mlp(lp, rms_norm(lp["ln2"], x, shape.rms_eps))
+    attn = []
+    for (q, k, v), kc, vc in zip(_qkv(lps, h, rank_shape(shape, len(lps))), k_caches, v_caches):
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        kc[rows, write_pos] = k[:, 0]
+        vc[rows, write_pos] = v[:, 0]
+        attn.append(decode_attention(q, kc, vc, length_mask).reshape(x.shape[0], 1, -1))
+    x = x + _row(lps, attn, "wo")
+    x = x + _mlp(lps, rms_norm(lps[0]["ln2"], x, shape.rms_eps))
     return x
+
+
+def _per_layer(layers) -> List[tuple]:
+    """A stack, or a tp group's `Ranks` of stacks -> per layer, each rank's
+    dict of views."""
+    return list(zip(*(unstack_layers(s) for s in as_ranks(layers))))
 
 
 def stack_prefill(layers, x, positions, pad_mask, shape: LayerShape, rope_theta, final_norm):
     """Full stack over a padded sequence. positions [B, S] (already offset for
-    left pads). Returns (normed hidden [B, S, H], KVCache with seq dim S)."""
+    left pads). Returns (normed hidden [B, S, H], KVCache with seq dim S;
+    for a tp group's `Ranks` of stacks, a `Ranks` of each rank's KVCache)."""
     cos, sin = rope_cos_sin(positions, shape.head_dim, rope_theta)
-    per_layer = unstack_layers(layers)
+    per_layer = _per_layer(layers)
     flags = shape.sliding_flags(len(per_layer))
     full = prefill_mask(pad_mask)
     slide = prefill_mask(pad_mask, shape.sliding_window) if any(flags) else None
-    ks, vs = [], []
-    for lp, is_slide in zip(per_layer, flags):
-        x, (k, v) = layer_prefill(lp, x, cos, sin, slide if is_slide else full, shape)
-        ks.append(k)
-        vs.append(v)
-    return rms_norm(final_norm, x, shape.rms_eps), KVCache(k=torch.stack(ks), v=torch.stack(vs))
+    kvs = []
+    for lps, is_slide in zip(per_layer, flags):
+        x, kv = layer_prefill(lps, x, cos, sin, slide if is_slide else full, shape)
+        kvs.append(kv)
+    caches = [KVCache(k=torch.stack([layer[r][0] for layer in kvs]), v=torch.stack([layer[r][1] for layer in kvs]))
+              for r in range(len(kvs[0]))]
+    return rms_norm(final_norm, x, shape.rms_eps), group(caches)
 
 
-def stack_decode(layers, x, pos, rope_pos, cache: KVCache, length_mask, shape: LayerShape,
+def stack_decode(layers, x, pos, rope_pos, cache, length_mask, shape: LayerShape,
                  rope_theta, final_norm):
-    """One token through the stack, updating `cache` in place.
+    """One token through the stack, updating `cache` in place (a tp group's
+    `Ranks` of stacks takes a `Ranks` of caches).
 
     pos [B]: cache write position; rope_pos [B]: rope position (pos minus the
     left pads); length_mask [B, S_max]. Sliding layers also drop slots at or
     below pos - sliding_window. A position past the cache end (a finished
     stream's masked frame) writes the last slot, as XLA clamps its update."""
     cos, sin = rope_cos_sin(rope_pos[:, None], shape.head_dim, rope_theta)
-    per_layer = unstack_layers(layers)
+    per_layer = _per_layer(layers)
     flags = shape.sliding_flags(len(per_layer))
     if any(flags):
         s_ids = torch.arange(length_mask.shape[-1], device=x.device)[None, :]
         slide_mask = length_mask * (s_ids > (pos[:, None] - shape.sliding_window))
-    write_pos = pos.clamp(max=cache.max_seq - 1)
-    for i, (lp, is_slide) in enumerate(zip(per_layer, flags)):
+    write_pos = pos.clamp(max=cache_max_seq(cache) - 1)
+    caches = as_ranks(cache)
+    for i, (lps, is_slide) in enumerate(zip(per_layer, flags)):
         mask = slide_mask if is_slide else length_mask
-        x = layer_decode(lp, x, cos, sin, cache.k[i], cache.v[i], write_pos, mask, shape)
+        x = layer_decode(lps, x, cos, sin, [c.k[i] for c in caches], [c.v[i] for c in caches], write_pos, mask,
+                         shape)
     return rms_norm(final_norm, x, shape.rms_eps)

@@ -2,7 +2,9 @@
 
 Port of faster_qwen3_tts_tpu/models/talker.py over the same parameter dict:
 text_embed / text_proj, codec_embed / codec_head, spk_proj, stacked layers
-and final_norm.
+and final_norm. Under a mesh `params` may be a tp group's `Ranks` of
+per-rank subtrees: the replicated leaves are read from rank 0, the layers
+run per rank, and the column-sharded codec head's logits are gathered.
 """
 from __future__ import annotations
 
@@ -13,6 +15,7 @@ import torch
 from faster_qwen3_tts_tpu_torch.config import TalkerConfig
 
 from ..ops.quant import dot
+from ..parallel.mesh import per_rank, replica
 from . import layers
 from .layers import KVCache, LayerShape
 
@@ -30,11 +33,11 @@ def layer_shape(cfg: TalkerConfig) -> LayerShape:
 
 def embed_text(params, ids: torch.Tensor) -> torch.Tensor:
     """Raw text-embedding lookup, [.., S] -> [.., S, text_hidden]."""
-    return params["text_embed"][ids]
+    return replica(params)["text_embed"][ids]
 
 
 def text_project(params, x: torch.Tensor) -> torch.Tensor:
-    p = params["text_proj"]
+    p = replica(params)["text_proj"]
     return (dot(x, p["w"]).float() + p["b"].float()).to(x.dtype)
 
 
@@ -44,16 +47,16 @@ def text_hidden(params, ids: torch.Tensor) -> torch.Tensor:
 
 
 def embed_codec(params, ids: torch.Tensor) -> torch.Tensor:
-    return params["codec_embed"][ids]
+    return replica(params)["codec_embed"][ids]
 
 
 def codec_logits(params, h: torch.Tensor) -> torch.Tensor:
-    return dot(h, params["codec_head"]).float()
+    return layers.column_gathered(params, h, lambda p: p["codec_head"]).float()
 
 
 def speaker_project(params, xvec: torch.Tensor) -> torch.Tensor:
     """2048-d x-vector -> talker hidden, in f32, rounded to the weight dtype."""
-    p = params["spk_proj"]
+    p = replica(params)["spk_proj"]
     y = torch.matmul(xvec.float(), p["w"].float()) + p["b"].float()
     return y.to(p["w"].dtype)
 
@@ -66,8 +69,8 @@ def prefill(params, cfg: TalkerConfig, embeds: torch.Tensor, pad_mask: torch.Ten
     num_pads = (1 - pad_mask).sum(dim=-1)
     positions = torch.arange(embeds.shape[1], device=embeds.device)[None, :] - num_pads[:, None]
     h, cache = layers.stack_prefill(
-        params["layers"], embeds, positions.clamp(min=0), pad_mask, layer_shape(cfg),
-        cfg.rope_theta, params["final_norm"],
+        per_rank(params, "layers"), embeds, positions.clamp(min=0), pad_mask, layer_shape(cfg),
+        cfg.rope_theta, replica(params)["final_norm"],
     )
     last = h[:, -1:, :]
     return last, codec_logits(params, last[:, 0, :]), cache
@@ -77,6 +80,6 @@ def decode_step(params, cfg: TalkerConfig, x, pos, rope_pos, cache: KVCache, len
                 ) -> torch.Tensor:
     """One decode step; writes the cache in place and returns hidden [B, 1, H]."""
     return layers.stack_decode(
-        params["layers"], x, pos, rope_pos, cache, length_mask, layer_shape(cfg),
-        cfg.rope_theta, params["final_norm"],
+        per_rank(params, "layers"), x, pos, rope_pos, cache, length_mask, layer_shape(cfg),
+        cfg.rope_theta, replica(params)["final_norm"],
     )

@@ -593,6 +593,13 @@ def main(argv=None) -> None:
                          "the next chunk boundary (chunk 8; per-request chunk_size is ignored). "
                          "Excludes --batch")
     ap.add_argument("--max-new-tokens", type=int, default=2048, help="frames per request at most")
+    ap.add_argument("--dp", type=int, default=None,
+                    help="shard the serving batch over a dp-way device mesh (pass to from_pretrained; pair "
+                         "with --batch). With --device cpu: a mesh of cpu entries. On cards a mesh over "
+                         "distinct cards is refused until it has run on a multi-card machine (ROADMAP A.8)")
+    ap.add_argument("--tp", type=int, default=None,
+                    help="tensor-parallel ways for per-request latency (as --dp: refused on cards until "
+                         "ROADMAP A.8)")
     args = ap.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)
@@ -601,7 +608,8 @@ def main(argv=None) -> None:
     from .model import FasterQwen3TTS
 
     model = FasterQwen3TTS.from_pretrained(args.model, device=args.device, quant=args.quant,
-                                           strict=args.strict, backend=args.backend, fuse_qkv=args.fuse_qkv)
+                                           strict=args.strict, backend=args.backend, fuse_qkv=args.fuse_qkv,
+                                           dp=args.dp, tp=args.tp)
     if args.warmup:
         warm(model, args.continuous, args.batch)
     srv = make_server(model, args.host, args.port, voices=args.voices, batch=args.batch,

@@ -94,7 +94,8 @@ class ContinuousBatcher:
     ttfa_from_submit_ms, admit_wait_ms; plus solo_first_chunk (the
     admission chunk), cancelled (a cancelled stream's terminal) or error (a
     request that failed admission; slot -1). Up to 8 slots every projection
-    of a frame is a K2 launch; see the module docstring for more."""
+    of a frame is a K2 launch; see the module docstring for more. A model
+    with a (dp, tp) mesh is refused, as in the JAX package."""
 
     def __init__(
         self,
@@ -115,6 +116,9 @@ class ContinuousBatcher:
         subtalker_top_p: Optional[float] = None,
         subtalker_temperature: Optional[float] = None,
     ):
+        if getattr(model, "mesh", None) is not None:
+            raise ValueError("continuous batching is single-chip for now; "
+                             "use the lockstep batched API under a dp mesh")
         self.model = model
         self.B = max_slots
         self.chunk_size = chunk_size

@@ -1,11 +1,39 @@
-"""Timing-dict formatting (the JAX package's `utils.logging_utils.format_timing`).
+"""Logging helpers: loader-chatter suppression, timing-dict formatting and a
+profiler trace (the JAX package's `utils.logging_utils`).
 
-Its other two helpers silence JAX plugin warnings and start a JAX profiler
-trace; neither has a use here.
+`suppress_platform_warnings` quiets what torch and the CUDA libraries log
+and warn on a fresh process; `enable_profiler_trace` is the package's
+tracing hook, a `torch.profiler` window written as a Chrome trace (the
+counterpart of `jax.profiler.trace`).
 """
 from __future__ import annotations
 
+import contextlib
+import logging
+import os
+import time
+import warnings
 from typing import Any, Dict
+
+# the loggers torch and its CUDA / compiler layers print start-up chatter on
+_PLATFORM_LOGGERS = ("torch", "torch.cuda", "torch.distributed", "torch._dynamo", "torch._inductor")
+
+
+@contextlib.contextmanager
+def suppress_platform_warnings():
+    """Silence the loader chatter of torch and the CUDA libraries inside the
+    block (cosmetic only): their loggers at ERROR and torch's UserWarnings
+    ignored; the levels and the warning filters are restored on exit."""
+    saved = {name: logging.getLogger(name).level for name in _PLATFORM_LOGGERS}
+    for name in _PLATFORM_LOGGERS:
+        logging.getLogger(name).setLevel(logging.ERROR)
+    try:
+        with warnings.catch_warnings():
+            warnings.filterwarnings("ignore", category=UserWarning, module=r"torch(\.|$)")
+            yield
+    finally:
+        for name, level in saved.items():
+            logging.getLogger(name).setLevel(level)
 
 
 def format_timing(timing: Dict[str, Any], frame_rate: float = 12.5) -> str:
@@ -19,3 +47,25 @@ def format_timing(timing: Dict[str, Any], frame_rate: float = 12.5) -> str:
         f"Generated {audio_s:.2f}s audio in {total:.2f}s "
         f"({timing.get('ms_per_step', 0.0):.1f}ms/step, RTF: {rtf:.2f})"
     )
+
+
+@contextlib.contextmanager
+def enable_profiler_trace(logdir: str):
+    """Profile the block with `torch.profiler` (host ops, and the card's
+    kernels where CUDA is available) and write it into `logdir` as a Chrome
+    trace, `trace-<pid>-<ms>.json` (open it in chrome://tracing or
+    Perfetto). Yields the profiler, whose `key_averages()` reads the same
+    window.
+
+    Usage:
+        with enable_profiler_trace("/tmp/trace"):
+            model.generate_voice_clone(...)
+    """
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if torch.cuda.is_available() else [])
+    os.makedirs(logdir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield prof
+    prof.export_chrome_trace(os.path.join(logdir, f"trace-{os.getpid()}-{int(time.time() * 1000)}.json"))

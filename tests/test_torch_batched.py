@@ -361,10 +361,10 @@ def test_stream_vocoder_continues_after_device_chunks(models):
 @pytest.mark.parametrize("name", ["fast_generate_streaming_batch", "generate_voice_clone_streaming_batch",
                                   "continuous_batcher"])
 def test_batch_signatures_match_jax(name):
-    """The JAX parameter names in the JAX order (the engine without `mesh`)."""
+    """The JAX parameter names in the JAX order, the engine's `mesh` included."""
     if name == "fast_generate_streaming_batch":
         ours, theirs = gen.fast_generate_streaming_batch, jax_gen.fast_generate_streaming_batch
     else:
         ours, theirs = getattr(FasterQwen3TTS, name), getattr(JaxTTS, name)
-    want = [p for p in inspect.signature(theirs).parameters if p != "mesh"]
+    want = list(inspect.signature(theirs).parameters)
     assert list(inspect.signature(ours).parameters) == want

@@ -32,7 +32,8 @@ def test_port_runs_without_jax_or_the_jax_package(tmp_path):
     own-format and an HF checkpoint, run a request through the native
     backend (its reference cache and host library) and one through the
     fused layout, write a deploy bundle (compact and full) and load it back,
-    load once with FQ3T_DEVICE_INIT=1, and bind the server. Neither jax, the
+    load once with FQ3T_DEVICE_INIT=1, run a lockstep batch over a dp = 2
+    mesh (`parallel/mesh.py`), and bind the server. Neither jax, the
     JAX package, safetensors, aiohttp nor ml_dtypes is loaded."""
     script = tmp_path / "run.py"
     script.write_text(
@@ -117,6 +118,12 @@ def test_port_runs_without_jax_or_the_jax_package(tmp_path):
         "os.environ['FQ3T_DEVICE_INIT'] = '1'\n"
         "dm = FasterQwen3TTS.from_pretrained('0.6b', device='cpu', quant='Q8_4')\n"
         "assert isinstance(dm.params['predictor']['layers']['wq'], type(m4.params['predictor']['layers']['wq']))\n"
+        "from faster_qwen3_tts_tpu_torch.parallel import mesh as mesh_lib\n"
+        "mm = FasterQwen3TTS(mesh_lib.shard_params(m0, mesh_lib.make_mesh(2, dp=2, devices=['cpu'] * 2)), cfg,\n"
+        "                    PromptTokenizer(ByteTokenizer()), max_seq_len=64)\n"
+        "n = sum(len(a) for _, a, _, _ in mm.generate_voice_clone_streaming_batch(\n"
+        "    [{'text': 'Hi.', 'voice_clone_prompt': prompt}] * 2, max_new_tokens=6, chunk_size=4, seed=0))\n"
+        "assert n > 0 and mm.mesh.shape == {'dp': 2, 'tp': 1}\n"
         "srv = server.make_server(m, '127.0.0.1', 0)\n"
         "srv.server_close()\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"

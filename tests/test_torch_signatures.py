@@ -121,9 +121,11 @@ def test_from_pretrained_arguments(tiny_dir, caplog):
         assert type(FasterQwen3TTS.from_pretrained(tiny_dir, backend=backend, **kw)) is FasterQwen3TTS
     with pytest.raises(ValueError, match="backend"):
         FasterQwen3TTS.from_pretrained(tiny_dir, backend="ggml", **kw)
-    for mesh in (dict(dp=2), dict(tp=4)):
-        with pytest.raises(ValueError, match="mesh"):
-            FasterQwen3TTS.from_pretrained(tiny_dir, **mesh, **kw)
+    # dp / tp build a (dp, tp) mesh, of cpu entries on the CPU; tp must divide every kv head count
+    m = FasterQwen3TTS.from_pretrained(tiny_dir, dp=2, **kw)
+    assert m.mesh is not None and m.mesh.shape == {"dp": 2, "tp": 1}
+    with pytest.raises(ValueError, match="tp=4 must divide num_key_value_heads"):
+        FasterQwen3TTS.from_pretrained(tiny_dir, tp=4, **kw)
 
 
 def test_from_pretrained_native_backend(tiny_dir, tmp_path):
