@@ -55,8 +55,10 @@ Phases, each of which fails the run:
    `parity_mode=True` against the engine on the card for float32, Q8_0,
    Q4_K_M and Q8_4 weights, greedy and sampled with one seed: equal tokens;
 6. mesh refusals: `from_pretrained(<tiny dir>, dp=2, tp=2)` on one card
-   raises the device-count ValueError, a tp group or dp groups over cuda:0
-   and cuda:1 NotImplementedError;
+   raises the device-count ValueError, a process mesh whose tp group sits
+   on cuda:0 twice ValueError (NCCL's one rank a card) before spawning, a
+   tp group or dp groups over cuda:0 and cuda:1 the device-count
+   ValueError;
    cli: `python -m faster_qwen3_tts_tpu_torch.cli clone` on the tiny
    checkpoint as a subprocess on the card (rc 0, a 24 kHz wav); examples:
    each script of examples_torch/ as a subprocess on the card at the tiny
@@ -144,6 +146,22 @@ Phases, each of which fails the run:
    bundle loaded in this process: every leaf the bf16 rounding of the
    strict leaf, its greedy codes counted against this model's (not held:
    compact rounds the quantization scales too);
+10d. mesh procs, from the full bundle: dp = 2 x tp = 1 as two processes on
+   cuda:0 (this one, rank 0, and a spawned worker; `make_mesh(2, dp=2,
+   tp=1, devices=[cuda:0] * 2, processes=True)` passed to
+   `from_pretrained`): the worker's start (spawn, join, load) and its
+   module check, `warmup`, a 4-lane greedy lockstep batch of 32 frames
+   whose every dp group's 2 lanes must equal, code for code, this model's
+   B = 2 batch of the same two requests; no eager frame or prefill in
+   either process (the worker's counters read over the control plane), K1
+   and K2 launched in both (the worker's launches go into the record);
+   captured B = 2 frame ms of each process and of this model, aggregate
+   RTF, lane TTFA; then the NCCL capture check on rank 0's one-rank NCCL tp
+   group: the port's `mesh.all_reduce` (float32 [4, 1, H]) and
+   `mesh.all_gather` (logits along dim -1) captured in one CUDA graph, 100
+   replays each equal to eager; the host ms of a control-plane round trip
+   (one command out, one reply back, median of 20); `close()` leaves no
+   worker;
 11. int4 slice: the same seeded 0.6B tree (one `init_numpy`) materialized
     in float32, BF16, Q8_0, Q4_K_M and Q8_4: the quant_delta row (prefill
     logit cosine and top-10 overlap against float32, projection bytes);
@@ -1850,6 +1868,8 @@ def restart_phase(model, report):
     del cm
     gc.collect()
     torch.cuda.empty_cache()
+    phase("mesh procs: dp = 2 over two processes on cuda:0, from the full bundle")
+    procs_launches = mesh_procs_phase(model, full, report)
     shutil.rmtree(full)
     shutil.rmtree(compact)
     phase_s = time.perf_counter() - t_phase
@@ -1859,7 +1879,7 @@ def restart_phase(model, report):
                                    "compact": {"load_s": compact_load_s, "leaves": n, "codes_equal": equal,
                                                "codes": int(want.size), "load_phases": compact_phases},
                                    "phase_s": phase_s, "card": CARD}
-    return {k: child["launches"][k] + launches[k] for k in launches}
+    return {k: child["launches"][k] + launches[k] + procs_launches[k] for k in launches}
 
 
 def mixed_bundle_phase(model, report):
@@ -2082,7 +2102,7 @@ def _fault_gap(prompts, cfg, ref_logits):
         return float((got - ref_logits).abs().max() / ref_logits.abs().max())
 
     clean, reduce = gap(), layers.all_reduce
-    layers.all_reduce = lambda parts: reduce(parts[:-1])
+    layers.all_reduce = lambda parts, group=None: reduce(parts[:-1], group)
     try:
         return clean, gap()
     finally:
@@ -2152,9 +2172,12 @@ def _set_of(reg, batch, greedy):
 
 def mesh_refusals(tiny_dir):
     """On a machine with one card `from_pretrained(dp=2, tp=2)` raises the JAX
-    package's device-count ValueError, and a tp group or dp groups over two
-    distinct cards raise NotImplementedError (ROADMAP A.8) before touching
-    one."""
+    package's device-count ValueError; a process mesh whose tp group sits on
+    cuda:0 twice raises ValueError (NCCL takes one rank a card) before
+    spawning anything; and a mesh over cuda:0 and cuda:1 (a tp group or dp
+    groups) raises the device-count ValueError."""
+    import multiprocessing
+
     import torch
 
     from faster_qwen3_tts_tpu_torch.model import FasterQwen3TTS
@@ -2169,15 +2192,181 @@ def mesh_refusals(tiny_dir):
         if n >= 4 or f"needs 4 devices; only {n} visible" not in str(e):
             fail(f"from_pretrained(dp=2, tp=2) on {n} card(s): {e}")
         said = str(e)
+    card = torch.device("cuda", 0)
+    children = len(multiprocessing.active_children())
+    try:
+        mesh_lib.make_mesh(2, dp=1, tp=2, devices=[card, card], processes=True)
+        fail("a process mesh with tp = 2 over cuda:0 twice did not raise")
+    except ValueError as e:
+        if "NCCL" not in str(e) or "one-process mesh" not in str(e):
+            fail(f"a process mesh with tp = 2 over cuda:0 twice: {e}")
+    if len(multiprocessing.active_children()) != children:
+        fail("the refused process mesh spawned a process")
     for dp, tp in ((1, 2), (2, 1)):
         try:
-            mesh_lib.make_mesh(2, dp=dp, tp=tp, devices=[torch.device("cuda", 0), torch.device("cuda", 1)])
-            fail(f"a dp={dp} x tp={tp} mesh over cuda:0 and cuda:1 did not raise")
-        except NotImplementedError as e:
-            if "ROADMAP A.8" not in str(e):
-                fail(f"a dp={dp} x tp={tp} mesh over two cards: {e}")
-    log(f"mesh refusals: from_pretrained(dp=2, tp=2) on {n} card: ValueError '{said}'; a tp group and dp "
-        "groups over cuda:0, cuda:1: NotImplementedError")
+            mesh_lib.make_mesh(2, dp=dp, tp=tp, devices=[card, torch.device("cuda", 1)])
+            if n < 2:
+                fail(f"a dp={dp} x tp={tp} mesh over cuda:0 and cuda:1 on {n} card did not raise")
+        except ValueError as e:
+            if n >= 2 or f"needs 2 devices; only {n} visible" not in str(e):
+                fail(f"a dp={dp} x tp={tp} mesh over cuda:0 and cuda:1: {e}")
+    log(f"mesh refusals: from_pretrained(dp=2, tp=2) on {n} card: ValueError '{said}'; a process mesh with tp "
+        "over cuda:0 twice: ValueError (NCCL, nothing spawned); a tp group and dp groups over cuda:0, cuda:1: "
+        "the device-count ValueError")
+
+
+MESH_PROCS_FRAMES = 32  # frames a lane of the process mesh's lockstep batch
+NCCL_REPLAYS = 100  # replays of the captured one-rank NCCL all-reduce and all-gather
+CONTROL_ROUND_TRIPS = 20  # timed control-plane commands (a broadcast to the worker and a gather back)
+
+
+def worker_frame_ms(params, batch):
+    """Run in a process mesh's worker (`Workers.call`): the device ms a
+    replay of this process's greedy frame graph of `batch` lanes."""
+    from faster_qwen3_tts_tpu_torch.engine import graphs
+
+    return _replay_ms(_set_of(graphs.registries(params)[0], batch, True))
+
+
+def nccl_capture_check(pg, cfg):
+    """The port's own `mesh.all_reduce` (float32 [4, 1, H]) and
+    `mesh.all_gather` (logits [4, V] along dim -1) over the one-rank NCCL
+    tp group `pg`, captured in one CUDA graph and replayed NCCL_REPLAYS
+    times on fresh inputs: each replay must equal the eager calls on the
+    same inputs. -> its row (replay us)."""
+    import torch
+    import torch.distributed as dist
+
+    from faster_qwen3_tts_tpu_torch.parallel import mesh as mesh_lib
+
+    if dist.get_backend(pg) != "nccl" or dist.get_world_size(pg) != 1:
+        fail(f"the tp group is {dist.get_backend(pg)} of {dist.get_world_size(pg)} ranks, not one-rank NCCL")
+    dev = torch.device("cuda", 0)
+    x = torch.empty((4, 1, cfg.talker.hidden_size), device=dev)
+    lg = torch.empty((4, cfg.talker.vocab_size), device=dev)
+
+    def body():
+        return mesh_lib.all_reduce([x * 1.0], pg), mesh_lib.all_gather([lg * 1.0], -1, pg)
+
+    x.normal_(), lg.normal_()
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream(dev).wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+        out_r, out_g = body()
+    bad = 0
+    for _ in range(NCCL_REPLAYS):
+        x.normal_(), lg.normal_()
+        graph.replay()
+        want_r, want_g = body()
+        bad += not (torch.equal(out_r, want_r) and torch.equal(out_g, want_g) and torch.equal(out_r, x))
+    torch.cuda.synchronize()
+    if bad:
+        fail(f"NCCL capture: {bad} of {NCCL_REPLAYS} replays differ from the eager all_reduce / all_gather")
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(NCCL_REPLAYS):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return {"replays": NCCL_REPLAYS, "equal": True, "replay_us": start.elapsed_time(end) * 1000.0 / NCCL_REPLAYS}
+
+
+def mesh_procs_phase(plain, bundle, report):
+    """The process form of the mesh on one card: dp = 2 x tp = 1 as two
+    processes on cuda:0 (this process, rank 0, and one spawned worker),
+    `from_pretrained(<full bundle>, mesh=make_mesh(2, dp=2, tp=1,
+    devices=[cuda:0] * 2, processes=True))`; `warmup`, then a 4-lane greedy
+    lockstep batch of MESH_PROCS_FRAMES frames: each dp group's 2 lanes must
+    equal, code for code, the unsharded model `plain`'s B = 2 batch of the
+    same two requests (the same graph key: the same shapes and kernels), no
+    frame or prefill may run eagerly in either process, and the worker's K1
+    and K2 must launch. Then the NCCL capture check on rank 0's one-rank tp
+    group, and the mesh's close (no worker left). -> the launches of both
+    processes."""
+    import numpy as np
+    import torch
+
+    from faster_qwen3_tts_tpu_torch.engine import graphs
+    from faster_qwen3_tts_tpu_torch.model import FasterQwen3TTS
+    from faster_qwen3_tts_tpu_torch.parallel import mesh as mesh_lib
+
+    t_phase = time.perf_counter()
+    counters = "faster_qwen3_tts_tpu_torch.parallel.procs:counters"
+    reqs = [{"text": BATCH_TEXTS[i], "voice_clone_prompt": _xvec_prompt(300 + i), "xvec_only": True}
+            for i in range(4)]
+    warm = dict(chunk_sizes=(CHUNK,), first_chunk_size=FIRST_CHUNK, do_sample=False, subtalker_dosample=False,
+                min_new_tokens=BATCH_FRAMES)
+    plain.warmup(batch_sizes=(2,), **warm)
+    ref, want = [], []
+    for pair in (reqs[:2], reqs[2:]):
+        rec, tok = lockstep_run(plain, pair, MESH_PROCS_FRAMES)
+        ref.append(rec)
+        want += tok
+    mesh = mesh_lib.make_mesh(2, dp=2, tp=1, devices=[torch.device("cuda", 0)] * 2, processes=True)
+    t0 = time.perf_counter()
+    model = FasterQwen3TTS.from_pretrained(str(bundle), device="cuda", mesh=mesh)
+    row = {"from_pretrained_s": time.perf_counter() - t0, "workers_start_s": mesh.workers.start_s,
+           "workers": mesh.workers.reports, "card": CARD}
+    try:
+        if not all(r["modules_checked"] and not r["forbidden"] for r in row["workers"]):
+            fail(f"mesh procs: a worker did not check its modules or loaded jax: {row['workers']}")
+        t0 = time.perf_counter()
+        model.warmup(batch_sizes=(4,), **warm)
+        row.update(warmup_s=time.perf_counter() - t0, warmup_phases=model.warmup_phases)
+        before = mesh.workers.call(counters, True)  # read, then zeroed
+        with no_eager_frames("mesh procs lockstep"), no_eager_prefills("mesh procs lockstep"):
+            got, tok = lockstep_run(model, reqs, MESH_PROCS_FRAMES)
+        after = mesh.workers.call(counters)
+        worker = {k: sum(a[k] for a in after) for k in ("K1", "K2", "K4")}
+        eager = [(a["eager_frames"] - b["eager_frames"], a["eager_prefills"] - b["eager_prefills"])
+                 for a, b in zip(after, before)]
+        if any(e != (0, 0) for e in eager):
+            fail(f"mesh procs: the worker ran (frames, prefills) {eager} eagerly on the card after warmup")
+        if worker["K1"] == 0 or worker["K2"] == 0 or got["launches"]["K1"] == 0 or got["launches"]["K2"] == 0:
+            fail(f"mesh procs: K1 / K2 did not launch in both processes: rank 0 {got['launches']}, worker {worker}")
+        equal = [bool(t.shape == w.shape and (t == w).all()) for t, w in zip(tok, want)]
+        if not all(equal):
+            fail(f"mesh procs: lanes whose codes differ from the unsharded B = 2 batch: "
+                 f"{[s for s, e in enumerate(equal) if not e]} (frames {[t.shape[0] for t in tok]})")
+        row.update(lockstep={k: got[k] for k in ("steps", "wall_s", "ttfa_ms", "aggregate_rtf", "launches")},
+                   worker_launches=worker, codes_equal=equal,
+                   plain_lockstep=[{k: r[k] for k in ("steps", "wall_s", "ttfa_ms", "aggregate_rtf")} for r in ref],
+                   frame_ms={"rank0": _replay_ms(_set_of(graphs.registries(model.params)[0], 2, True)),
+                             "worker": mesh.workers.call("chip_smoke:worker_frame_ms", 2)[0],
+                             "unsharded": _replay_ms(_set_of(graphs.registry_for(plain.params), 2, True))},
+                   nccl=nccl_capture_check(mesh.tp_group, plain.config))
+        rtt = []
+        for _ in range(CONTROL_ROUND_TRIPS):  # one command out, one reply back: the cost a chunk's collect adds
+            t0 = time.perf_counter()
+            mesh.workers.call(counters)
+            rtt.append((time.perf_counter() - t0) * 1000.0)
+        row["control_round_trip_ms"] = statistics.median(rtt)
+    finally:
+        mesh.close()
+    if any(mesh.workers.alive()):
+        fail("mesh procs: a worker is alive after close()")
+    row["phase_s"] = time.perf_counter() - t_phase
+    fm, ws = row["frame_ms"], row["workers"][0]
+    log(f"mesh procs dp=2 x tp=1, two processes on cuda:0 ({CARD}): from_pretrained {row['from_pretrained_s']:.1f} s "
+        f"(the worker's spawn to ready {row['workers_start_s']:.1f} s: join {ws['join_s']:.1f} s, load "
+        f"{ws['load_s']:.2f} s), warmup {row['warmup_s']:.1f} s (the worker's captures "
+        f"{row['warmup_phases'].get('workers')}); lockstep B=4 x {MESH_PROCS_FRAMES} frames: aggregate RTF "
+        f"{got['aggregate_rtf']:.3f} (unsharded B=2 {ref[0]['aggregate_rtf']:.3f} / {ref[1]['aggregate_rtf']:.3f}), "
+        f"lane TTFA " + ", ".join(f"{x:.0f}" for x in got["ttfa_ms"]) + " ms; every lane's codes equal the "
+        f"unsharded B=2 batch's; captured B=2 frame rank 0 {fm['rank0']:.3f} ms, worker {fm['worker']:.3f} ms, "
+        f"unsharded {fm['unsharded']:.3f} ms (each replayed alone); launches rank 0 {got['launches']}, worker "
+        f"{worker}; NCCL one-rank all_reduce + all_gather captured, {row['nccl']['replays']} replays equal to "
+        f"eager, {row['nccl']['replay_us']:.1f} us a replay; a control-plane round trip (host, median of "
+        f"{CONTROL_ROUND_TRIPS}) {row['control_round_trip_ms']:.3f} ms; phase {row['phase_s']:.1f} s")
+    report["mesh_procs"] = row
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {k: got["launches"][k] + worker[k] for k in ("K1", "K2", "K4")}
 
 
 def mesh_phase(params, plain, quant, report):

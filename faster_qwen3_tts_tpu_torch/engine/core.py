@@ -12,7 +12,10 @@ writes only. Under a (dp, tp) mesh these functions run one dp group: its
 parameters' talker and predictor are `Ranks` of the tp ranks' subtrees, its
 state one `DecodeState` whose KV cache is a `Ranks` of per-rank caches
 (kv_heads / tp heads each, `mesh.kv_cache_spec`), and every sampling draws
-once for the group from the gathered logits.
+once for the group from the gathered logits. In a process mesh a process
+runs its own rank of the group: one subtree, the KV cache of its own rank,
+and the same draws as its group's other ranks (the same gathered logits
+and a generator seeded alike).
 """
 from __future__ import annotations
 
@@ -123,17 +126,18 @@ start_state.eager_cuda = 0
 
 def zeros_state(
     talker_cfg: TalkerConfig, batch: int, max_seq: int, dtype: torch.dtype, device: torch.device,
-    generator: Optional[torch.Generator], tp: int = 1,
+    generator: Optional[torch.Generator], tp: int = 1, ranks: Optional[int] = None,
 ) -> DecodeState:
     """An empty pool of `batch` lanes, every one done (masked) until a stream
     is inserted. A done lane still runs the frame on its frozen position; its
     frames are invalid and its cache lane is overwritten on insertion. With
-    tp > 1 the cache is a `Ranks` of tp caches, each a tp rank's shard by
-    `mesh.kv_cache_spec` (kv_heads / tp heads)."""
+    tp > 1 the cache holds `ranks` caches (default tp; one in a process
+    mesh, its own rank's), each a tp rank's shard by `mesh.kv_cache_spec`
+    (kv_heads / tp heads): a `Ranks` of several, one plain."""
     L, KV, HD = talker_cfg.num_hidden_layers, talker_cfg.num_key_value_heads, talker_cfg.head_dim
     i32 = dict(dtype=torch.int32, device=device)
     shape = shard_shape((L, batch, max_seq, KV, HD), kv_cache_spec(), {"tp": tp})
-    cache = group(KVCache.zeros(*shape, dtype, device) for _ in range(tp))
+    cache = group(KVCache.zeros(*shape, dtype, device) for _ in range(tp if ranks is None else ranks))
     return DecodeState(
         cache=cache,
         pos=torch.zeros((batch,), **i32),

@@ -22,9 +22,10 @@ Timing dicts keep the JAX package's keys:
 """
 from __future__ import annotations
 
+import contextlib
 import os
 import time
-from typing import Any, Dict, Generator, List, Optional, Tuple
+from typing import Any, Dict, Generator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -33,6 +34,7 @@ from faster_qwen3_tts_tpu_torch.config import Qwen3TTSConfig
 
 from ..ops.sampling import SamplingParams
 from ..parallel import mesh as mesh_lib
+from ..parallel import procs
 from . import core, fused_stream, graphs
 
 PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048)
@@ -106,11 +108,13 @@ def _sync(device: torch.device) -> None:
 
 
 def lane_groups(params, batch: int, mesh=None) -> List[Tuple[Dict[str, Any], slice]]:
-    """Where a batch of `batch` lanes runs -> [(parameters, lanes)]. A plain
-    tree runs every lane. A sharded tree (`mesh.shard_params`) splits the
-    lanes over its dp groups when `mesh` is passed, dp > 1 and dp divides
-    the batch (the JAX package's rule); otherwise dp group 0 runs every lane
-    (the JAX package replicates such a batch over dp: the same codes)."""
+    """Where a batch of `batch` lanes runs in this process -> [(parameters,
+    lanes)]. A plain tree runs every lane. A sharded tree
+    (`mesh.shard_params`) splits the lanes over its dp groups when `mesh`
+    is passed, dp > 1 and dp divides the batch (the JAX package's rule);
+    otherwise dp group 0 runs every lane (the JAX package replicates such a
+    batch over dp: the same codes). In a process mesh a process runs only
+    its own group's share (none if its group has no lanes)."""
     placed = mesh_lib.mesh_of(params)
     if placed is None:
         if mesh is not None:
@@ -121,8 +125,29 @@ def lane_groups(params, batch: int, mesh=None) -> List[Tuple[Dict[str, Any], sli
     dp = placed.shape["dp"]
     if mesh is not None and dp > 1 and batch % dp == 0:
         n = batch // dp
-        return [(mesh_lib.group_params(params, g), slice(g * n, (g + 1) * n)) for g in range(dp)]
-    return [(mesh_lib.group_params(params, 0), slice(0, batch))]
+        shares = [(g, slice(g * n, (g + 1) * n)) for g in range(dp)]
+    else:
+        shares = [(0, slice(0, batch))]
+    own = mesh_lib.own_groups(placed)
+    return [(mesh_lib.group_params(params, g), lanes) for g, lanes in shares if g in own]
+
+
+def warm_sets(params, cfg: Qwen3TTSConfig, batch: int, split: bool, max_seq_len: int, text_rows: int,
+              sampling: SamplingParams, pred_sampling: SamplingParams, min_new_tokens: int,
+              windows: Sequence[Tuple[int, int]], buckets: Sequence[int]) -> Dict[str, float]:
+    """Capture, in this process, the graph sets a batch of `batch` lanes
+    leases (one a dp group it runs here, `lane_groups`; split over dp when
+    `split`): the frame, `windows` and the prefill graphs of `buckets`
+    (`GraphRegistry.warm`) -> the captures it made, with their seconds.
+    Each process of a process mesh runs it for its own group."""
+    regs = graphs.registries(params)
+    before = [dict(r.stats) for r in regs]
+    for gparams, lanes in lane_groups(params, batch, mesh_lib.mesh_of(params) if split else None):
+        key = graphs.make_key(gparams, lanes.stop - lanes.start, max_seq_len, text_rows, sampling, pred_sampling,
+                              min_new_tokens)
+        graphs.registry_for(gparams).warm(gparams, cfg, key, windows, prefill_buckets=buckets)
+    return {k: sum(r.stats[k] - b[k] for r, b in zip(regs, before))
+            for k in ("captures", "prefill_captures", "capture_s")}
 
 
 class _Part:
@@ -208,7 +233,8 @@ class GenerationSession:
                 ptie, pmask, ptth = put(tie_b[lanes], dtype), put(mask_b[lanes], torch.int32), put(tth_b[lanes], dtype)
             key = graphs.make_key(gparams, lanes.stop - lanes.start, max_seq_len, t_bucket, sampling,
                                   pred_sampling, min_new_tokens)
-            self.parts.append(_Part(gparams, lanes, ptie, pmask, ptth, put(tts_pad_embed, dtype), key, seed + g))
+            self.parts.append(_Part(gparams, lanes, ptie, pmask, ptth, put(tts_pad_embed, dtype), key,
+                                    seed + gparams.index if isinstance(gparams, mesh_lib.GroupParams) else seed))
         first = self.parts[0]
         # the first (or only) part's, as a session of one device has them
         self.device, self.key = first.tie.device, first.key
@@ -217,11 +243,33 @@ class GenerationSession:
         self._leases: List[graphs.Lease] = []
         self.state: Optional[core.DecodeState] = None
         self.prefill_ms = 0.0
+        # a process mesh's workers, from rank 0: this session's mirror in each
+        self._workers = mesh_lib.workers_of(params)
+        self._sid = None
+        if self._workers is not None:
+            placed = mesh_lib.mesh_of(params)
+            split = mesh is not None and placed.shape["dp"] > 1 and tie.shape[0] % placed.shape["dp"] == 0
+            self._groups = list(range(placed.shape["dp"])) if split else [0]
+            self._sid = self._workers.open_session(
+                procs.host_prompt(tie), procs.host_prompt(attention_mask), procs.host_prompt(trailing_text),
+                procs.host_prompt(tts_pad_embed), max_seq_len, sampling, pred_sampling, min_new_tokens, seed, split)
+
+    def _send(self, *cmd) -> None:
+        """A call's mirror to every worker (a process mesh)."""
+        if self._workers is not None:
+            self._workers.send(cmd[0], self._sid, *cmd[1:])
+
+    def _guard(self):
+        """This process's share of a mesh call: fatal to the mesh if it fails."""
+        return contextlib.nullcontext() if self._workers is None else self._workers.guard()
 
     def close(self) -> None:
         """Return the graph sets (idempotent)."""
         for lease in self._leases:
             lease.release()
+        if self._sid is not None and not self._workers.closed:
+            self._workers.send("close", self._sid)
+        self._sid = None
 
     def prefill(self, block: bool = True, noise: Optional[torch.Tensor] = None) -> None:
         """Lease the sets and run the prefill into their static states (on
@@ -229,14 +277,16 @@ class GenerationSession:
         folds into the first chunk's (prefill_ms stays 0). `noise` [B, V]
         replaces the first draw (CPU)."""
         t0 = time.perf_counter()
-        for part in self.parts:
-            if part.graphs is None:  # a set of this part's key, captured if none is free
-                reg = graphs.registry_for(part.params)
-                part.graphs = reg.lease(part.params, self.cfg, part.key)
-                self._leases.append(graphs.Lease(self, reg, part.graphs))
-            part.graphs.load_text(part.tth, part.tpe)
-            part.graphs.prefill(part.params, part.tie, part.mask, part.seed,
-                                None if noise is None else noise[part.lanes])
+        self._send("prefill", noise)
+        with self._guard():
+            for part in self.parts:
+                if part.graphs is None:  # a set of this part's key, captured if none is free
+                    reg = graphs.registry_for(part.params)
+                    part.graphs = reg.lease(part.params, self.cfg, part.key)
+                    self._leases.append(graphs.Lease(self, reg, part.graphs))
+                part.graphs.load_text(part.tth, part.tpe)
+                part.graphs.prefill(part.params, part.tie, part.mask, part.seed,
+                                    None if noise is None else noise[part.lanes])
         self.graphs = self.parts[0].graphs
         self.state = self.graphs.state
         if block:
@@ -256,13 +306,51 @@ class GenerationSession:
         return part.graphs.run_chunk(part.params, chunk_size, noise)
 
     def decode_chunk_async(self, chunk_size: int, noise=None) -> torch.Tensor:
-        """Queue one chunk -> its packed rows [chunk, B, 18], not read.
+        """Queue one chunk -> its packed rows [chunk, B, 18], not read
+        (in a process mesh this process's lanes: `collect` gives them all).
         `noise`: per frame (predictor [15, B, Vp], talker [B, V]) draws (CPU)."""
-        return self._lanes([self._chunk(part, chunk_size, noise) for part in self.parts], dim=1)
+        self._send("chunk", chunk_size, noise)
+        with self._guard():
+            return self._lanes([self._chunk(part, chunk_size, noise) for part in self.parts], dim=1)
 
     def decode_chunk(self, chunk_size: int) -> Tuple[np.ndarray, bool]:
         """One chunk, read once -> (valid frames [n, 16] int32, done)."""
-        return core.read_packed(self.decode_chunk_async(chunk_size))
+        return core.read_packed(self.collect(self.decode_chunk_async(chunk_size)))
+
+    def collect(self, out):
+        """A queued chunk (`decode_chunk_async`'s packed rows, or
+        `decode_chunk_fused_async`'s (audio, packed)) with every lane: as it
+        is, or on rank 0 of a process mesh with the workers' lanes gathered
+        and merged in lane order (on this process's device); raises if a
+        group's tp ranks sent different rows."""
+        if self._workers is None:
+            return out
+        tp = self._workers.mesh.shape["tp"]
+        # this process's rows on the host only where its tp ranks are held to them
+        replies = [procs.host_chunk(out) if tp > 1 else None] + self._workers.request("collect", self._sid)
+        fused = isinstance(out, tuple)
+        for g in self._groups:
+            ref = replies[g * tp]
+            for r in range(1, tp):
+                got = replies[g * tp + r]
+                if ref is None or got is None or not np.array_equal(got[-1], ref[-1]):
+                    raise RuntimeError(f"the tp ranks of dp group {g} disagree: rank {r}'s chunk differs from "
+                                       "rank 0's")
+        merged = []
+        for i, local in enumerate(out if fused else (out,)):
+            merged.append(self._lanes([local] + [torch.from_numpy(replies[g * tp][i]) for g in self._groups[1:]],
+                                      dim=1 if local.dim() == 3 else 0))
+        return tuple(merged) if fused else merged[0]
+
+    def prefill_logits(self) -> torch.Tensor:
+        """The last prefill's talker logits [B, V] of every lane, in lane
+        order (a process mesh's workers' gathered)."""
+        local = self._lanes([p.graphs.logits for p in self.parts], dim=0)
+        if self._workers is None:
+            return local
+        replies = self._workers.request("logits", self._sid)
+        tp = self._workers.mesh.shape["tp"]
+        return self._lanes([local] + [torch.from_numpy(replies[g * tp - 1]) for g in self._groups[1:]], dim=0)
 
     # -- a chunk plus its window vocode ------------------------------------------------------
 
@@ -277,18 +365,23 @@ class GenerationSession:
         reference tail), each part's lanes into its set (the JAX
         `_put_hist`)."""
         frames_b = np.asarray(frames_b)
-        for part in self.parts:
-            part.graphs.set_history(frames_b[part.lanes], ctx)
+        self._send("history", frames_b, ctx)
+        with self._guard():
+            for part in self.parts:
+                part.graphs.set_history(frames_b[part.lanes], ctx)
 
     def decode_chunk_fused_async(self, chunk_size: int, ctx: int):
         """Queue one chunk and the window vocode of every lane over the
         history set for width `ctx` (none for ctx 0) -> (audio [B, chunk *
-        up], packed), not read. Each part vocodes its lanes on its group's
+        up], packed), not read (in a process mesh this process's lanes:
+        `collect` gives them all). Each part vocodes its lanes on its group's
         replicated codec."""
+        self._send("fused", chunk_size, ctx)
         packed, audio = [], []
-        for part in self.parts:
-            packed.append(part.graphs.run_chunk(part.params, chunk_size))
-            audio.append(part.graphs.vocode(part.params, chunk_size, ctx))
+        with self._guard():
+            for part in self.parts:
+                packed.append(part.graphs.run_chunk(part.params, chunk_size))
+                audio.append(part.graphs.vocode(part.params, chunk_size, ctx))
         return self._lanes(audio, dim=0), self._lanes(packed, dim=1)
 
 
@@ -431,6 +524,7 @@ def fast_generate_streaming_batch(
         pending = dispatch()
         while True:
             kind, dev, cs = pending
+            dev = sess.collect(dev)
             if kind == "plain":
                 frames, valid, done = core.read_packed_batch(dev)
                 audio = None
@@ -542,6 +636,7 @@ def fast_generate_streaming_fused(
         pending = dispatch()
         while total < max_new_tokens:
             kind, dev = pending
+            dev = sess.collect(dev)
             pending = None
             if kind == "plain":
                 frames, done = core.read_packed(dev)

@@ -32,7 +32,11 @@ Under a mesh the engine runs one set per dp group, leased from that
 group's registry (`mesh.group_params`, whose tree is told apart by its
 first shard); its frame graph captures every tp rank of the group, the
 partial sums and the logit gathers included, and its KV cache is one
-cache per rank.
+cache per rank. In a process mesh each process has the registry of its own
+group and rank (the registries are per process, as graphs are): its graphs
+capture its own rank, the tp collectives included (NCCL on cards, whose
+communicators exist before the first capture: `procs` runs one eager
+collective on every tp group at start), and its KV cache is its rank's.
 
 A `GraphRegistry` per parameter tree (`registry_for`) leases sets: a live
 session holds its set until it is closed (or collected); a second live
@@ -144,7 +148,7 @@ _CAPTURE_LOCK = threading.Lock()  # one capture at a time per process
 class GraphSet:
     """The static buffers and graphs of one key (see the module docstring)."""
 
-    def __init__(self, key: GraphKey, cfg, device: torch.device, registry: "GraphRegistry"):
+    def __init__(self, key: GraphKey, cfg, device: torch.device, registry: "GraphRegistry", ranks: int = 1):
         self.key = key
         self.cfg = cfg
         self.device = device
@@ -153,7 +157,7 @@ class GraphSet:
         tcfg = cfg.talker
         B, ncg = key.batch, tcfg.num_code_groups
         self.generator = torch.Generator(device=device)
-        self.state = core.zeros_state(tcfg, B, key.max_seq, key.dtype, device, self.generator, key.tp)
+        self.state = core.zeros_state(tcfg, B, key.max_seq, key.dtype, device, self.generator, key.tp, ranks)
         self.tth = torch.zeros((B, key.text_rows, tcfg.hidden_size), dtype=key.dtype, device=device)
         self.tpe = torch.zeros((B, 1, tcfg.hidden_size), dtype=key.dtype, device=device)
         self.suppress = make_suppress_mask(tcfg.vocab_size, tcfg.codec_eos_token_id, device)
@@ -406,7 +410,8 @@ class GraphRegistry:
             free = self._free.get(key)
             if free:
                 return free.pop()
-        gset = GraphSet(key, cfg, self.device, self)
+        # the KV caches of the tp ranks this process runs
+        gset = GraphSet(key, cfg, self.device, self, len(mesh_lib.as_ranks(params["talker"])))
         gset.prepare_frame(params)
         with self._lock:
             self.sets.append(gset)
@@ -501,8 +506,9 @@ def registry_for(params) -> GraphRegistry:
 
 def registries(params) -> List[GraphRegistry]:
     """The registry of a plain tree, or of every dp group of a sharded tree
-    (`mesh.shard_params`), in group order."""
+    (`mesh.shard_params`) that this process runs, in group order (a process
+    mesh's process: its own group's)."""
     mesh = mesh_lib.mesh_of(params)
     if mesh is None:
         return [registry_for(params)]
-    return [registry_for(mesh_lib.group_params(params, g)) for g in range(mesh.shape["dp"])]
+    return [registry_for(mesh_lib.group_params(params, g)) for g in mesh_lib.own_groups(mesh)]

@@ -32,7 +32,8 @@ fuse_qkv=True)` loads the fused projection layout. `save_deploy_bundle`
 writes the parameters as a deploy bundle, which `from_pretrained` loads back
 as a serving restart. `from_pretrained(dp=, tp=)` (or a
 `parallel.mesh.shard_params` tree with its mesh) serves over a (dp, tp)
-device mesh: tp-sharded weights, a lockstep batch's lanes split over dp.
+device mesh: tp-sharded weights, a lockstep batch's lanes split over dp; over
+distinct cards one process a card (`parallel.procs`), this one rank 0.
 """
 from __future__ import annotations
 
@@ -153,6 +154,78 @@ class _StreamVocoder:
         return new_audio
 
 
+def load_params(model_name: str, device, dtype, quant: str, seed: int, strict: Optional[bool],
+                load_phases: Dict[str, float], check=None):
+    """The parameter tree `from_pretrained` serves, on `device`: a deploy
+    bundle, an own-format or HF checkpoint directory, or a seeded random
+    init of a model id (on the device with FQ3T_DEVICE_INIT=1), quantized as
+    `quant` says -> (params, config, coverage, the bundle's quant mode or
+    None). `check(config)` runs before anything is placed. The seconds of
+    each phase go into `load_phases`. Every process of a process mesh loads
+    its tree with this, from the same arguments."""
+    device = torch.device(device)
+    if isinstance(dtype, str):
+        dtype = _DTYPES[dtype.lower()]
+    mode = quant_lib.resolve_quant_name(quant)
+    last = [time.perf_counter()]
+
+    def mark(name: str) -> None:
+        now = time.perf_counter()
+        load_phases[name] = round(now - last[0], 3)
+        last[0] = now
+
+    is_dir = os.path.isdir(model_name)
+    coverage: Dict[str, str] = {}
+    bundle_mode = tree = params = None
+    if is_dir and weights_lib.is_deploy_bundle(model_name):
+        # the serving restart: one read into pinned memory, one copy a
+        # dtype section; the leaves keep the dtypes they were saved in
+        blobs, manifest, config, bundle_mode = weights_lib.read_deploy_bundle(
+            model_name, pin_memory=device.type == "cuda", mark=mark)
+        load_phases["transfer_mb"] = round(sum(b.numel() * b.element_size() for b in blobs.values()) / 1e6, 1)
+        if bundle_mode != "none" and mode not in ("none", bundle_mode):
+            # re-quantizing quantized weights would be lossy
+            raise ValueError(f"deploy bundle is quantized as {bundle_mode!r}; requested quant={quant!r} "
+                             "conflicts")
+    elif is_dir and weights_lib.is_own_checkpoint(model_name):
+        tree, config = weights_lib.load_pretrained(model_name)
+    else:
+        config = get_config(model_name)
+    if check is not None:
+        check(config)
+    if is_dir and tree is None and bundle_mode is None:
+        tree = weights_lib.load_hf_checkpoint(
+            model_name, config, dtype=dtype, strict=True if strict is None else strict,
+            coverage=coverage)
+    elif not is_dir:
+        logger.warning("No local checkpoint for %s; using random-initialized weights (seed %d).",
+                       model_name, seed)
+        if os.environ.get("FQ3T_DEVICE_INIT", "0") == "1":
+            # drawn on the device (another generator than the host init's, as in JAX)
+            params = weights_lib.init_all_device(config, seed, dtype, device)
+        else:
+            tree = weights_lib.init_numpy(config, seed)
+    mark("weights_read")
+    if tree is not None:
+        params = weights_lib.materialize(tree, dtype, mode, device, mark=mark)
+        del tree
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+        mark("device_transfer")
+    else:
+        if bundle_mode is not None:
+            params = weights_lib._device_unpack(blobs, manifest, device)  # synchronizes
+            del blobs
+            mark("device_transfer")
+        if mode != "none" and bundle_mode in (None, "none"):
+            # an unquantized bundle or a device init: quantized on the device
+            params = quant_lib.quantize_model_params(params, mode)
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            mark("quantize")
+    return params, config, coverage, bundle_mode
+
+
 def _pool_bytes(regs) -> Optional[int]:
     """Bytes of the registries' graph pools, None where one is not known."""
     sizes = [r.memory()["pool_bytes"] for r in regs]
@@ -167,6 +240,9 @@ class FasterQwen3TTS:
         placed = mesh_lib.mesh_of(params)
         if mesh is not None and placed is None:
             raise ValueError("mesh= needs parameters placed on it (parallel.mesh.shard_params)")
+        if placed is not None and placed.processes and placed.workers is None:
+            raise ValueError(f"{placed} has not started its workers: a process mesh is built by "
+                             "from_pretrained(..., dp=, tp=) or from_pretrained(..., mesh=)")
         if params["talker"]["codec_embed"].device.type == "cuda":
             # Process-wide: float32 products and convolutions (the codec) in
             # full float32 (cuDNN defaults to TF32), bf16 products reduced in
@@ -248,18 +324,27 @@ class FasterQwen3TTS:
         (tp must divide num_key_value_heads of the talker and the
         predictor), dp splits a lockstep batch's lanes
         (`generate_voice_clone_streaming_batch`). On "cuda" dp * tp > 1
-        needs that many visible cards and then raises NotImplementedError:
-        a mesh over distinct cards waits for a multi-card run (ROADMAP A.8;
-        one card's mesh of repeated devices is `parallel.mesh.make_mesh(
-        devices=["cuda:0"] * n)` with `shard_params`); "cpu" builds a mesh of cpu
-        entries, as the JAX tests' virtual devices. The tree is loaded (a
-        bundle unpacked), quantized, then sharded; `fuse_qkv` under a mesh
-        warns and keeps the unfused layout. kwargs: `fuse_qkv`
+        needs that many visible cards (else the device-count ValueError)
+        and builds the process form over cuda:0 .. cuda:n-1
+        (`parallel.procs`): this process is rank 0 on cuda:0 and spawns one
+        worker a card, each loading the same source with the same
+        arguments; the tp collectives run over NCCL, captured in each
+        rank's graphs; a script that does this must guard its entry with
+        `if __name__ == "__main__":`, as the spawn start method needs; the
+        model's `mesh.close()` (or the exit) stops the workers. "cpu" builds a
+        one-process mesh of cpu entries, as the JAX tests' virtual devices
+        (one card's one-process mesh is `parallel.mesh.make_mesh(
+        devices=["cuda:0"] * n)` with `shard_params`). The tree is loaded
+        (a bundle unpacked), quantized, then sharded; `fuse_qkv` under a
+        mesh warns and keeps the unfused layout. kwargs: `fuse_qkv`
         (default False), the fused projection layout of the JAX package's
         `FQ3T_FUSE_QKV` (`quant.fuse_layer_weights`, applied after
-        quantization), and `voice_ref_cache_dir` (native backend); any other
-        key is ignored with a warning; a bundle keeps its saved layout, so
-        `fuse_qkv` on one only warns. The model's `load_phases` holds the
+        quantization), `mesh` (a `parallel.mesh.Mesh` to serve on instead
+        of the one dp / tp build, e.g. a process mesh of cpu entries or of
+        dp groups sharing one card, `make_mesh(..., processes=True)`), and
+        `voice_ref_cache_dir` (native backend); any other key is ignored
+        with a warning; a bundle keeps its saved layout, so `fuse_qkv` on
+        one only warns. The model's `load_phases` holds the
         seconds of weights_read, quantize, device_transfer (and fuse; for a
         bundle also pin, the pinned buffer's allocation, and transfer_mb, the
         megabytes copied), and `load_coverage` an HF checkpoint's
@@ -280,6 +365,7 @@ class FasterQwen3TTS:
             logger.warning("attn_implementation='xla': the port always runs its decode-attention kernel "
                            "(K1) on the card; the argument is ignored.")
         fuse_qkv = bool(kwargs.pop("fuse_qkv", False))
+        mesh = kwargs.pop("mesh", None)
         if kwargs.pop("voice_ref_cache_dir", None) is not None:
             logger.warning("voice_ref_cache_dir is read by backend='native' only; ignored.")
         for key in kwargs:
@@ -292,44 +378,26 @@ class FasterQwen3TTS:
             raise ValueError(f"unsupported device {device}")
         if isinstance(dtype, str):
             dtype = _DTYPES[dtype.lower()]
-        mode = quant_lib.resolve_quant_name(quant)
+        if mesh is not None:
+            if (dp or mesh.shape["dp"]) != mesh.shape["dp"] or (tp or mesh.shape["tp"]) != mesh.shape["tp"]:
+                raise ValueError(f"dp={dp}, tp={tp} disagree with mesh= {mesh}")
+            if mesh.processes:
+                device = mesh.device_of(0, 0)  # rank 0 is this process
+        elif dp is not None or tp is not None:
+            n = (dp or 1) * (tp or 1)
+            visible = torch.cuda.device_count() if device.type == "cuda" else n  # cpu: a mesh of cpu entries
+            if visible < n:
+                raise ValueError(f"dp={dp or 1} x tp={tp or 1} needs {n} devices; only {visible} visible")
+        ways = mesh.shape["tp"] if mesh is not None else (tp or 1)
+
+        def check(config: Qwen3TTSConfig) -> None:  # before anything is placed
+            if config.talker.num_key_value_heads % ways or config.predictor.num_key_value_heads % ways:
+                raise ValueError(f"tp={ways} must divide num_key_value_heads")
+
         load_phases: Dict[str, float] = {}
-        last = [time.perf_counter()]
-
-        def mark(name: str) -> None:
-            now = time.perf_counter()
-            load_phases[name] = round(now - last[0], 3)
-            last[0] = now
-
+        params, config, coverage, bundle_mode = load_params(model_name, device, dtype, quant, seed, strict,
+                                                            load_phases, check)
         is_dir = os.path.isdir(model_name)
-        coverage: Dict[str, str] = {}
-        bundle_mode = tree = params = None
-        if is_dir and weights_lib.is_deploy_bundle(model_name):
-            # the serving restart: one read into pinned memory, one copy a
-            # dtype section; the leaves keep the dtypes they were saved in
-            blobs, manifest, config, bundle_mode = weights_lib.read_deploy_bundle(
-                model_name, pin_memory=device.type == "cuda", mark=mark)
-            load_phases["transfer_mb"] = round(sum(b.numel() * b.element_size() for b in blobs.values()) / 1e6, 1)
-            if bundle_mode != "none" and mode not in ("none", bundle_mode):
-                # re-quantizing quantized weights would be lossy
-                raise ValueError(f"deploy bundle is quantized as {bundle_mode!r}; requested quant={quant!r} "
-                                 "conflicts")
-        elif is_dir and weights_lib.is_own_checkpoint(model_name):
-            tree, config = weights_lib.load_pretrained(model_name)
-        elif is_dir:
-            config = get_config(model_name)
-            tree = weights_lib.load_hf_checkpoint(
-                model_name, config, dtype=dtype, strict=True if strict is None else strict,
-                coverage=coverage)
-        else:
-            config = get_config(model_name)
-            logger.warning("No local checkpoint for %s; using random-initialized weights (seed %d).",
-                           model_name, seed)
-            if os.environ.get("FQ3T_DEVICE_INIT", "0") == "1":
-                # drawn on the device (another generator than the host init's, as in JAX)
-                params = weights_lib.init_all_device(config, seed, dtype, device)
-            else:
-                tree = weights_lib.init_numpy(config, seed)
         tokenizer = PromptTokenizer(load_tokenizer(model_name if is_dir else None))
         if is_dir and isinstance(tokenizer.base, ByteTokenizer):
             has_assets = any(os.path.exists(os.path.join(model_name, f))
@@ -339,34 +407,18 @@ class FasterQwen3TTS:
                 "for a real checkpoint.", model_name,
                 "its tokenizer assets need `transformers`, which is not installed" if has_assets
                 else "no tokenizer assets (tokenizer.json / vocab.json)")
-        mark("weights_read")
-        mesh = None
-        if dp is not None or tp is not None:
-            dp_, tp_ = dp or 1, tp or 1
-            n = dp_ * tp_
-            visible = torch.cuda.device_count() if device.type == "cuda" else n  # cpu: a mesh of cpu entries
-            if visible < n:
-                raise ValueError(f"dp={dp_} x tp={tp_} needs {n} devices; only {visible} visible")
-            if config.talker.num_key_value_heads % tp_ or config.predictor.num_key_value_heads % tp_:
-                raise ValueError(f"tp={tp_} must divide num_key_value_heads")
-            mesh = mesh_lib.make_mesh(n, dp=dp_, tp=tp_, devices=None if device.type == "cuda" else [device] * n)
-        if tree is not None:
-            params = weights_lib.materialize(tree, dtype, mode, device, mark=mark)
-            del tree
-            if device.type == "cuda":
-                torch.cuda.synchronize(device)
-            mark("device_transfer")
-        else:
-            if bundle_mode is not None:
-                params = weights_lib._device_unpack(blobs, manifest, device)  # synchronizes
-                del blobs
-                mark("device_transfer")
-            if mode != "none" and bundle_mode in (None, "none"):
-                # an unquantized bundle or a device init: quantized on the device
-                params = quant_lib.quantize_model_params(params, mode)
-                if device.type == "cuda":
-                    torch.cuda.synchronize(device)
-                mark("quantize")
+        if mesh is None and (dp is not None or tp is not None):
+            # on cards cuda:0 .. cuda:n-1, a process mesh when n > 1; on the CPU one process
+            n = (dp or 1) * (tp or 1)
+            mesh = mesh_lib.make_mesh(n, dp=dp or 1, tp=tp or 1,
+                                      devices=None if device.type == "cuda" else [device] * n)
+        last = [time.perf_counter()]
+
+        def mark(name: str) -> None:
+            now = time.perf_counter()
+            load_phases[name] = round(now - last[0], 3)
+            last[0] = now
+
         # after quantization, as the JAX package fuses; the unfused leaves go as each group is made (a
         # checkpoint saved fused is already in that layout)
         if fuse_qkv and bundle_mode is not None:
@@ -386,6 +438,12 @@ class FasterQwen3TTS:
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
             mark("shard")
+        if mesh is not None and mesh.processes:
+            # every other (dp group, tp rank) in a process of its own, loading the same source
+            from .parallel import procs
+
+            procs.start(mesh, dict(model_name=model_name, dtype=dtype, quant=quant, seed=seed, strict=strict))
+            load_phases["workers_start"] = round(mesh.workers.start_s, 3)
         model = cls(params, config, tokenizer, max_seq_len=max_seq_len, mesh=mesh)
         model.load_phases = load_phases
         model.load_coverage = coverage  # per submodel, for an HF checkpoint
@@ -394,8 +452,9 @@ class FasterQwen3TTS:
 
     def _unsharded_params(self) -> Dict[str, Any]:
         """The parameters as one tree: a sharded model's gathered from dp
-        group 0 (`mesh.gather_params`), as the JAX package reads sharded
-        arrays through `np.asarray`."""
+        group 0 (`mesh.gather_params`; a process mesh's over its control
+        plane), as the JAX package reads sharded arrays through
+        `np.asarray`."""
         return self.params if self.mesh is None else mesh_lib.gather_params(self.params)
 
     def save_deploy_bundle(self, path, compact_f32: bool = True) -> None:
@@ -493,21 +552,28 @@ class FasterQwen3TTS:
                                | {gen_lib.prefill_bucket(prefill_len, self.max_seq_len)}))
         windows = graphs_lib.warmup_windows(chunk_sizes, first_chunk_size, gen_lib.CONTEXT_FRAMES)
 
-        def warm(B: int, mesh, windows, buckets) -> None:
-            # the sets a batch of B lanes leases: one per dp group it runs on (`gen_lib.lane_groups`)
-            for params, lanes in gen_lib.lane_groups(self.params, B, mesh):
-                key = graphs_lib.make_key(params, lanes.stop - lanes.start, self.max_seq_len, sess.key.text_rows,
-                                          sampling, pred, min_new_tokens)
-                graphs_lib.registry_for(params).warm(params, self.config, key, windows, prefill_buckets=buckets)
+        workers = mesh_lib.workers_of(self.params)
+        worker_stats: List[Any] = []
+
+        def warm(B: int, split: bool, windows, buckets) -> None:
+            # the sets a batch of B lanes leases in every process (`gen_lib.warm_sets`)
+            args = (B, split, self.max_seq_len, sess.key.text_rows, sampling, pred, min_new_tokens, windows, buckets)
+            if workers is None:
+                gen_lib.warm_sets(self.params, self.config, *args)
+                return
+            workers.send("warm", *args)
+            with workers.guard():
+                gen_lib.warm_sets(self.params, self.config, *args)
+            worker_stats.append(workers.gather())
 
         for B in dict.fromkeys(batch_sizes):
-            warm(B, self.mesh, windows, buckets)  # a lockstep batch splits over dp; a solo stream runs on group 0
+            warm(B, True, windows, buckets)  # a lockstep batch splits over dp; a solo stream runs on group 0
             mark(f"graphs_B{B}")
         if pool_slots:
             ctx = gen_lib.CONTEXT_FRAMES
             # the pool is filled by lane copies, never prefilled
-            warm(pool_slots, None, [(c, ctx) for c in chunk_sizes], ())
-            warm(1, None, (), buckets)  # admission's prefill, solo chunk
+            warm(pool_slots, False, [(c, ctx) for c in chunk_sizes], ())
+            warm(1, False, (), buckets)  # admission's prefill, solo chunk
             mark(f"graphs_pool{pool_slots}")
         warm_text = "The quick brown fox jumps over the lazy dog warms buckets."
         self._prepare_generation(warm_text, voice_clone_prompt=xvec, xvec_only=True)
@@ -529,6 +595,9 @@ class FasterQwen3TTS:
         for name in ("captures", "prefill_captures", "capture_s"):
             phases[name] = sum(r.stats[name] - s0[name] for r, s0 in zip(regs, stats0))
         phases["capture_s"] = round(phases["capture_s"], 3)
+        if worker_stats:  # each worker's captures, rank order
+            phases["workers"] = [{k: sum(s[r][k] for s in worker_stats) for k in worker_stats[0][r]}
+                                 for r in range(len(worker_stats[0]))]
         phases["prefill_buckets"] = list(buckets)
         phases["total_s"] = round(time.perf_counter() - t0, 3)
         self.warmup_phases = phases

@@ -10,10 +10,12 @@ Under a (dp, tp) mesh (`parallel.mesh`) a tp group's stacks come as `Ranks`
 of per-rank dicts: each rank runs `LayerShape(num_heads / tp, num_kv_heads
 / tp, ...)` on its column slices (q / k / v, gate / up) with its own KV
 cache, and the row-parallel partials (wo, w_down) are summed in rank order.
-Inside, every function works on a list of ranks (`mesh.as_ranks`; a plain
-dict is one rank, whose products are the unsharded ones), and what it
-returns per rank is put back by `mesh.group` (one rank plain, several a
-`Ranks`).
+Inside, every function works on the ranks this process holds
+(`mesh.as_ranks`; a plain dict is one rank, whose products are the
+unsharded ones): all of a one-process group's, or in a process mesh one
+rank, whose reductions and gathers go through its tp process group
+(`Ranks.group`). What a function returns per rank is put back by
+`mesh.group` (one rank plain, several a `Ranks`).
 """
 from __future__ import annotations
 
@@ -25,7 +27,7 @@ import torch.nn.functional as F
 
 from ..ops.attention import decode_attention, prefill_attention, prefill_mask
 from ..ops.quant import QuantizedLinear, QuantizedLinear4, dot
-from ..parallel.mesh import all_gather, all_reduce, as_ranks, group
+from ..parallel.mesh import all_gather, all_reduce, as_ranks, group, like
 
 
 @dataclasses.dataclass
@@ -147,42 +149,44 @@ def expand_cache(cache, max_seq: int):
 
 def _column(lps, x: torch.Tensor, name: str) -> List[torch.Tensor]:
     """A column-parallel projection of x (replicated over the ranks) -> each
-    rank's output columns. A replicated int4 weight (`mesh.shard_params`
-    keeps QuantizedLinear4 whole) runs whole, once; each rank takes its
-    columns."""
+    held rank's output columns. A replicated int4 weight
+    (`mesh.shard_params` keeps QuantizedLinear4 whole) runs whole, once a
+    process, with no collective; each rank takes its columns."""
     w = lps[0][name]
-    if len(lps) > 1 and isinstance(w, QuantizedLinear4):
-        return list(dot(x, w).chunk(len(lps), dim=-1))
+    if lps.size > 1 and isinstance(w, QuantizedLinear4):
+        return list(dot(x, w).chunk(lps.size, dim=-1))[lps.rank:lps.rank + len(lps)]
     return [dot(x, lp[name]) for lp in lps]
 
 
 def _row(lps, parts: List[torch.Tensor], name: str) -> torch.Tensor:
     """A row-parallel projection of the ranks' input slices, reduced: one
-    rank's product as it is; over tp ranks the partials summed in rank
-    order (`mesh.all_reduce`) and rounded once (an int8 weight's partials
-    in float32: K2 takes float32 rows and applies the scale in its
-    epilogue); a replicated int4 weight runs whole, once, on the gathered
-    input (the unsharded product)."""
+    rank's product as it is; over tp ranks the float32 partials summed
+    (`mesh.all_reduce`: in rank order, over the tp process group in a
+    process mesh) and rounded once (an int8 weight's partials in float32:
+    K2 takes float32 rows and applies the scale in its epilogue); a
+    replicated int4 weight runs whole, once, on the gathered input (the
+    unsharded product)."""
     w = lps[0][name]
-    if len(lps) == 1:
+    if lps.size == 1:
         return dot(parts[0], w)
     if isinstance(w, QuantizedLinear4):
-        return dot(all_gather(parts), w)
+        return dot(all_gather(parts, -1, lps.group), w)
     dtype = parts[0].dtype
     if isinstance(w, QuantizedLinear):
         parts = [p.float() for p in parts]
-    return all_reduce([dot(p, lp[name]) for p, lp in zip(parts, lps)]).to(dtype)
+    return all_reduce([dot(p, lp[name]) for p, lp in zip(parts, lps)], lps.group).to(dtype)
 
 
 def column_gathered(params, x: torch.Tensor, weight) -> torch.Tensor:
     """x @ weight(params) over a plain subtree or a tp group's `Ranks`: the
     column shards' products gathered in rank order (`mesh.all_gather`,
-    before any sampling); a replicated int4 weight runs whole, once."""
+    before any sampling, over the tp process group in a process mesh); a
+    replicated int4 weight runs whole, once."""
     ranks = as_ranks(params)
     w = weight(ranks[0])
-    if len(ranks) == 1 or isinstance(w, QuantizedLinear4):
+    if ranks.size == 1 or isinstance(w, QuantizedLinear4):
         return dot(x, w)
-    return all_gather([dot(x, weight(r)) for r in ranks])
+    return all_gather([dot(x, weight(r)) for r in ranks], -1, ranks.group)
 
 
 def _qkv(lps, x: torch.Tensor, shape: LayerShape):
@@ -224,7 +228,7 @@ def layer_prefill(lps, x, cos, sin, mask, shape: LayerShape):
     k/v [B, S, kv / tp, hd] for the cache: each rank attends with its heads."""
     h = rms_norm(lps[0]["ln1"], x, shape.rms_eps)
     attn, kv = [], []
-    for q, k, v in _qkv(lps, h, rank_shape(shape, len(lps))):
+    for q, k, v in _qkv(lps, h, rank_shape(shape, lps.size)):
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         a = prefill_attention(q, k, v, mask)
@@ -243,7 +247,7 @@ def layer_decode(lps, x, cos, sin, k_caches, v_caches, write_pos, length_mask, s
     h = rms_norm(lps[0]["ln1"], x, shape.rms_eps)
     rows = torch.arange(x.shape[0], device=x.device)
     attn = []
-    for (q, k, v), kc, vc in zip(_qkv(lps, h, rank_shape(shape, len(lps))), k_caches, v_caches):
+    for (q, k, v), kc, vc in zip(_qkv(lps, h, rank_shape(shape, lps.size)), k_caches, v_caches):
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         kc[rows, write_pos] = k[:, 0]
@@ -255,9 +259,10 @@ def layer_decode(lps, x, cos, sin, k_caches, v_caches, write_pos, length_mask, s
 
 
 def _per_layer(layers) -> List[tuple]:
-    """A stack, or a tp group's `Ranks` of stacks -> per layer, each rank's
-    dict of views."""
-    return list(zip(*(unstack_layers(s) for s in as_ranks(layers))))
+    """A stack, or a tp group's `Ranks` of stacks -> per layer, each held
+    rank's dict of views (as `Ranks` of the same group)."""
+    ranks = as_ranks(layers)
+    return [like(ranks, lps) for lps in zip(*(unstack_layers(s) for s in ranks))]
 
 
 def stack_prefill(layers, x, positions, pad_mask, shape: LayerShape, rope_theta, final_norm):

@@ -595,11 +595,11 @@ def main(argv=None) -> None:
     ap.add_argument("--max-new-tokens", type=int, default=2048, help="frames per request at most")
     ap.add_argument("--dp", type=int, default=None,
                     help="shard the serving batch over a dp-way device mesh (pass to from_pretrained; pair "
-                         "with --batch). With --device cpu: a mesh of cpu entries. On cards a mesh over "
-                         "distinct cards is refused until it has run on a multi-card machine (ROADMAP A.8)")
+                         "with --batch). With --device cpu: a one-process mesh of cpu entries. On cards one "
+                         "process a card over cuda:0 .. cuda:n-1, this server's process the first")
     ap.add_argument("--tp", type=int, default=None,
-                    help="tensor-parallel ways for per-request latency (as --dp: refused on cards until "
-                         "ROADMAP A.8)")
+                    help="tensor-parallel ways for per-request latency (on cards one process a card, the tp "
+                         "collectives over NCCL; with --device cpu a one-process mesh)")
     args = ap.parse_args(argv)
 
     logging.basicConfig(level=logging.INFO)

@@ -139,6 +139,46 @@ def test_port_runs_without_jax_or_the_jax_package(tmp_path):
     assert proc.stdout.strip().endswith("ok")
 
 
+def test_mesh_worker_entry_imports_only_the_port(tmp_path):
+    """In a fresh interpreter (its entry guarded, as the spawn start method
+    needs): a lockstep batch over a dp = 2 process mesh (`parallel/procs.py`)
+    from an own-format checkpoint. The spawned worker (whose entry is the
+    package's `procs._worker_main`) reports that it checked its modules and
+    found no jax or JAX-package module, and this process loaded none
+    either; after `close()` no worker is alive."""
+    script = tmp_path / "run.py"
+    script.write_text(
+        "import dataclasses, os, sys\n"
+        "import numpy as np, torch\n"
+        "from faster_qwen3_tts_tpu_torch import weights\n"
+        "from faster_qwen3_tts_tpu_torch.config import tiny_test_config\n"
+        "from faster_qwen3_tts_tpu_torch.model import FasterQwen3TTS\n"
+        "from faster_qwen3_tts_tpu_torch.parallel import mesh as mesh_lib, procs\n"
+        "if __name__ == '__main__':\n"
+        "    torch.set_num_threads(1)\n"
+        "    cfg = dataclasses.replace(tiny_test_config(), tts_bos_token_id=300, tts_eos_token_id=301,\n"
+        "                              tts_pad_token_id=302)\n"
+        "    weights.save_pretrained(sys.argv[1], weights.init_numpy(cfg, seed=0), cfg)\n"
+        "    mesh = mesh_lib.make_mesh(2, dp=2, devices=['cpu'] * 2, processes=True)\n"
+        "    pm = FasterQwen3TTS.from_pretrained(sys.argv[1], device='cpu', dtype='float32', max_seq_len=64,\n"
+        "                                        mesh=mesh)\n"
+        "    prompt = {'ref_spk_embedding': [np.ones(2048, np.float32)]}\n"
+        "    n = sum(len(a) for _, a, _, _ in pm.generate_voice_clone_streaming_batch(\n"
+        "        [{'text': 'Hi.', 'voice_clone_prompt': prompt}] * 2, max_new_tokens=6, chunk_size=4, seed=0))\n"
+        "    (report,) = mesh.workers.reports\n"
+        "    assert n > 0 and report['modules_checked'] and report['forbidden'] == [], report\n"
+        "    mesh.close()\n"
+        "    assert not any(mesh.workers.alive())\n"
+        "    assert not procs.forbidden_modules(), procs.forbidden_modules()\n"
+        "    print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=REPO)
+    proc = subprocess.run([sys.executable, str(script), str(tmp_path / "ckpt")], capture_output=True, text=True,
+                          env=env, timeout=300, cwd=tmp_path)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert proc.stdout.strip().endswith("ok")
+
+
 def test_demo_server_imports_only_the_port(tmp_path):
     """In a fresh interpreter: import the demo server and its usage store,
     bind a demo server (and stop it); neither jax, the JAX package, aiohttp

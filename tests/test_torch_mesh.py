@@ -410,17 +410,31 @@ def test_continuous_batcher_is_refused_under_a_mesh(mesh_models):
         mesh_models[1].continuous_batcher(max_slots=2)
 
 
-def test_tp_group_over_distinct_cards_raises():
-    """Built from torch.device objects only: no card is touched. dp groups
-    on distinct cards raise as well (no run on a machine with more than one
-    card has exercised them); a mesh of one repeated card is built."""
+def test_tp_group_over_distinct_cards_raises(monkeypatch):
+    """Built from torch.device objects only: no card is touched and nothing
+    is spawned. A grid of distinct cards (two visible) builds the process
+    form, a tp group or dp groups alike; a tp group over one card repeated
+    in that form raises ValueError (NCCL takes one rank a card), and so
+    does a grid over a card that is not visible; a mesh of one repeated
+    card is the one-process form."""
+    import multiprocessing
+
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
     cards = [torch.device("cuda:0"), torch.device("cuda:1")]
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
+    children = len(multiprocessing.active_children())
+    for dp, tp in ((1, 2), (2, 1)):
+        m = mesh_lib.make_mesh(2, dp=dp, tp=tp, devices=cards)
+        assert m.processes and m.workers is None and m.tp_group is None and m.own == (0, 0)
+        assert [m.device_of(*divmod(i, tp)) for i in range(2)] == cards
+    with pytest.raises(ValueError, match="NCCL takes one rank of a communicator a card"):
+        mesh_lib.make_mesh(2, dp=1, tp=2, devices=cards[:1] * 2, processes=True)
+    assert mesh_lib.make_mesh(2, dp=2, tp=1, devices=cards[:1] * 2, processes=True).processes  # dp may share
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="needs 2 devices; only 1 visible"):
         mesh_lib.make_mesh(2, dp=1, tp=2, devices=cards)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.8"):
-        mesh_lib.make_mesh(2, dp=2, tp=1, devices=cards)
+    assert len(multiprocessing.active_children()) == children
     m = mesh_lib.make_mesh(4, dp=2, tp=2, devices=cards[:1] * 4)
-    assert [m.group_device(g) for g in range(2)] == cards[:1] * 2
+    assert not m.processes and [m.group_device(g) for g in range(2)] == cards[:1] * 2
 
 
 def test_fuse_qkv_under_a_mesh_warns_and_stays_unfused(tp_dir, caplog):
