@@ -65,13 +65,25 @@ Phases, each of which fails the run:
    geometry (extract_speaker to .npy and .spk, generate_with_embedding from
    each, streaming_playback twice: the second run must read the voice from
    the native backend's cache);
+6b. tokenizer: for both committed fixture layouts (tests/fixtures/
+   qwen_tokenizer, a tokenizer.json; tests/torch_fixtures/qwen2_tokenizer,
+   vocab.json + merges.txt + a Qwen2Tokenizer config), `load_tokenizer`
+   must pick the port's BPE reader (`utils/bpe.py`) with no WARNING logged,
+   and its ids and decodes of every fixed text must equal the ones
+   `AutoTokenizer` wrote into tests/torch_fixtures/tokenizer_expected.json;
+   prints the reader's load ms (the first in the process builds the
+   Unicode class tables), encode us per text (word cache cleared, and
+   warm) and the phase's seconds;
 7. checkpoint + slice 0.6B Q8_0: the 0.6B Base tree of `init_numpy(seed=0)`
    (0.96 B parameters) written by `export_hf_layout` (float32, 3.86 GB)
-   under build/ and loaded by `from_pretrained(dir, quant="Q8_0",
-   strict=True)`: full coverage, every leaf bitwise equal to `materialize`
-   of the same tree; export, load phases and times; the directory is
-   deleted. On that model `warmup()` (the graphs of the JAX warmup's
-   set, the prefill graphs of prompt buckets 32-256 among them: its
+   under build/ beside the Qwen2-layout tokenizer fixture, and loaded by
+   `from_pretrained(dir, quant="Q8_0", strict=True)`: full coverage, every
+   leaf bitwise equal to `materialize` of the same tree, the tokenizer the
+   port's BPE reader and no byte-tokenizer warning (so every stream, batch
+   and server request of this model below runs on BPE ids); export, load
+   phases and times; the weights file is deleted (the tokenizer assets stay
+   for the restart's bundles). On that model `warmup()` (the graphs of
+   the JAX warmup's set, the prefill graphs of prompt buckets 32-256 among them: its
    phases, captures, seconds and graph memory are printed), then two
    streaming x-vector voice-clone requests (chunk 8, first chunk 4, 32
    frames; their prompts assembled on the card) that must run no frame and
@@ -138,9 +150,10 @@ Phases, each of which fails the run:
    compact under build/ (sizes, seconds, the size the JAX writer gives the
    manifest, which must be the file's); a fresh process (`--restart-from`)
    runs `from_pretrained(<full bundle>)`, `warmup(first_chunk_size=4)` and
-   one greedy x-vector stream: its codes must equal this model's greedy
-   stream exactly and its card memory after the load be within 1 % of the
-   strict load's; printed: process start to first audio, the load phases
+   one greedy x-vector stream: its tokenizer must be the BPE reader (the
+   bundle carries the checkpoint's tokenizer assets) with no byte-tokenizer
+   warning, its codes must equal this model's greedy stream exactly and its
+   card memory after the load be within 1 % of the strict load's; printed: process start to first audio, the load phases
    (pin, weights_read, device_transfer, transfer_mb) beside the strict
    load's seconds, K1 / K2 launches (which must move); then the compact
    bundle loaded in this process: every leaf the bf16 rounding of the
@@ -1627,10 +1640,13 @@ def slice_phase(quant, n_requests, report, icl=False, tree=None, init_s=None):
 def checkpoint_phase(report, tree, init_s):
     """The 0.6B Base tree of `init_numpy(seed=0)` (float32, 0.96 B parameters;
     drawn once by `main` in `init_s` seconds and kept for the int4 slice)
-    written by the port's `export_hf_layout` under build/, loaded strictly
-    by `from_pretrained(dir, quant="Q8_0", strict=True)`; every loaded leaf
-    must equal, bit for bit, `materialize` of the same tree. The directory
-    is deleted. -> the model."""
+    written by the port's `export_hf_layout` under build/ beside the
+    Qwen2-layout tokenizer fixture, loaded strictly by
+    `from_pretrained(dir, quant="Q8_0", strict=True)`; every loaded leaf
+    must equal, bit for bit, `materialize` of the same tree, and the
+    tokenizer must be the BPE reader, with no byte-tokenizer warning. The
+    weights file is deleted (the restart phase deletes the directory).
+    -> the model."""
     import shutil
 
     import torch
@@ -1641,7 +1657,7 @@ def checkpoint_phase(report, tree, init_s):
     from faster_qwen3_tts_tpu_torch.utils import safetensors as st
 
     cfg = get_config(MODEL)
-    path = REPO / "build" / "chip_smoke_hf_0.6b"
+    path = HF_DIR
     shutil.rmtree(path, ignore_errors=True)
     leaves = weights._leaves(tree)
     n_params, n_leaves = sum(a.size for a in leaves), len(leaves)
@@ -1649,14 +1665,21 @@ def checkpoint_phase(report, tree, init_s):
     t0 = time.perf_counter()
     weights.export_hf_layout(tree, cfg, str(path))
     (path / "config.json").write_text(json.dumps(weights._config_to_dict(cfg)))
+    for f in QWEN2_TOKENIZER.iterdir():  # a Qwen checkpoint's tokenizer layout
+        shutil.copy2(f, path / f.name)
     export_s = time.perf_counter() - t0
     file_gb = (path / "model.safetensors").stat().st_size / 1e9
     n_tensors = len(st.read_header(path / "model.safetensors")[0])
     torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_allocated()
     t0 = time.perf_counter()
-    model = FasterQwen3TTS.from_pretrained(str(path), device="cuda", quant="Q8_0", strict=True)
+    with logged_warnings() as warned:
+        model = FasterQwen3TTS.from_pretrained(str(path), device="cuda", quant="Q8_0", strict=True)
     load_s = time.perf_counter() - t0
+    reader = bpe_reader(model.tokenizer.base)
+    if reader is None or any("BYTE tokenizer" in w for w in warned):
+        fail(f"checkpoint: the tokenizer is {model.tokenizer.base!r}, not the BPE reader over the Qwen2 assets "
+             f"(warnings {warned})")
     card_gb = (torch.cuda.memory_allocated() - base) / 1e9  # what the load holds (the restart is held to it)
     card_peak_gb = torch.cuda.max_memory_allocated() / 1e9
     host_peak_gb = resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6  # kB: the process's peak so far
@@ -1678,24 +1701,27 @@ def checkpoint_phase(report, tree, init_s):
                 fail(f"checkpoint: {sub} leaf {i} ({tuple(a.shape)} {a.dtype}) differs from materialize")
         compared += len(got)
     del ref
-    shutil.rmtree(path)
+    for f in path.rglob("*.safetensors"):  # the tokenizer assets stay, for the restart's bundles
+        f.unlink()
     gc.collect()
     torch.cuda.empty_cache()
     row = {"params": n_params, "leaves": n_leaves, "tensors": n_tensors, "file_gb": file_gb, "init_s": init_s,
            "export_s": export_s, "load_s": load_s, "card_gb": card_gb, "card_peak_gb": card_peak_gb,
            "host_peak_rss_gb": host_peak_gb, "load_phases": model.load_phases, "coverage": cov, "materialize_s": ref_s,
-           "leaves_bitwise_equal": compared, "card": CARD}
+           "leaves_bitwise_equal": compared, "tokenizer": repr(reader), "card": CARD}
     log(f"checkpoint 0.6B Base ({CARD}): init_numpy {init_s:.1f} s, export_hf_layout {export_s:.1f} s "
         f"({n_params / 1e9:.3f} B parameters, {n_leaves} leaves, {n_tensors} tensors, {file_gb:.2f} GB float32); "
         f"from_pretrained(strict, Q8_0) {load_s:.1f} s, phases {model.load_phases}, {card_gb:.2f} GB on the card "
         f"(peak {card_peak_gb:.2f} GB), process peak RSS {host_peak_gb:.1f} GB; coverage {cov}; "
-        f"{compared} leaves bitwise equal to materialize of the same tree ({ref_s:.1f} s)")
+        f"{compared} leaves bitwise equal to materialize of the same tree ({ref_s:.1f} s); tokenizer: the BPE "
+        f"reader ({reader!r}), no byte-tokenizer warning")
     report["checkpoint_0.6B"] = row
     return model
 
 
 # -- the serving restart: deploy bundles, device quantization, device init --------------------------
 
+HF_DIR = REPO / "build" / "chip_smoke_hf_0.6b"  # the checkpoint phase's export, with its tokenizer assets
 RESTART_SEED = 41  # the greedy x-vector stream held between the strict load and the restarted process
 _ITEMSIZE = {"bfloat16": 2, "float32": 4, "int8": 1, "uint8": 1}  # the dtypes a bundle's sections hold
 
@@ -1762,8 +1788,8 @@ def _leaf_pairs(a, b, what):
 def restart_child(path):
     """The restart phase's fresh process: `from_pretrained(<bundle>)`,
     `warmup(first_chunk_size=4)`, one greedy x-vector stream; prints one
-    `RESTART {...}` line (load phases, card memory, codes, launches, the
-    epoch time of the first audio chunk)."""
+    `RESTART {...}` line (load phases, card memory, its tokenizer, codes,
+    launches, the epoch time of the first audio chunk)."""
     import torch
 
     from faster_qwen3_tts_tpu_torch.model import FasterQwen3TTS
@@ -1771,9 +1797,14 @@ def restart_child(path):
     if not torch.cuda.is_available():
         fail("the restart needs the card")
     t0 = time.perf_counter()
-    model = FasterQwen3TTS.from_pretrained(str(path), device="cuda")
+    with logged_warnings() as warned:
+        model = FasterQwen3TTS.from_pretrained(str(path), device="cuda")
     load_s = time.perf_counter() - t0
     card_gb = torch.cuda.memory_allocated() / 1e9
+    reader = bpe_reader(model.tokenizer.base)
+    tokenizer = {"reader": repr(reader) if reader is not None else None,
+                 "fallback_reason": getattr(model.tokenizer.base, "fallback_reason", None),
+                 "byte_warning": any("BYTE tokenizer" in w for w in warned)}
     t0 = time.perf_counter()
     model.warmup(first_chunk_size=FIRST_CHUNK)
     warmup_s = time.perf_counter() - t0
@@ -1786,7 +1817,8 @@ def restart_child(path):
         fail(f"the restarted process loaded jax or the JAX package: {jaxish[:8]}")
     print("RESTART " + json.dumps({"load_s": load_s, "load_phases": model.load_phases, "card_gb": card_gb,
                                    "warmup_s": warmup_s, "first_audio_epoch": start + req["ttfa_ms"] / 1000.0,
-                                   "request": req, "launches": launches, "codes": codes.tolist()}), flush=True)
+                                   "request": req, "launches": launches, "tokenizer": tokenizer,
+                                   "codes": codes.tolist()}), flush=True)
 
 
 def restart_phase(model, report):
@@ -1844,10 +1876,17 @@ def restart_phase(model, report):
              f"{strict['card_gb']:.3f} GB")
     if child["launches"]["K1"] == 0 or child["launches"]["K2"] == 0:
         fail(f"restart: the restarted stream did not go through K1 and K2: {child['launches']}")
+    if child["tokenizer"]["reader"] is None or child["tokenizer"]["byte_warning"]:
+        fail(f"restart: the restarted process did not read the bundle's tokenizer with the BPE reader: "
+             f"{child['tokenizer']}")
+    log(f"restart 0.6B Q8_0: the restarted process's tokenizer {child['tokenizer']['reader']} (from the bundle's "
+        f"copy of the checkpoint's assets), no byte-tokenizer warning")
 
     t0 = time.perf_counter()
     cm = FasterQwen3TTS.from_pretrained(str(compact), device="cuda")
     compact_load_s = time.perf_counter() - t0
+    if bpe_reader(cm.tokenizer.base) is None:
+        fail(f"compact bundle: its tokenizer is {cm.tokenizer.base!r}, not the BPE reader")
     n = 0
     for key, a, b in _leaf_pairs(model.params, cm.params, "compact bundle"):
         expect = a.to(torch.bfloat16).float() if a.dtype == torch.float32 else a
@@ -1872,6 +1911,7 @@ def restart_phase(model, report):
     procs_launches = mesh_procs_phase(model, full, report)
     shutil.rmtree(full)
     shutil.rmtree(compact)
+    shutil.rmtree(HF_DIR, ignore_errors=True)
     phase_s = time.perf_counter() - t_phase
     log(f"restart 0.6B Q8_0: phase {phase_s:.1f} s")
     report["restart_0.6B_Q8_0"] = {"bundles": files, "child": {k: v for k, v in child.items() if k != "codes"},
@@ -2531,7 +2571,10 @@ def slice_int4_phase(report, tree):
     `parity_mode` stream held against the engine's (reported, not asserted:
     a bf16 engine and the f32 parity decode part early on random weights);
     on the Q8_0 params the native phase, and on the Q8_0 and Q4_K_M params
-    the fused phase (`native_phase`, `fused_phase`). -> launches of the
+    the fused phase (`native_phase`, `fused_phase`). Its models keep the
+    byte tokenizer (`load_tokenizer(None)`): each comparison here is among
+    them and the Q8_4 bundle, which has no tokenizer assets to carry; none
+    is with the checkpoint's model, which reads BPE ids. -> launches of the
     Q4_K_M and Q8_4 streams and of the native and fused phases."""
     import torch
 
@@ -3345,7 +3388,7 @@ def continuous_phase(model, report, long_ref):
 
     reqs = [{"text": BATCH_TEXTS[i], "voice_clone_prompt": _xvec_prompt(100 + i), "xvec_only": True}
             for i in range(8)]
-    reqs[5] = dict(reqs[5], text="word " * 400)  # 2000 trailing rows, the pool's bucket is 256
+    reqs[5] = dict(reqs[5], text="word " * 400)  # 801 BPE ids (2000 bytes): over the pool's bucket of 256
     reqs += [{"text": BATCH_TEXTS[i], "ref_audio": str(long_ref), "ref_text": REF_TEXT} for i in range(4)]
     cancel_sid, bad_sid = 2, 5
     t0 = time.perf_counter()
@@ -3821,6 +3864,95 @@ def demo_line(report):
         f"{d['1.7B']['launches']['K2']}")
 
 
+TOKENIZER_FIXTURES = REPO / "tests" / "torch_fixtures"
+QWEN2_TOKENIZER = TOKENIZER_FIXTURES / "qwen2_tokenizer"  # vocab.json + merges.txt + a Qwen2Tokenizer config
+TOKENIZER_REPS = 20  # timed encodes a text, each way
+
+
+@contextlib.contextmanager
+def logged_warnings():
+    """The messages of the WARNING (and worse) records any logger logs inside the block."""
+    import logging
+
+    seen = []
+
+    class Catch(logging.Handler):
+        def emit(self, record):
+            seen.append(record.getMessage())
+
+    handler = Catch(logging.WARNING)
+    logging.getLogger().addHandler(handler)
+    try:
+        yield seen
+    finally:
+        logging.getLogger().removeHandler(handler)
+
+
+def bpe_reader(tokenizer):
+    """The port's BPE reader a `load_tokenizer` result wraps, else None."""
+    from faster_qwen3_tts_tpu_torch.utils import bpe
+
+    inner = getattr(tokenizer, "tok", None)
+    return inner if isinstance(inner, bpe.BPETokenizer) else None
+
+
+def tokenizer_phase(report):
+    """For both committed fixture layouts, `load_tokenizer(dir)` must pick the
+    BPE reader with no WARNING logged, and give the ids and decodes of every
+    fixed text that `AutoTokenizer` wrote into
+    tests/torch_fixtures/tokenizer_expected.json. Timed: three loads (the
+    first in the process also builds the Unicode class tables) and each
+    text's encode, with the reader's word cache cleared (cold) and not
+    (warm), median of TOKENIZER_REPS."""
+    from faster_qwen3_tts_tpu_torch.utils import bpe
+    from faster_qwen3_tts_tpu_torch.utils.tokenizer import load_tokenizer
+
+    expected = json.loads((TOKENIZER_FIXTURES / "tokenizer_expected.json").read_text())
+    texts = expected["texts"]
+    t_phase = time.perf_counter()
+    row = {"fixtures": {}, "card": CARD}
+    bpe.unicode_classes.cache_clear()
+    bpe.split_regex.cache_clear()
+    for name, want in expected["fixtures"].items():
+        loads = []
+        with logged_warnings() as warned:
+            for _ in range(3):
+                t0 = time.perf_counter()
+                tok = load_tokenizer(str(REPO / want["path"]))
+                loads.append((time.perf_counter() - t0) * 1000.0)
+        reader = bpe_reader(tok)
+        if reader is None or warned:
+            fail(f"tokenizer {name}: load_tokenizer gave {tok!r} (reason {getattr(tok, 'fallback_reason', None)}), "
+                 f"warnings {warned}")
+        encode = []
+        for text, ids, decoded in zip(texts, want["ids"], want["decoded"]):
+            if tok.encode(text) != ids or tok.decode(ids) != decoded:
+                fail(f"tokenizer {name}: {text!r} -> {tok.encode(text)} / {tok.decode(ids)!r}, AutoTokenizer gave "
+                     f"{ids} / {decoded!r}")
+            cold, warm = [], []
+            for _ in range(TOKENIZER_REPS):
+                reader._cache.clear()
+                t0 = time.perf_counter()
+                tok.encode(text)
+                t1 = time.perf_counter()
+                tok.encode(text)
+                cold.append((t1 - t0) * 1e6)
+                warm.append((time.perf_counter() - t1) * 1e6)
+            encode.append({"chars": len(text), "ids": len(ids), "cold_us": statistics.median(cold),
+                           "warm_us": statistics.median(warm)})
+        main = encode[texts.index(TEXT)]
+        first = "compiles the split pattern" + ("" if row["fixtures"] else " and builds the Unicode tables")
+        log(f"tokenizer {name} ({CARD}): load_tokenizer picked the BPE reader ({reader!r}), no warning; load "
+            f"{loads[0]:.2f} ms (the first: it {first}), then {loads[1]:.2f} / {loads[2]:.2f} ms; {len(texts)} texts: "
+            f"ids and decodes equal to AutoTokenizer's; encode of the {main['chars']}-character text {main['cold_us']:.1f} us cold, "
+            f"{main['warm_us']:.1f} us warm; cold us per text (chars): "
+            + ", ".join(f"{e['cold_us']:.0f} ({e['chars']})" for e in encode))
+        row["fixtures"][name] = {"layout": reader.layout, "load_ms": loads, "encode": encode}
+    row["phase_s"] = time.perf_counter() - t_phase
+    log(f"tokenizer ({CARD}): phase {row['phase_s']:.2f} s")
+    report["tokenizer"] = row
+
+
 def cli_phase(report, tiny_dir):
     """`python -m faster_qwen3_tts_tpu_torch.cli clone` on the tiny own-format
     checkpoint, on the card, as a subprocess: rc 0 and a 24 kHz wav."""
@@ -3995,6 +4127,8 @@ def main() -> None:
     examples_phase(report)
     phase("mesh refusals")
     mesh_refusals(tiny_dir)
+    phase("tokenizer")
+    tokenizer_phase(report)
     phase("checkpoint + slice 0.6B Q8_0 + ICL")
     from faster_qwen3_tts_tpu_torch import weights
     from faster_qwen3_tts_tpu_torch.config import get_config

@@ -400,13 +400,8 @@ class FasterQwen3TTS:
         is_dir = os.path.isdir(model_name)
         tokenizer = PromptTokenizer(load_tokenizer(model_name if is_dir else None))
         if is_dir and isinstance(tokenizer.base, ByteTokenizer):
-            has_assets = any(os.path.exists(os.path.join(model_name, f))
-                             for f in ("tokenizer.json", "tokenizer_config.json", "vocab.json"))
-            logger.warning(
-                "%s: %s; falling back to the BYTE tokenizer: fine for random-init weights, wrong "
-                "for a real checkpoint.", model_name,
-                "its tokenizer assets need `transformers`, which is not installed" if has_assets
-                else "no tokenizer assets (tokenizer.json / vocab.json)")
+            logger.warning("%s: %s; falling back to the BYTE tokenizer: fine for random-init weights, wrong "
+                           "for a real checkpoint.", model_name, tokenizer.base.fallback_reason)
         if mesh is None and (dp is not None or tp is not None):
             # on cards cuda:0 .. cuda:n-1, a process mesh when n > 1; on the CPU one process
             n = (dp or 1) * (tp or 1)

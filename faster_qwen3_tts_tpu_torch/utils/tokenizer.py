@@ -1,15 +1,19 @@
 """Text tokenizer plumbing + chat-template builders.
 
 The port's own copy of faster_qwen3_tts_tpu/utils/tokenizer.py (same classes,
-same ids).
+same ids), with one difference: a checkpoint's tokenizer assets are read by
+the port's own byte-level BPE reader (`utils/bpe.py`), which gives the ids
+`AutoTokenizer` gives without importing `transformers` (whose import takes
+a fresh process several times a deploy bundle's whole load).
 
 The reference delegates tokenization and template construction to upstream
 `qwen_tts` (`model._tokenize_texts`, `_build_assistant_text`,
 `_build_ref_text`, `_build_instruct_text` — SURVEY §2.4). Here the framework
 owns them. Two backends:
 
-- `HFTokenizer`: wraps a HuggingFace tokenizer when tokenizer files are
-  available next to the checkpoint.
+- `HFTokenizer`: wraps a tokenizer with the `transformers` surface (the BPE
+  reader; `AutoTokenizer` in tests) when tokenizer files are available
+  next to the checkpoint.
 - `ByteTokenizer`: dependency-free fallback (UTF-8 bytes + reserved special
   ids) so the engine, tests, and benchmarks run fully offline.
 
@@ -29,6 +33,8 @@ from typing import List, Optional
 
 import numpy as np
 
+from . import bpe
+
 ASSISTANT_HEADER_LEN = 3
 ASSISTANT_TRAILER_LEN = 5
 REF_TRAILER_LEN = 2
@@ -39,6 +45,7 @@ class ByteTokenizer:
 
     ids 0..255: bytes; 256..: special tokens. Vocab fits in the default
     text_vocab_size so random-weight tests and benches need no assets.
+    `fallback_reason` says why `load_tokenizer` gave it for a directory.
     """
 
     IM_START = 256
@@ -48,6 +55,9 @@ class ByteTokenizer:
     ROLE_USER = 260
     vocab_size = 512
 
+    def __init__(self, fallback_reason: Optional[str] = None):
+        self.fallback_reason = fallback_reason
+
     def encode(self, text: str) -> List[int]:
         return list(text.encode("utf-8"))
 
@@ -56,7 +66,8 @@ class ByteTokenizer:
 
 
 class HFTokenizer:
-    """HuggingFace tokenizer adapter (used when checkpoint assets exist)."""
+    """Adapter over a tokenizer with the `transformers` surface (used when
+    checkpoint assets exist): `bpe.BPETokenizer`, or an `AutoTokenizer`."""
 
     def __init__(self, tok):
         self.tok = tok
@@ -101,20 +112,18 @@ class HFTokenizer:
 
 
 def load_tokenizer(model_path: Optional[str] = None):
-    """Load the HF tokenizer from a local checkpoint dir, else ByteTokenizer."""
-    if model_path and os.path.isdir(model_path):
-        has_assets = any(
-            os.path.exists(os.path.join(model_path, f))
-            for f in ("tokenizer.json", "tokenizer_config.json", "vocab.json")
-        )
-        if has_assets:
-            try:
-                from transformers import AutoTokenizer
-
-                return HFTokenizer(AutoTokenizer.from_pretrained(model_path))
-            except Exception:
-                pass
-    return ByteTokenizer()
+    """A checkpoint directory's tokenizer: the port's BPE reader
+    (`bpe.read_tokenizer`), on every machine; where it refuses the assets,
+    the byte tokenizer, whose `fallback_reason` says why. Never raises."""
+    if not (model_path and os.path.isdir(model_path)):
+        return ByteTokenizer()
+    if not any(os.path.exists(os.path.join(model_path, f))
+               for f in ("tokenizer.json", "tokenizer_config.json", "vocab.json")):
+        return ByteTokenizer("no tokenizer assets (tokenizer.json / vocab.json)")
+    try:
+        return HFTokenizer(bpe.read_tokenizer(model_path))
+    except ValueError as e:  # UnsupportedTokenizer, or assets the ChatML framing cannot use
+        return ByteTokenizer(f"the BPE reader refused its tokenizer assets ({type(e).__name__}: {e})")
 
 
 class PromptTokenizer:

@@ -1,5 +1,6 @@
-"""The port stands alone: it imports neither jax nor the JAX package, and its
-own copies of the JAX package's config, tokenizer and audio helpers give the
+"""The port stands alone: it imports neither jax nor the JAX package (nor
+`transformers` or `regex` to read a checkpoint's tokenizer), and its own
+copies of the JAX package's config, tokenizer and audio helpers give the
 same results as the originals."""
 import dataclasses
 import os
@@ -33,11 +34,16 @@ def test_port_runs_without_jax_or_the_jax_package(tmp_path):
     backend (its reference cache and host library) and one through the
     fused layout, write a deploy bundle (compact and full) and load it back,
     load once with FQ3T_DEVICE_INIT=1, run a lockstep batch over a dp = 2
-    mesh (`parallel/mesh.py`), and bind the server. Neither jax, the
-    JAX package, safetensors, aiohttp nor ml_dtypes is loaded."""
+    mesh (`parallel/mesh.py`), and bind the server. With `transformers` and
+    `regex` blocked (as on the card), load a checkpoint with the Qwen2-layout
+    tokenizer fixture beside it and a deploy bundle made from it: both read
+    the tokenizer with the port's BPE reader, and no warning is logged.
+    Neither jax, the JAX package, safetensors, aiohttp nor ml_dtypes is
+    loaded."""
     script = tmp_path / "run.py"
     script.write_text(
-        "import dataclasses, importlib, pkgutil, sys\n"
+        "import dataclasses, importlib, logging, pkgutil, shutil, sys\n"
+        "sys.modules['transformers'] = sys.modules['regex'] = None  # the reader needs neither\n"
         "import numpy as np, torch\n"
         "import faster_qwen3_tts_tpu_torch as pkg\n"
         "for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.'):\n"
@@ -84,7 +90,7 @@ def test_port_runs_without_jax_or_the_jax_package(tmp_path):
         "from faster_qwen3_tts_tpu_torch import cli, server\n"
         "assert cli.build_parser().parse_args(['serve']).device == 'cuda'\n"
         "import os, tempfile\n"
-        "d = tempfile.mkdtemp()\n"
+        "d = tempfile.mkdtemp(dir=os.path.dirname(sys.argv[1]))  # under pytest's tmp_path, which pytest prunes\n"
         "weights.save_pretrained(os.path.join(d, 'own'), weights.init_numpy(cfg, seed=0), cfg)\n"
         "weights.export_hf_layout(weights.init_numpy(cfg, seed=0), cfg, os.path.join(d, 'hf'))\n"
         "import json\n"
@@ -92,6 +98,22 @@ def test_port_runs_without_jax_or_the_jax_package(tmp_path):
         "for sub in ('own', 'hf'):\n"
         "    lm = FasterQwen3TTS.from_pretrained(os.path.join(d, sub), device='cpu', dtype='float32')\n"
         "    assert torch.equal(lm.params['talker']['codec_head'], m0['talker']['codec_head'])\n"
+        "from faster_qwen3_tts_tpu_torch.utils import bpe\n"
+        "warned = []\n"
+        "class Catch(logging.Handler):\n"
+        "    def emit(self, record):\n"
+        "        warned.append(record.getMessage())\n"
+        "logging.getLogger().addHandler(Catch(logging.WARNING))\n"
+        "weights.save_pretrained(os.path.join(d, 'qwen2'), weights.init_numpy(cfg, seed=0), cfg)\n"
+        "shutil.copytree(sys.argv[2], os.path.join(d, 'qwen2'), dirs_exist_ok=True)\n"
+        "tm = FasterQwen3TTS.from_pretrained(os.path.join(d, 'qwen2'), device='cpu', dtype='float32')\n"
+        "tm.save_deploy_bundle(os.path.join(d, 'qwen2_bundle'), compact_f32=False)\n"
+        "tb = FasterQwen3TTS.from_pretrained(os.path.join(d, 'qwen2_bundle'), device='cpu')\n"
+        "for t in (tm, tb):\n"
+        "    assert isinstance(t.tokenizer.base.tok, bpe.BPETokenizer), t.tokenizer.base\n"
+        "    assert t.tokenizer.base.encode('12345') == [16, 17, 18, 19, 20]\n"
+        "assert not warned, warned\n"
+        "logging.getLogger().handlers.pop()\n"
         "nm = FasterQwen3TTS.from_pretrained(os.path.join(d, 'own'), device='cpu', dtype='float32',\n"
         "                                    backend='native', voice_ref_cache_dir=os.path.join(d, 'refs'))\n"
         "n = sum(len(a) for a, _, _ in nm.generate_voice_clone_streaming(\n"
@@ -128,12 +150,13 @@ def test_port_runs_without_jax_or_the_jax_package(tmp_path):
         "srv.server_close()\n"
         "bad = sorted(k for k in sys.modules if k == 'jax' or k.startswith('jax.')\n"
         "             or k == 'faster_qwen3_tts_tpu' or k.startswith('faster_qwen3_tts_tpu.')\n"
-        "             or k.split('.')[0] in ('safetensors', 'aiohttp', 'ml_dtypes', 'servers'))\n"
+        "             or k.split('.')[0] in ('safetensors', 'aiohttp', 'ml_dtypes', 'servers', 'tokenizers'))\n"
         "assert not bad, bad\n"
         "print('ok')\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
-    proc = subprocess.run([sys.executable, str(script), str(tmp_path / "ref.wav")], capture_output=True,
+    proc = subprocess.run([sys.executable, str(script), str(tmp_path / "ref.wav"),
+                           os.path.join(REPO, "tests", "torch_fixtures", "qwen2_tokenizer")], capture_output=True,
                           text=True, env=env, timeout=300)
     assert proc.returncode == 0, proc.stderr[-3000:]
     assert proc.stdout.strip().endswith("ok")
