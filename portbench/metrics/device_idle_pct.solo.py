@@ -1,0 +1,11 @@
+"""device_idle_pct.solo: Share of the traced window in which no operation ran on the card (one minus the union of device
+activity in torch.profiler over the window), in %."""
+from portbench import readers
+
+LAYER = 'device (H100)'
+SOURCE = 'device_trace'
+MOVES = 'audio_rtf'
+
+
+def read(window):
+    return readers.device_idle_pct(window)
