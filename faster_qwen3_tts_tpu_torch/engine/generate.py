@@ -35,6 +35,7 @@ from faster_qwen3_tts_tpu_torch.config import Qwen3TTSConfig
 from ..ops.sampling import SamplingParams
 from ..parallel import mesh as mesh_lib
 from ..parallel import procs
+from ..utils import trace
 from . import core, fused_stream, graphs
 
 PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024, 2048)
@@ -176,6 +177,14 @@ class GenerationSession:
     without reading them; they stay valid until the next chunk is queued.
     `close()` (or the session's collection) returns the set.
 
+    Spans (`utils.trace`): a chunk's `sess.chunk` runs from its dispatch to
+    `chunk_read()`, which its driver calls once the host has read it, and is
+    the parent of its `graph.frame`s; `sess.prefill` is written at the first
+    `chunk_read()` (or at `close()`). On the card each carries the device ms
+    of a CUDA-event pair around its replays, read only after that host read.
+    Every span of the session carries `rid`: the request id of the span
+    open around its construction, else a new one.
+
     Sharded parameters (`mesh.shard_params`): the lanes run on the dp
     groups `lane_groups` gives (split over dp with `mesh`, else all on group
     0), each group with its own set (its tp ranks in one frame graph) and
@@ -243,6 +252,10 @@ class GenerationSession:
         self._leases: List[graphs.Lease] = []
         self.state: Optional[core.DecodeState] = None
         self.prefill_ms = 0.0
+        rid = trace.current_rid()
+        self.rid = trace.new_rid() if rid is None else rid
+        self._prefill_span = None  # (t0_ns, t1_ns, timer) until the first chunk is read
+        self._chunk_span = None  # (span, timer) of the last chunk queued, until it is read
         # a process mesh's workers, from rank 0: this session's mirror in each
         self._workers = mesh_lib.workers_of(params)
         self._sid = None
@@ -265,6 +278,8 @@ class GenerationSession:
 
     def close(self) -> None:
         """Return the graph sets (idempotent)."""
+        self._write_prefill_span()
+        self._chunk_span = None  # queued, never read: no span
         for lease in self._leases:
             lease.release()
         if self._sid is not None and not self._workers.closed:
@@ -277,7 +292,9 @@ class GenerationSession:
         folds into the first chunk's (prefill_ms stays 0). `noise` [B, V]
         replaces the first draw (CPU)."""
         t0 = time.perf_counter()
+        t0_ns = time.perf_counter_ns()
         self._send("prefill", noise)
+        timer = self._timer()
         with self._guard():
             for part in self.parts:
                 if part.graphs is None:  # a set of this part's key, captured if none is free
@@ -287,12 +304,61 @@ class GenerationSession:
                 part.graphs.load_text(part.tth, part.tpe)
                 part.graphs.prefill(part.params, part.tie, part.mask, part.seed,
                                     None if noise is None else noise[part.lanes])
+        if timer is not None:
+            timer[1].record(timer[2])
+        self._prefill_span = (t0_ns, time.perf_counter_ns(), timer) if trace.enabled() else None
         self.graphs = self.parts[0].graphs
         self.state = self.graphs.state
         if block:
             for part in self.parts:
                 _sync(part.tie.device)
             self.prefill_ms = (time.perf_counter() - t0) * 1000.0
+
+    # -- spans ---------------------------------------------------------------------------------
+
+    def _timer(self):
+        """A CUDA-event pair on this session's stream, its start recorded ->
+        (start, end, stream); None on the CPU or with the recorder off."""
+        if self.device.type != "cuda" or not trace.enabled():
+            return None
+        stream = torch.cuda.current_stream(self.device)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record(stream)
+        return start, end, stream
+
+    @staticmethod
+    def _device_ms(timer) -> Optional[float]:
+        """A timer's milliseconds once its end has passed on the device
+        (never waits), else None."""
+        if timer is None or not timer[1].query():
+            return None
+        return timer[0].elapsed_time(timer[1])
+
+    @contextlib.contextmanager
+    def _queue_chunk(self):
+        """The `sess.chunk` span and timer of the chunk queued in the block."""
+        sp = trace.begin("sess.chunk", self.rid)
+        timer = self._timer()
+        with sp:
+            yield
+        if timer is not None:
+            timer[1].record(timer[2])
+        self._chunk_span = (sp, timer)
+
+    def _write_prefill_span(self) -> None:
+        if self._prefill_span is not None:
+            t0, t1, timer = self._prefill_span
+            self._prefill_span = None
+            trace.add("sess.prefill", t0, t1, rid=self.rid, value=self._device_ms(timer))
+
+    def chunk_read(self) -> None:
+        """The host has read the last chunk queued: its `sess.chunk` span
+        ends (and, at the first, the prefill's is written)."""
+        self._write_prefill_span()
+        if self._chunk_span is not None:
+            sp, timer = self._chunk_span
+            self._chunk_span = None
+            sp.end(self._device_ms(timer))
 
     def _lanes(self, tensors: List[torch.Tensor], dim: int) -> torch.Tensor:
         """The parts' outputs in lane order (on the first part's device)."""
@@ -310,12 +376,14 @@ class GenerationSession:
         (in a process mesh this process's lanes: `collect` gives them all).
         `noise`: per frame (predictor [15, B, Vp], talker [B, V]) draws (CPU)."""
         self._send("chunk", chunk_size, noise)
-        with self._guard():
+        with self._queue_chunk(), self._guard():
             return self._lanes([self._chunk(part, chunk_size, noise) for part in self.parts], dim=1)
 
     def decode_chunk(self, chunk_size: int) -> Tuple[np.ndarray, bool]:
         """One chunk, read once -> (valid frames [n, 16] int32, done)."""
-        return core.read_packed(self.collect(self.decode_chunk_async(chunk_size)))
+        out = core.read_packed(self.collect(self.decode_chunk_async(chunk_size)))
+        self.chunk_read()
+        return out
 
     def collect(self, out):
         """A queued chunk (`decode_chunk_async`'s packed rows, or
@@ -378,7 +446,7 @@ class GenerationSession:
         replicated codec."""
         self._send("fused", chunk_size, ctx)
         packed, audio = [], []
-        with self._guard():
+        with self._queue_chunk(), self._guard():
             for part in self.parts:
                 packed.append(part.graphs.run_chunk(part.params, chunk_size))
                 audio.append(part.graphs.vocode(part.params, chunk_size, ctx))
@@ -531,6 +599,7 @@ def fast_generate_streaming_batch(
             else:
                 audio, frames, valid, done = fused_stream.split_fused_output_batch(*dev)
                 tail = np.concatenate([tail, frames.transpose(1, 0, 2)], axis=1)[:, -context_frames:]
+            sess.chunk_read()
             n_decoded += cs
             # clip each stream to its token budget
             valid = valid & (valid.cumsum(axis=0) + totals[None, :] <= max_new_tokens)
@@ -648,6 +717,7 @@ def fast_generate_streaming_fused(
                 frames = frames[: max_new_tokens - total]
                 v = frames.shape[0]
                 audio = audio_full[0, : (max(v * up - D, 0) if kind == "fused0" else v * up)]
+            sess.chunk_read()
             decode_ms = (time.perf_counter() - t0) * 1000.0
             v = frames.shape[0]
             stream_done = done or total + v >= max_new_tokens

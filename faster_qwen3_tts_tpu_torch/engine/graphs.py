@@ -70,6 +70,7 @@ from ..ops import attention as attention_ops
 from ..ops import quant as quant_ops
 from ..ops.sampling import SamplingParams, make_suppress_mask
 from ..parallel import mesh as mesh_lib
+from ..utils import trace
 from . import core, fused_stream
 
 ROWS = 32  # packed chunk rows a set starts with (the non-streaming chunk); grown on demand
@@ -360,16 +361,18 @@ class GraphSet:
         """`chunk` frames -> the packed rows [chunk, B, 18] (a view of the
         static buffer, valid until the next chunk): the frame tokens, the
         valid flag and the done flag after the chunk, as `core.decode_chunk`
-        packs them. `noise`: per frame, the (predictor, talker) noise that
-        replaces the generator's draws (CPU tests)."""
+        packs them, each frame a `graph.frame` span (the host's time to queue
+        it on the card). `noise`: per frame, the (predictor, talker) noise
+        that replaces the generator's draws (CPU tests)."""
         self._rows(chunk)
         packed = self.packed
         for i in range(chunk):
-            if self.cuda:
-                self.frame_graph.replay()
-            else:
-                self._frame(params, None if noise is None else noise[i])
-            packed[i].copy_(self.out)
+            with trace.span("graph.frame", value=self.key.batch):
+                if self.cuda:
+                    self.frame_graph.replay()
+                else:
+                    self._frame(params, None if noise is None else noise[i])
+                packed[i].copy_(self.out)
         packed[:chunk, :, -1].copy_(self.out[:, -1].expand(chunk, -1))
         if self.cuda:
             for k, n in self.frame_launches.items():

@@ -49,6 +49,7 @@ import torch
 
 from faster_qwen3_tts_tpu_torch.config import Qwen3TTSConfig, get_config
 from faster_qwen3_tts_tpu_torch.utils import audio as audio_lib
+from faster_qwen3_tts_tpu_torch.utils import trace
 from faster_qwen3_tts_tpu_torch.utils.logging_utils import format_timing
 from faster_qwen3_tts_tpu_torch.utils.tokenizer import ByteTokenizer, PromptTokenizer, load_tokenizer
 
@@ -126,6 +127,7 @@ class _StreamVocoder:
         self._ref_codes = ref_codes
         self._codes: List[np.ndarray] = []
         self._prev_len = 0  # samples emitted, in generated-audio coordinates
+        self._rid = trace.current_rid()  # a batcher lane's sid: its `voc.host` spans run outside its admission
 
     def add_vocoded(self, frames: np.ndarray, n_samples: int) -> None:
         """Record frames whose `n_samples` samples were vocoded elsewhere (on
@@ -134,24 +136,26 @@ class _StreamVocoder:
         self._prev_len += n_samples
 
     def vocode_new(self, frames: np.ndarray) -> np.ndarray:
-        """Vocode `frames` [n, 16], the stream's newest frames -> their samples."""
-        self._codes.append(np.asarray(frames, np.int32))
-        all_flat = np.concatenate(self._codes, axis=0)
-        n_new = frames.shape[0]
-        ctx, up, D = self._CTX, self._up, self._deficit
-        if all_flat.shape[0] - n_new >= ctx:
-            (audio,), _ = self._st.decode({"audio_codes": all_flat[-(ctx + n_new):][None]})
-            new_audio = audio[ctx * up - D:(ctx + n_new) * up - D]
-            self._prev_len += len(new_audio)
+        """Vocode `frames` [n, 16], the stream's newest frames -> their
+        samples (a `voc.host` span)."""
+        with trace.span("voc.host", rid=self._rid, value=int(frames.shape[0])):
+            self._codes.append(np.asarray(frames, np.int32))
+            all_flat = np.concatenate(self._codes, axis=0)
+            n_new = frames.shape[0]
+            ctx, up, D = self._CTX, self._up, self._deficit
+            if all_flat.shape[0] - n_new >= ctx:
+                (audio,), _ = self._st.decode({"audio_codes": all_flat[-(ctx + n_new):][None]})
+                new_audio = audio[ctx * up - D:(ctx + n_new) * up - D]
+                self._prev_len += len(new_audio)
+                return new_audio
+            rc = self._ref_codes
+            codes_in = all_flat if rc is None else np.concatenate([rc, all_flat], axis=0)
+            (audio,), _ = self._st.decode({"audio_codes": codes_in[None]})
+            if rc is not None:
+                audio = audio[int(rc.shape[0] / max(codes_in.shape[0], 1) * len(audio)):]
+            new_audio = audio[self._prev_len:]
+            self._prev_len = len(audio)
             return new_audio
-        rc = self._ref_codes
-        codes_in = all_flat if rc is None else np.concatenate([rc, all_flat], axis=0)
-        (audio,), _ = self._st.decode({"audio_codes": codes_in[None]})
-        if rc is not None:
-            audio = audio[int(rc.shape[0] / max(codes_in.shape[0], 1) * len(audio)):]
-        new_audio = audio[self._prev_len:]
-        self._prev_len = len(audio)
-        return new_audio
 
 
 def load_params(model_name: str, device, dtype, quant: str, seed: int, strict: Optional[bool],
@@ -771,29 +775,33 @@ class FasterQwen3TTS:
         A streaming-layout request with prefer_device is assembled on the
         device (`PromptBuilder.build_device`: device tensors at the session's
         buckets); otherwise, and for more than one item, on the host (`build`:
-        numpy at the prompt's own length)."""
-        input_ids = [self.tokenizer.assistant_ids(text)]
-        instruct_ids = [self.tokenizer.instruct_ids(instruct)] if instruct else [None]
-        vcp, ref_ids, using_icl = self._resolve_voice_clone_prompt(
-            input_ids, ref_audio, ref_text, xvec_only, append_silence, voice_clone_prompt
-        )
-        if instruct and not using_icl:
-            logger.warning("Base-model instruct with x-vector-only voice cloning is experimental; "
-                           "prefer xvec_only=False (ICL mode).")
-        languages = [language if language is not None else "Auto"]
-        ref_codes = None
-        if using_icl and vcp.get("ref_code") and vcp["ref_code"][0] is not None:
-            ref_codes = np.asarray(vcp["ref_code"][0], np.int32)
-        if self._device_prompt_ok(prefer_device, non_streaming_mode):
-            dev = self.prompt_builder.build_device(input_ids, ref_ids, vcp, languages, None, instruct_ids,
-                                                   self.max_seq_len)
-            if dev is not None:
-                return (*dev, ref_codes)
-        tie, tam, tth, tpe = self.prompt_builder.build(
-            input_ids=input_ids, ref_ids=ref_ids, voice_clone_prompt=vcp, languages=languages, speakers=None,
-            non_streaming_mode=non_streaming_mode, instruct_ids=instruct_ids,
-        )
-        return tie, tam, tth, tpe, ref_codes
+        numpy at the prompt's own length). An `api.prompt` span, its value
+        the prompt's rows."""
+        with trace.span("api.prompt") as sp:
+            input_ids = [self.tokenizer.assistant_ids(text)]
+            instruct_ids = [self.tokenizer.instruct_ids(instruct)] if instruct else [None]
+            vcp, ref_ids, using_icl = self._resolve_voice_clone_prompt(
+                input_ids, ref_audio, ref_text, xvec_only, append_silence, voice_clone_prompt
+            )
+            if instruct and not using_icl:
+                logger.warning("Base-model instruct with x-vector-only voice cloning is experimental; "
+                               "prefer xvec_only=False (ICL mode).")
+            languages = [language if language is not None else "Auto"]
+            ref_codes = None
+            if using_icl and vcp.get("ref_code") and vcp["ref_code"][0] is not None:
+                ref_codes = np.asarray(vcp["ref_code"][0], np.int32)
+            if self._device_prompt_ok(prefer_device, non_streaming_mode):
+                dev = self.prompt_builder.build_device(input_ids, ref_ids, vcp, languages, None, instruct_ids,
+                                                       self.max_seq_len)
+                if dev is not None:
+                    sp.value = int(dev[0].shape[1])
+                    return (*dev, ref_codes)
+            tie, tam, tth, tpe = self.prompt_builder.build(
+                input_ids=input_ids, ref_ids=ref_ids, voice_clone_prompt=vcp, languages=languages, speakers=None,
+                non_streaming_mode=non_streaming_mode, instruct_ids=instruct_ids,
+            )
+            sp.value = int(tie.shape[1])
+            return tie, tam, tth, tpe, ref_codes
 
     def _device_prompt_ok(self, prefer_device: bool, non_streaming_mode: bool) -> bool:
         """The device-assembly gate: a streaming-layout request whose caller
@@ -810,19 +818,23 @@ class FasterQwen3TTS:
         """Prompt of a CustomVoice (preset `speaker`) or VoiceDesign
         (speaker None, voice described by `instruct`) request -> (tie,
         attention_mask, tth, tpe), on the device for a streaming layout with
-        prefer_device (as `_prepare_generation`)."""
-        input_ids = [self.tokenizer.assistant_ids(text)]
-        instruct_ids = [self.tokenizer.instruct_ids(instruct) if instruct else None]
-        languages = [language if language is not None else "Auto"]
-        if self._device_prompt_ok(prefer_device, non_streaming_mode):
-            dev = self.prompt_builder.build_device(input_ids, [None], None, languages, [speaker], instruct_ids,
-                                                   self.max_seq_len)
-            if dev is not None:
-                return dev
-        return self.prompt_builder.build(
-            input_ids=input_ids, ref_ids=[None], voice_clone_prompt=None, languages=languages,
-            speakers=[speaker], non_streaming_mode=non_streaming_mode, instruct_ids=instruct_ids,
-        )
+        prefer_device (as `_prepare_generation`); an `api.prompt` span."""
+        with trace.span("api.prompt") as sp:
+            input_ids = [self.tokenizer.assistant_ids(text)]
+            instruct_ids = [self.tokenizer.instruct_ids(instruct) if instruct else None]
+            languages = [language if language is not None else "Auto"]
+            if self._device_prompt_ok(prefer_device, non_streaming_mode):
+                dev = self.prompt_builder.build_device(input_ids, [None], None, languages, [speaker], instruct_ids,
+                                                       self.max_seq_len)
+                if dev is not None:
+                    sp.value = int(dev[0].shape[1])
+                    return dev
+            out = self.prompt_builder.build(
+                input_ids=input_ids, ref_ids=[None], voice_clone_prompt=None, languages=languages,
+                speakers=[speaker], non_streaming_mode=non_streaming_mode, instruct_ids=instruct_ids,
+            )
+            sp.value = int(out[0].shape[1])
+            return out
 
     # -- codec decode helpers --------------------------------------------------
 

@@ -55,6 +55,7 @@ import torch
 from .engine import core, fused_stream, graphs
 from .engine import generate as gen_lib
 from .ops.sampling import SamplingParams
+from .utils import trace
 
 logger = logging.getLogger(__name__)
 
@@ -264,7 +265,10 @@ class ContinuousBatcher:
                         return emits, failed
                     s = self._pending.popleft()
                 try:
-                    audio, v, finished, solo_ms = self._admit(s, slot)
+                    # spans of the whole admission: its wait since submit, then `_admit`
+                    trace.add("cb.queue", round(s.submitted_at * 1e9), time.perf_counter_ns(), rid=s.sid)
+                    with trace.span("cb.admit", rid=s.sid, value=slot):
+                        audio, v, finished, solo_ms = self._admit(s, slot)
                     emits.append((s, slot, audio, v, finished, solo_ms))
                 except Exception as e:  # noqa: BLE001 -- the pool keeps serving the others
                     logger.warning("request %d failed admission", s.sid, exc_info=True)
@@ -344,15 +348,16 @@ class ContinuousBatcher:
             if not any(self._slots):
                 continue  # every pending request failed admission or was cancelled
             t0 = time.perf_counter()
-            packed = self._set.run_chunk(m.params, self.chunk_size)
-            if any(s is not None and not s.host_only and s.frames_emitted >= self._ctx
-                   for s in self._slots):
-                # a mature x-vector lane: vocode every lane's window behind the chunk
-                audio_t = self._set.vocode(m.params, self.chunk_size, self._ctx)
-                audio_b, frames, valid, done = fused_stream.split_fused_output_batch(audio_t, packed)
-            else:
-                audio_b = None
-                frames, valid, done = core.read_packed_batch(packed)
+            with trace.span("cb.pool_chunk", value=self.active()):
+                packed = self._set.run_chunk(m.params, self.chunk_size)
+                if any(s is not None and not s.host_only and s.frames_emitted >= self._ctx
+                       for s in self._slots):
+                    # a mature x-vector lane: vocode every lane's window behind the chunk
+                    audio_t = self._set.vocode(m.params, self.chunk_size, self._ctx)
+                    audio_b, frames, valid, done = fused_stream.split_fused_output_batch(audio_t, packed)
+                else:
+                    audio_b = None
+                    frames, valid, done = core.read_packed_batch(packed)
             # the window rolls on, in place: the last ctx frames of [window | chunk]
             self._hist.copy_(torch.cat([self._hist, packed[:, :, :ncg].transpose(0, 1)], dim=1)[:, -self._ctx:])
             decode_ms = (time.perf_counter() - t0) * 1000.0

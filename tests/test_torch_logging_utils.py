@@ -2,7 +2,8 @@
 gives the same line, `suppress_platform_warnings` quiets torch's loggers and
 warnings inside its block and restores them on exit, and
 `enable_profiler_trace` (the counterpart of `jax.profiler.trace`) writes a
-Chrome trace of a tiny CPU generation."""
+Chrome trace of a tiny CPU generation, with the port's spans of its window on
+their own row, on the profiler's clock."""
 import dataclasses
 import json
 import logging
@@ -16,7 +17,7 @@ from faster_qwen3_tts_tpu.utils import logging_utils as jax_logging
 from faster_qwen3_tts_tpu_torch import weights
 from faster_qwen3_tts_tpu_torch.config import tiny_test_config
 from faster_qwen3_tts_tpu_torch.model import FasterQwen3TTS
-from faster_qwen3_tts_tpu_torch.utils import logging_utils
+from faster_qwen3_tts_tpu_torch.utils import logging_utils, trace
 from faster_qwen3_tts_tpu_torch.utils.tokenizer import ByteTokenizer, PromptTokenizer
 
 torch.set_num_threads(1)
@@ -62,3 +63,20 @@ def test_enable_profiler_trace_writes_a_chrome_trace(tmp_path):
     names = {e.get("name", "") for e in events}
     assert any("aten::" in n for n in names), sorted(names)[:20]
     assert prof.key_averages()
+
+
+def test_enable_profiler_trace_adds_the_spans_of_its_window(tmp_path):
+    a = torch.randn(64, 64)
+    with trace.span("before"):
+        pass
+    with logging_utils.enable_profiler_trace(str(tmp_path / "trace")):
+        with trace.span("outer", rid=3, value=2):
+            torch.mm(a, a)
+    (path,) = (tmp_path / "trace").glob("trace-*.json")
+    events = json.loads(path.read_text())["traceEvents"]
+    mine = [e for e in events if e.get("tid") == "fq3t" and e.get("ph") == "X"]
+    assert [e["name"] for e in mine] == ["outer"]  # the window's spans only
+    (outer,), (mm,) = mine, [e for e in events if e.get("name") == "aten::mm"]
+    assert outer["cat"] == "fq3t" and outer["args"]["rid"] == 3 and outer["args"]["value"] == 2
+    assert outer["ts"] - 1000 <= mm["ts"] <= outer["ts"] + outer["dur"] + 1000  # microseconds, within 1 ms
+    assert mm["ts"] + mm["dur"] <= outer["ts"] + outer["dur"] + 1000
