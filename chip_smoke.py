@@ -9,7 +9,8 @@
 Phases, each of which fails the run:
 1. device: a CUDA card must be visible; prints its name and power limit;
 2. build: compiles the port's CUDA kernels (K1 decode attention, K2 int8
-   GEMV, K4 int4 GEMV, K3 weight streaming) from faster_qwen3_tts_tpu_torch/csrc
+   GEMV, K4 int4 GEMV, K3 weight streaming, K5-K7 the decoder layer's glue)
+   from faster_qwen3_tts_tpu_torch/csrc
    with one nvcc per source for sm_90a, and prints what ptxas says of each
    kernel;
 3. kernels: K1 and K2 against their plain PyTorch versions on the same
@@ -32,7 +33,14 @@ Phases, each of which fails the run:
    and float32), and K2 at every 0.6B and 1.7B tp = 2 shard shape (column
    shards O / 2, row shards I / 2) with 1 and 2 bf16 rows, the row shards
    also with 1, 2 and 4 float32 rows as the mesh feeds them (float32 cases
-   at atol 1e-4 / rtol 1e-5);
+   at atol 1e-4 / rtol 1e-5); then K5 (add + RMSNorm), K6 (q / k norm,
+   RoPE, K/V write) and K7 (SiLU * up) the same way at the main path's bf16
+   shapes (K5: 1 x 1024 and 1 x 2048 with a residual, 8 x 1024, a predictor
+   prefill's per-head q norm on a fused-layout view, `F.rms_norm` its
+   yardstick; K6: B = 1 and 8, 16 / 8 heads, S_max 2048, split and fused
+   views, a lane clamped to the last slot, every other cache slot held
+   unchanged; K7: 1 x 3072, 1 x 6144 and 8 x 3072, split and fused), normed
+   rows within one bf16 ulp, K5's sums, K6's V rows and K7 bit for bit;
 4. probe: K3 streams the stacked int8 weights of the Pallas probe it
    replaces (L=28, I=2048, O=12288, the 1.7B gate+up stack, and L=28,
    I=1024, O=6144), timed with CUDA events, then held against its plain
@@ -244,13 +252,16 @@ Phases, each of which fails the run:
 Kernel launches are counted replay-aware: each wrapper counts its eager
 launches and those it records into a graph at capture; `engine.graphs`
 counts what replays launched (a graph's launches at capture times its
-replays); a path fails if one of its kernels launched no time. The run
+replays); a path fails if one of its kernels launched no time, and the
+run fails if the slice paths together never launched K5, K6 or K7. The run
 fails if jax or any module of the JAX package (faster_qwen3_tts_tpu)
 was loaded.
 Before them, one `demo` line: per demo stream the POST to its first chunk
 event beside the event's ttfa_ms, the done RTF and the queued position;
 /generate ms, the demo phases' seconds and K1 / K2 launches.
-The second-to-last line is the kernels' JSON record, the last line
+The second-to-last line is the kernels' JSON record (K1-K7: source, the
+TPU kernel each replaces, launches over the slice paths, the largest error,
+and one main-path case's ms, plain ms, bound and library ms), the last line
 `{"ok": true, "device": {...}}`. Any failure exits non-zero before them.
 """
 from __future__ import annotations
@@ -601,8 +612,10 @@ def kernel_phase(report):
                 f"eager call ms: kernel {timed['eager_ms']:.4f}, plain {timed['plain_eager_ms']:.4f}")
         del qs, packed, wbf
     k4_cases = k4_phase(g)
-    report["kernel_cases"] = {"K1": k1_cases, "K2": k2_cases, "K4": k4_cases}
-    return k1_cases, k2_cases, k4_cases
+    k5_cases, k6_cases, k7_cases = glue_phase(g)
+    report["kernel_cases"] = {"K1": k1_cases, "K2": k2_cases, "K4": k4_cases, "K5": k5_cases, "K6": k6_cases,
+                              "K7": k7_cases}
+    return k1_cases, k2_cases, k4_cases, k5_cases, k6_cases, k7_cases
 
 
 # f32 activations: K4's f32 sums of up to 6144 products in another order than
@@ -717,6 +730,142 @@ def k4_phase(g):
     if not same:
         fail("K4 replayed in a CUDA graph differs from its eager call")
     return cases
+
+
+def _ulps(a, b) -> int:
+    """The largest distance between a and b in steps of their dtype."""
+    import torch
+
+    def key(t):
+        bits, sign = (torch.int16, 0x7FFF) if t.dtype == torch.bfloat16 else (torch.int32, 0x7FFFFFFF)
+        i = t.contiguous().view(bits).to(torch.int64)
+        return torch.where(i < 0, -(i & sign), i)
+
+    return int((key(a) - key(b)).abs().max().item()) if a.numel() else 0
+
+
+GLUE_COPIES = 64  # operand sets a timed graph cycles through (a call moves kilobytes)
+GLUE_EPS = 1e-6
+
+
+def _glue_case(cases, name, outs, kernel, plain, nbytes, nops, library=None):
+    """Check one K5 / K6 / K7 case and time it. `outs` is a list of (what,
+    kernel output, plain output, ulps allowed): 1 for normed rows (the f32
+    sum of squares is taken in another order than PyTorch's), 0 for what
+    must be bit for bit. Then the device ms per call (`device_ms` over
+    GLUE_COPIES operand sets) of `kernel(i)`, `plain(i)` and, where one
+    PyTorch call computes the function, `library(i)`; the bound; the eager
+    ms."""
+    import torch
+
+    ulps = {what: _ulps(a, b) for what, a, b, _ in outs}
+    err = max(float((a.float() - b.float()).abs().max()) for _, a, b, _ in outs)
+    bad = [f"{what} {ulps[what]} ulps (at most {most})" for what, _, _, most in outs if ulps[what] > most]
+    if bad or not all(torch.isfinite(a).all() for _, a, _, _ in outs):
+        fail(f"{name}: {', '.join(bad) or 'not finite'}")
+    row = {"case": name, "max_abs_err": err, "ulps": ulps,
+           "ms": device_ms(kernel, GLUE_COPIES), "plain_ms": device_ms(plain, GLUE_COPIES),
+           "library_ms": None if library is None else library_time(name, library, GLUE_COPIES),
+           "eager_ms": eager_ms(kernel), "plain_eager_ms": eager_ms(plain)}
+    row.update(bound(nbytes, nops, torch.bfloat16))
+    cases.append(row)
+    log(f"{name}: bf16 ulps {ulps}, max_abs_err {err:.3e}; device ms per call: kernel {row['ms']:.5f}, plain "
+        f"{row['plain_ms']:.5f}, library {_fmt(row['library_ms'])}, bound {row['bound_ms']:.6f} "
+        f"({row['bound_by']}); eager call ms: kernel {row['eager_ms']:.4f}, plain {row['plain_eager_ms']:.4f}")
+
+
+def glue_phase(g):
+    """K5, K6 and K7 (csrc/glue.cu) against their plain versions on the same
+    bf16 CUDA tensors at the main path's shapes. K5: one row of 1024 and of
+    2048 with a residual, 8 rows of 1024, and the per-head norm of a
+    predictor prefill's q (2 rows of 16 heads of 128, a column view of the
+    fused wqkv output; `F.rms_norm` as the yardstick). K6: B = 1 and 8, 16 /
+    8 heads, S_max 2048, split and fused-layout column views, finished lanes
+    clamped to the last slot; every cache slot but the write positions must
+    stay as it was. K7: 1 x 3072, 1 x 6144 and 8 x 3072, split and the fused
+    gate / up halves. Normed rows within one bf16 ulp; K5's sums, K6's V
+    rows and K7 bit for bit. -> the K5, K6 and K7 cases."""
+    import torch
+    import torch.nn.functional as F
+
+    from faster_qwen3_tts_tpu_torch.models.layers import rope_cos_sin
+    from faster_qwen3_tts_tpu_torch.ops import glue
+
+    n = GLUE_COPIES
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g) * scale).to("cuda", torch.bfloat16)
+
+    def norm_weight(W):
+        return (1 + 0.1 * torch.randn(W, generator=g)).to("cuda", torch.bfloat16)
+
+    k5 = []
+    for rows, W in [(1, 1024), (1, 2048), (8, 1024)]:
+        xs, rs = [rand(rows, 1, W, scale=3.0) for _ in range(n)], [rand(rows, 1, W) for _ in range(n)]
+        w = norm_weight(W)
+        s, y = glue.add_rms_norm(xs[0], rs[0], w, GLUE_EPS)
+        ps, py = glue.add_rms_norm_plain(xs[0], rs[0], w, GLUE_EPS)
+        _glue_case(k5, f"K5 {rows} x {W} + residual", [("sum", s, ps, 0), ("normed", y, py, 1)],
+                   lambda i: glue.add_rms_norm(xs[i], rs[i], w, GLUE_EPS),
+                   lambda i: glue.add_rms_norm_plain(xs[i], rs[i], w, GLUE_EPS),
+                   rows * W * 2 * 4 + W * 2, 4 * rows * W)  # x, residual, sum, out; w
+    # the predictor prefill's q: [1, 2, 16, 128] cut from a [1, 2, 4096] wqkv output
+    qs, w = [rand(1, 2, 4096, scale=2.0)[..., :2048].view(1, 2, 16, 128) for _ in range(n)], norm_weight(128)
+    _glue_case(k5, "K5 per-head 1 x 2 x 16 x 128 (fused view)",
+               [("normed", glue.add_rms_norm(qs[0], None, w, GLUE_EPS)[1],
+                 glue.add_rms_norm_plain(qs[0], None, w, GLUE_EPS)[1], 1)],
+               lambda i: glue.add_rms_norm(qs[i], None, w, GLUE_EPS),
+               lambda i: glue.add_rms_norm_plain(qs[i], None, w, GLUE_EPS),
+               2 * 2 * 16 * 128 * 2 + 128 * 2, 4 * 2 * 16 * 128, lambda i: F.rms_norm(qs[i], (128,), w, GLUE_EPS))
+
+    k6 = []
+    Hq, Hkv, D, S = 16, 8, 128, 2048
+    for B, fused in [(1, False), (1, True), (8, False), (8, True)]:
+        def qkv():
+            if fused:  # column views of one [B, 1, (Hq + 2 Hkv) D] product
+                y = rand(B, 1, (Hq + 2 * Hkv) * D, scale=2.0)
+                return (y[..., :Hq * D].view(B, 1, Hq, D), y[..., Hq * D:(Hq + Hkv) * D].view(B, 1, Hkv, D),
+                        y[..., (Hq + Hkv) * D:].view(B, 1, Hkv, D))
+            return rand(B, 1, Hq, D, scale=2.0), rand(B, 1, Hkv, D, scale=2.0), rand(B, 1, Hkv, D)
+
+        ins = [qkv() for _ in range(n)]
+        qw, kw = norm_weight(D), norm_weight(D)
+        cos, sin = rope_cos_sin(torch.randint(0, 3000, (B, 1), generator=g).to("cuda", torch.int32), D, 1e6)
+        # lane 0 finished (clamped to the last slot), the others mid-cache
+        wp = torch.tensor([S - 1] + [(S // 2 + 37 * b) % S for b in range(1, B)], dtype=torch.int32, device="cuda")
+        kc0, vc0 = rand(B, S, Hkv, D), rand(B, S, Hkv, D)
+        kc, vc, pk, pv = kc0.clone(), vc0.clone(), kc0.clone(), vc0.clone()
+        out = glue.qk_norm_rope_kv(*ins[0], qw, kw, cos, sin, kc, vc, wp, GLUE_EPS)
+        ref = glue.qk_norm_rope_kv_plain(*ins[0], qw, kw, cos, sin, pk, pv, wp, GLUE_EPS)
+        rest = torch.ones(B, S, dtype=torch.bool, device="cuda")
+        rest[torch.arange(B, device="cuda"), wp.long()] = False
+        untouched = bool(torch.equal(kc[rest], kc0[rest]) and torch.equal(vc[rest], vc0[rest]))
+        name = f"K6 B={B} S_max={S} heads {Hq}/{Hkv} ({'fused' if fused else 'split'}, lane 0 clamped)"
+        if not untouched:
+            fail(f"{name}: a cache slot other than a write position changed")
+        # q, k, v and the two weights read, cos / sin read, q out and the k / v cache rows written
+        _glue_case(k6, name, [("q", out, ref, 1), ("k cache", kc, pk, 1), ("v cache", vc, pv, 0)],
+                   lambda i: glue.qk_norm_rope_kv(*ins[i], qw, kw, cos, sin, kc, vc, wp, GLUE_EPS),
+                   lambda i: glue.qk_norm_rope_kv_plain(*ins[i], qw, kw, cos, sin, kc, vc, wp, GLUE_EPS),
+                   2 * B * (Hq + 2 * Hkv) * D * 2 + 2 * D * 2 + 2 * B * D * 4, B * (Hq + Hkv) * D * 10)
+        k6[-1]["untouched_slots_equal"] = untouched
+        del ins, kc, vc, pk, pv, kc0, vc0
+
+    k7 = []
+    for rows, inter in [(1, 3072), (1, 6144), (8, 3072)]:
+        for fused in (False, True):
+            def gate_up():
+                if fused:  # the halves of one [rows, 1, 2 I] gate / up product
+                    y = rand(rows, 1, 2 * inter, scale=4.0)
+                    return y[..., :inter], y[..., inter:]
+                return rand(rows, 1, inter, scale=4.0), rand(rows, 1, inter, scale=4.0)
+
+            gu = [gate_up() for _ in range(n)]
+            _glue_case(k7, f"K7 {rows} x {inter} ({'fused' if fused else 'split'})",
+                       [("out", glue.silu_mul(*gu[0]), glue.silu_mul_plain(*gu[0]), 0)],
+                       lambda i: glue.silu_mul(*gu[i]), lambda i: glue.silu_mul_plain(*gu[i]),
+                       3 * rows * inter * 2, 6 * rows * inter)
+    return k5, k6, k7
 
 
 def _events_ms(fn, reps: int, warm: int = 2) -> float:
@@ -851,7 +1000,7 @@ def reference_parity_phase(report, tiny_dir):
     # no EOS before 24 frames (a tiny random model may end at once), so every frame is compared
     kw = dict(voice_clone_prompt=prompt, max_new_tokens=24, min_new_tokens=24, chunk_size=CHUNK,
               first_chunk_size=FIRST_CHUNK, seed=5)
-    rows, launches = [], {"K1": 0, "K2": 0, "K4": 0}
+    rows, launches = [], dict.fromkeys(KERNELS, 0)
     for quant in ("none", "Q8_0", "Q4_K_M", "Q8_4"):
         model = FasterQwen3TTS.from_pretrained(str(tiny_dir), device="cuda", dtype="float32", quant=quant,
                                                max_seq_len=256, seed=0)
@@ -1095,14 +1244,24 @@ def run_request(model, seed, greedy=False, frames=FRAMES, method="generate_voice
             "ttfa_ms": ttfa, "stream_rtf": rtf, "wall_s": wall}, np.concatenate(tokens)
 
 
-def _reset_launches():
-    from faster_qwen3_tts_tpu_torch.engine import graphs
-    from faster_qwen3_tts_tpu_torch.ops import attention
+# the kernels whose wrappers count their launches: K1 attention, K2 / K4
+# the int8 / int4 products, K5-K7 the decoder layer's glue
+KERNELS = ("K1", "K2", "K4", "K5", "K6", "K7")
+
+
+def _launchers():
+    from faster_qwen3_tts_tpu_torch.ops import attention, glue
     from faster_qwen3_tts_tpu_torch.ops import quant as quant_ops
 
-    attention.decode_attention.launches = 0
-    quant_ops.int8_gemv.launches = 0
-    quant_ops.int4_gemv.launches = 0
+    return {"K1": attention.decode_attention, "K2": quant_ops.int8_gemv, "K4": quant_ops.int4_gemv,
+            "K5": glue.add_rms_norm, "K6": glue.qk_norm_rope_kv, "K7": glue.silu_mul}
+
+
+def _reset_launches():
+    from faster_qwen3_tts_tpu_torch.engine import graphs
+
+    for fn in _launchers().values():
+        fn.launches = 0
     graphs.reset_replayed()
 
 
@@ -1112,12 +1271,8 @@ def _read_launches():
     launches that graph replays made (each graph's count at capture times its
     replays)."""
     from faster_qwen3_tts_tpu_torch.engine import graphs
-    from faster_qwen3_tts_tpu_torch.ops import attention
-    from faster_qwen3_tts_tpu_torch.ops import quant as quant_ops
 
-    return {"K1": attention.decode_attention.launches + graphs.replayed["K1"],
-            "K2": quant_ops.int8_gemv.launches + graphs.replayed["K2"],
-            "K4": quant_ops.int4_gemv.launches + graphs.replayed["K4"]}
+    return {k: fn.launches + graphs.replayed[k] for k, fn in _launchers().items()}
 
 
 def _eager_frames():
@@ -1158,8 +1313,9 @@ def no_eager_prefills(what):
 
 
 def _profile_row(prof, frames, wall_s):
-    """Device time per frame of all kernels, of K1 and of K2, from a trace
-    of `frames` frames over `wall_s` seconds."""
+    """Device time per frame of all kernels and of each hand-written kernel
+    (K1, K2, K4, K5-K7), from a trace of `frames` frames over `wall_s`
+    seconds."""
 
     def device_us(e):  # the kernel's own device time, across torch versions
         us = getattr(e, "self_device_time_total", None)
@@ -1170,7 +1326,8 @@ def _profile_row(prof, frames, wall_s):
     row = {"frames": frames, "wall_ms_per_frame": wall_s * 1e3 / frames,
            "device_ms_per_frame": total_us / 1e3 / frames, "busy_share": total_us / 1e6 / wall_s,
            "device_ops_per_frame": sum(e.count for e in events if device_us(e) > 0) / frames}
-    for kname, needle in (("K1", "decode_attn_kernel"), ("K2", "int8_gemv_kernel"), ("K4", "int4_gemv_kernel")):
+    for kname, needle in (("K1", "decode_attn_kernel"), ("K2", "int8_gemv_kernel"), ("K4", "int4_gemv_kernel"),
+                          ("K5", "add_rms_norm_kernel"), ("K6", "qk_norm_rope_kv_kernel"), ("K7", "silu_mul_kernel")):
         hits = [e for e in events if needle in e.key]
         row[kname] = {"ms_per_frame": sum(device_us(e) for e in hits) / 1e3 / frames,
                       "launches_per_frame": sum(e.count for e in hits) / frames,
@@ -2062,7 +2219,7 @@ def tapped_steps(rec):
     from faster_qwen3_tts_tpu_torch.engine import graphs
 
     real = graphs.GraphSet.run_chunk
-    rec.update(steps=0, K1=0, K2=0, K4=0)
+    rec.update(steps=0, **dict.fromkeys(KERNELS, 0))
 
     def counting(gset, *a, **k):
         before = _read_launches()
@@ -2150,15 +2307,21 @@ def _fault_gap(prompts, cfg, ref_logits):
 
 
 def _mesh_frame_launches(cfg, quant, tp):
-    """Kernel launches of one dp group's frame on a tp mesh: K1 once a rank
-    a talker layer and a predictor decode pass (14); int8 projections once a
-    rank (mtp_proj is replicated: once), int4 ones whole, once."""
+    """Kernel launches of one dp group's frame on a tp mesh: K1, K6 (q / k
+    norm, RoPE, cache write) once a rank a talker layer and a predictor
+    decode pass (14); K7 (SiLU * up) once a rank a layer pass, the
+    predictor's prefill included; K5 (add + RMSNorm) once a layer pass at
+    ln1 and ln2 and once a stack call (the hidden state is replicated), and
+    once a rank for each per-head q / k norm of the predictor's prefill;
+    int8 projections once a rank (mtp_proj is replicated: once), int4 ones
+    whole, once."""
     t, p = cfg.talker.num_hidden_layers, cfg.predictor.num_hidden_layers
     k1 = tp * (t + 14 * p)
+    glue = {"K5": (2 * t + 1) + 15 * (2 * p + 1) + tp * 2 * p, "K6": k1, "K7": tp * (t + 15 * p)}
     talker = tp * (7 * t + 1)  # 7 projections a layer, the codec head
     if quant == "Q8_0":
-        return {"K1": k1, "K2": talker + tp * (15 * 7 * p + 15) + 15, "K4": 0}
-    return {"K1": k1, "K2": talker, "K4": 15 * 7 * p + 15 + 15}  # Q8_4: the predictor in int4, whole
+        return {"K1": k1, "K2": talker + tp * (15 * 7 * p + 15) + 15, "K4": 0, **glue}
+    return {"K1": k1, "K2": talker, "K4": 15 * 7 * p + 15 + 15, **glue}  # Q8_4: the predictor in int4, whole
 
 
 @contextlib.contextmanager
@@ -2361,7 +2524,7 @@ def mesh_procs_phase(plain, bundle, report):
         with no_eager_frames("mesh procs lockstep"), no_eager_prefills("mesh procs lockstep"):
             got, tok = lockstep_run(model, reqs, MESH_PROCS_FRAMES)
         after = mesh.workers.call(counters)
-        worker = {k: sum(a[k] for a in after) for k in ("K1", "K2", "K4")}
+        worker = {k: sum(a[k] for a in after) for k in KERNELS}
         eager = [(a["eager_frames"] - b["eager_frames"], a["eager_prefills"] - b["eager_prefills"])
                  for a, b in zip(after, before)]
         if any(e != (0, 0) for e in eager):
@@ -2406,7 +2569,7 @@ def mesh_procs_phase(plain, bundle, report):
     del model
     gc.collect()
     torch.cuda.empty_cache()
-    return {k: got["launches"][k] + worker[k] for k in ("K1", "K2", "K4")}
+    return {k: got["launches"][k] + worker[k] for k in KERNELS}
 
 
 def mesh_phase(params, plain, quant, report):
@@ -2442,7 +2605,7 @@ def mesh_phase(params, plain, quant, report):
     model = FasterQwen3TTS(sharded, plain.config, plain.tokenizer, mesh=mesh)
     reqs = [{"text": BATCH_TEXTS[i], "voice_clone_prompt": _xvec_prompt(200 + i), "xvec_only": True}
             for i in range(4)]
-    total = {"K1": 0, "K2": 0, "K4": 0}
+    total = dict.fromkeys(KERNELS, 0)
     prompts = []
     if quant == "F32":
         ref, ref_tok = lockstep_run(plain, reqs, MESH_F32_FRAMES)
@@ -2589,7 +2752,7 @@ def slice_int4_phase(report, tree):
     cfg = get_config(MODEL)
     tokenizer = PromptTokenizer(load_tokenizer(None))
     voice = _xvec_prompt(0)
-    launches = {"K1": 0, "K2": 0, "K4": 0}
+    launches = dict.fromkeys(KERNELS, 0)
     delta, rows, ref_logits = {}, {}, None
     for quant, mode, dtype in (("F32", "none", torch.float32), ("BF16", "none", torch.bfloat16),
                                ("Q8_0", "int8", torch.bfloat16), ("Q4_K_M", "int4", torch.bfloat16),
@@ -4108,7 +4271,7 @@ def main() -> None:
     report["build_s"] = lib.build_seconds
 
     phase("kernels")
-    k1_cases, k2_cases, k4_cases = kernel_phase(report)
+    k1_cases, k2_cases, k4_cases, k5_cases, k6_cases, k7_cases = kernel_phase(report)
     phase("probe")
     k3_cases, k3_launches = probe_phase(report, k2_cases)
     if args.kernels_only:
@@ -4163,8 +4326,10 @@ def main() -> None:
     # Q8_0 CustomVoice / VoiceDesign / Base and the demo's custom and design
     # streams, the tiny engine streams held against parity_mode; K3's probe
     paths = (q8, icl, q8_batch, q4, bf16, bf16_batch, q8_17b, parity_launches)
-    total = {k: sum(p.get(k, 0) for p in paths) for k in ("K1", "K2", "K4")}
+    total = {k: sum(p.get(k, 0) for p in paths) for k in KERNELS}
     total["K3"] = k3_launches
+    if any(total[k] == 0 for k in ("K5", "K6", "K7")):
+        fail(f"the slice paths did not launch the glue kernels K5-K7: {total}")
 
     def entry(name, source, replaces, cases, launches, pick):
         c = cases[pick]
@@ -4173,7 +4338,8 @@ def main() -> None:
                 "ms": c["ms"], "plain_ms": c["plain_ms"], "bound_ms": c["bound_ms"],
                 "bound_by": c["bound_by"], "library_ms": c["library_ms"]}
 
-    # ms: K1 at 133 live talker slots, K2 and K4 at the 1.7B gate/up (M = 1), K3 at 704 MB
+    # ms: K1 at 133 live talker slots, K2 and K4 at the 1.7B gate/up (M = 1), K3 at 704 MB, K5 at one
+    # 1.7B hidden row with its residual, K6 at one lane (split), K7 at one 1.7B row (split)
     gate_up = next(i for i, c in enumerate(k2_cases) if c["shape"] == (1, 2048, 6144))
     gate_up4 = next(i for i, c in enumerate(k4_cases) if c.get("shape") == (1, 2048, 6144))
     record = {"kernels": [
@@ -4188,6 +4354,12 @@ def main() -> None:
         # K4 replaces no Pallas kernel: its spec is the XLA-computed `_dot4`
         entry("int4_gemv", "faster_qwen3_tts_tpu_torch/csrc/int4_gemv.cu",
               "faster_qwen3_tts_tpu/ops/quant.py:87", k4_cases, total["K4"], gate_up4),
+        entry("add_rms_norm", "faster_qwen3_tts_tpu_torch/csrc/glue.cu", "none (XLA fused this glue)", k5_cases,
+              total["K5"], 1),
+        entry("qk_norm_rope_kv", "faster_qwen3_tts_tpu_torch/csrc/glue.cu", "none (XLA fused this glue)",
+              k6_cases, total["K6"], 0),
+        entry("silu_mul", "faster_qwen3_tts_tpu_torch/csrc/glue.cu", "none (XLA fused this glue)", k7_cases,
+              total["K7"], 2),
     ]}
     report["record"] = record
     write_report(args.report, report)

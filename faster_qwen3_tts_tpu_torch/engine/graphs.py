@@ -67,6 +67,7 @@ import numpy as np
 import torch
 
 from ..ops import attention as attention_ops
+from ..ops import glue as glue_ops
 from ..ops import quant as quant_ops
 from ..ops.sampling import SamplingParams, make_suppress_mask
 from ..parallel import mesh as mesh_lib
@@ -76,7 +77,7 @@ from . import core, fused_stream
 ROWS = 32  # packed chunk rows a set starts with (the non-streaming chunk); grown on demand
 
 # kernel launches made by graph replays since the last reset, and replays
-replayed = {"K1": 0, "K2": 0, "K4": 0, "frames": 0, "prefills": 0}
+replayed = {"K1": 0, "K2": 0, "K4": 0, "K5": 0, "K6": 0, "K7": 0, "frames": 0, "prefills": 0}
 
 
 def reset_replayed() -> None:
@@ -86,7 +87,8 @@ def reset_replayed() -> None:
 
 def _launch_counts() -> Dict[str, int]:
     return {"K1": attention_ops.decode_attention.launches, "K2": quant_ops.int8_gemv.launches,
-            "K4": quant_ops.int4_gemv.launches}
+            "K4": quant_ops.int4_gemv.launches, "K5": glue_ops.add_rms_norm.launches,
+            "K6": glue_ops.qk_norm_rope_kv.launches, "K7": glue_ops.silu_mul.launches}
 
 
 class GraphKey(NamedTuple):
@@ -171,7 +173,7 @@ class GraphSet:
         self.hists: Dict[int, torch.Tensor] = {}
         self.audio: Dict[Tuple[int, int], torch.Tensor] = {}
         self.frame_graph = None
-        self.frame_launches = {"K1": 0, "K2": 0, "K4": 0}  # a replay's launches
+        self.frame_launches = {k: 0 for k in _launch_counts()}  # a replay's launches
         self.windows: Dict[Tuple[int, int], object] = {}  # (chunk, ctx) -> its graph (None on the CPU)
 
     # -- the bodies (captured on the card, run eagerly on the CPU) -------------------------------

@@ -26,7 +26,8 @@ import torch.nn.functional as F
 
 from faster_qwen3_tts_tpu_torch.config import CodecConfig
 
-from .layers import apply_rope, rms_norm, rope_cos_sin
+from ..ops.glue import apply_rope, rms_norm
+from .layers import rope_cos_sin
 
 _NEG_INF = -1e30
 _RES_DILATIONS = (1, 3, 9)  # per decoder block (structural constant)

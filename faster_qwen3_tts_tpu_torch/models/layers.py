@@ -23,9 +23,10 @@ import dataclasses
 from typing import Dict, List, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from ..ops.attention import decode_attention, prefill_attention, prefill_mask
+# rms_norm stays importable from here, where callers outside the decoder find it
+from ..ops.glue import add_rms_norm, apply_rope, qk_norm_rope_kv, rms_norm, silu_mul  # noqa: F401
 from ..ops.quant import QuantizedLinear, QuantizedLinear4, dot
 from ..parallel.mesh import all_gather, all_reduce, as_ranks, group, like
 
@@ -51,12 +52,6 @@ class KVCache:
         return self.k.shape[2]
 
 
-def rms_norm(w: torch.Tensor, x: torch.Tensor, eps: float) -> torch.Tensor:
-    xf = x.float()
-    y = xf * torch.rsqrt(xf.square().mean(dim=-1, keepdim=True) + eps)
-    return (w.float() * y).to(x.dtype)
-
-
 def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
     """positions [..., S] -> cos, sin [..., S, head_dim] (HF 'cat' layout)."""
     half = head_dim // 2
@@ -65,19 +60,6 @@ def rope_cos_sin(positions: torch.Tensor, head_dim: int, theta: float):
     freqs = positions.float()[..., None] * inv_freq
     emb = torch.cat([freqs, freqs], dim=-1)
     return torch.cos(emb), torch.sin(emb)
-
-
-def _rotate_half(x: torch.Tensor) -> torch.Tensor:
-    half = x.shape[-1] // 2
-    return torch.cat([-x[..., half:], x[..., :half]], dim=-1)
-
-
-def apply_rope(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch.Tensor:
-    """x: [B, S, H, D]; cos/sin: [B, S, D] (broadcast over heads)."""
-    c = cos[:, :, None, :].float()
-    s = sin[:, :, None, :].float()
-    xf = x.float()
-    return (xf * c + _rotate_half(xf) * s).to(x.dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -191,25 +173,20 @@ def column_gathered(params, x: torch.Tensor, weight) -> torch.Tensor:
 
 def _qkv(lps, x: torch.Tensor, shape: LayerShape):
     """-> per rank (q, k, v) [B, S, heads, head_dim] of the rank's heads
-    (`shape` is the rank's), q and k RMS-normed."""
+    (`shape` is the rank's), as the projections give them: the per-head
+    q / k norms are the caller's (K6 at decode, K5 at prefill)."""
     B, S, _ = x.shape
     qd = shape.num_heads * shape.head_dim
     kd = shape.num_kv_heads * shape.head_dim
     if "wqkv" in lps[0]:
-        # the fused layout (ops.quant.fuse_layer_weights; never sharded): one product, split into views; the
-        # norms and RoPE below write new tensors, and the cache write copies v, so no split is made contiguous
+        # the fused layout (ops.quant.fuse_layer_weights; never sharded): one product, split into views that
+        # K5 / K6 read with their row stride, so no split is made contiguous
         y = dot(x, lps[0]["wqkv"])
         parts = [(y[..., :qd], y[..., qd:qd + kd], y[..., qd + kd:])]
     else:
         parts = zip(_column(lps, x, "wq"), _column(lps, x, "wk"), _column(lps, x, "wv"))
-    out = []
-    for lp, (q, k, v) in zip(lps, parts):
-        q = q.reshape(B, S, shape.num_heads, shape.head_dim)
-        k = k.reshape(B, S, shape.num_kv_heads, shape.head_dim)
-        v = v.reshape(B, S, shape.num_kv_heads, shape.head_dim)
-        # Qwen3 per-head q/k RMSNorm
-        out.append((rms_norm(lp["q_norm"], q, shape.rms_eps), rms_norm(lp["k_norm"], k, shape.rms_eps), v))
-    return out
+    return [(q.reshape(B, S, shape.num_heads, shape.head_dim), k.reshape(B, S, shape.num_kv_heads, shape.head_dim),
+             v.reshape(B, S, shape.num_kv_heads, shape.head_dim)) for q, k, v in parts]
 
 
 def _mlp(lps, x: torch.Tensor) -> torch.Tensor:
@@ -219,43 +196,46 @@ def _mlp(lps, x: torch.Tensor) -> torch.Tensor:
         gates, ups = [y[..., :inter]], [y[..., inter:]]
     else:
         gates, ups = _column(lps, x, "w_gate"), _column(lps, x, "w_up")
-    return _row(lps, [F.silu(g.float()).to(x.dtype) * u for g, u in zip(gates, ups)], "w_down")
+    return _row(lps, [silu_mul(g, u) for g, u in zip(gates, ups)], "w_down")
 
 
-def layer_prefill(lps, x, cos, sin, mask, shape: LayerShape):
-    """One layer over a padded sequence. x: [B, S, H]; mask [B, S, S] bool;
-    `lps` the layer's dict of each rank. Returns (y, per rank (k, v)) with
-    k/v [B, S, kv / tp, hd] for the cache: each rank attends with its heads."""
-    h = rms_norm(lps[0]["ln1"], x, shape.rms_eps)
+# A layer returns its hidden state as a pair (x, m): the residual stream x
+# and the MLP's output m not yet added to it. The next layer's ln1 (or the
+# stack's final norm) adds them in the same launch as its norm (K5); the
+# values are the unfused order's, x + m rounded, then normed.
+
+
+def layer_prefill(lps, x, m, cos, sin, mask, shape: LayerShape):
+    """One layer over a padded sequence. The hidden state is x + m (m None:
+    x): [B, S, H]; mask [B, S, S] bool; `lps` the layer's dict of each rank.
+    Returns (x, m) of the layer's output and per rank (k, v) with k/v
+    [B, S, kv / tp, hd] for the cache: each rank attends with its heads."""
+    x, h = add_rms_norm(x, m, lps[0]["ln1"], shape.rms_eps)
     attn, kv = [], []
-    for q, k, v in _qkv(lps, h, rank_shape(shape, lps.size)):
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
+    for lp, (q, k, v) in zip(lps, _qkv(lps, h, rank_shape(shape, lps.size))):
+        q = apply_rope(add_rms_norm(q, None, lp["q_norm"], shape.rms_eps)[1], cos, sin)
+        k = apply_rope(add_rms_norm(k, None, lp["k_norm"], shape.rms_eps)[1], cos, sin)
         a = prefill_attention(q, k, v, mask)
         attn.append(a.reshape(a.shape[0], a.shape[1], -1))
         kv.append((k, v))
-    x = x + _row(lps, attn, "wo")
-    x = x + _mlp(lps, rms_norm(lps[0]["ln2"], x, shape.rms_eps))
-    return x, kv
+    x, h = add_rms_norm(_row(lps, attn, "wo"), x, lps[0]["ln2"], shape.rms_eps)
+    return x, _mlp(lps, h), kv
 
 
-def layer_decode(lps, x, cos, sin, k_caches, v_caches, write_pos, length_mask, shape: LayerShape):
-    """One layer for one token. x: [B, 1, H]; `lps` the layer's dict of each
-    rank, and k_caches / v_caches each rank's [B, S_max, kv / tp, hd], written
-    IN PLACE at `write_pos` [B]; length_mask [B, S_max]. Each rank writes and
-    reads its own heads' cache (K1 at kv / tp heads)."""
-    h = rms_norm(lps[0]["ln1"], x, shape.rms_eps)
-    rows = torch.arange(x.shape[0], device=x.device)
+def layer_decode(lps, x, m, cos, sin, k_caches, v_caches, write_pos, length_mask, shape: LayerShape):
+    """One layer for one token. The hidden state is x + m (m None: x):
+    [B, 1, H]; `lps` the layer's dict of each rank, and k_caches / v_caches
+    each rank's [B, S_max, kv / tp, hd], written IN PLACE at `write_pos` [B]
+    (K6, with the q / k norms and RoPE); length_mask [B, S_max]. Each rank
+    writes and reads its own heads' cache (K1 at kv / tp heads). Returns
+    (x, m) of the layer's output."""
+    x, h = add_rms_norm(x, m, lps[0]["ln1"], shape.rms_eps)
     attn = []
-    for (q, k, v), kc, vc in zip(_qkv(lps, h, rank_shape(shape, lps.size)), k_caches, v_caches):
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-        kc[rows, write_pos] = k[:, 0]
-        vc[rows, write_pos] = v[:, 0]
+    for lp, (q, k, v), kc, vc in zip(lps, _qkv(lps, h, rank_shape(shape, lps.size)), k_caches, v_caches):
+        q = qk_norm_rope_kv(q, k, v, lp["q_norm"], lp["k_norm"], cos, sin, kc, vc, write_pos, shape.rms_eps)
         attn.append(decode_attention(q, kc, vc, length_mask).reshape(x.shape[0], 1, -1))
-    x = x + _row(lps, attn, "wo")
-    x = x + _mlp(lps, rms_norm(lps[0]["ln2"], x, shape.rms_eps))
-    return x
+    x, h = add_rms_norm(_row(lps, attn, "wo"), x, lps[0]["ln2"], shape.rms_eps)
+    return x, _mlp(lps, h)
 
 
 def _per_layer(layers) -> List[tuple]:
@@ -275,12 +255,13 @@ def stack_prefill(layers, x, positions, pad_mask, shape: LayerShape, rope_theta,
     full = prefill_mask(pad_mask)
     slide = prefill_mask(pad_mask, shape.sliding_window) if any(flags) else None
     kvs = []
+    m = None
     for lps, is_slide in zip(per_layer, flags):
-        x, kv = layer_prefill(lps, x, cos, sin, slide if is_slide else full, shape)
+        x, m, kv = layer_prefill(lps, x, m, cos, sin, slide if is_slide else full, shape)
         kvs.append(kv)
     caches = [KVCache(k=torch.stack([layer[r][0] for layer in kvs]), v=torch.stack([layer[r][1] for layer in kvs]))
               for r in range(len(kvs[0]))]
-    return rms_norm(final_norm, x, shape.rms_eps), group(caches)
+    return add_rms_norm(x, m, final_norm, shape.rms_eps)[1], group(caches)
 
 
 def stack_decode(layers, x, pos, rope_pos, cache, length_mask, shape: LayerShape,
@@ -300,8 +281,9 @@ def stack_decode(layers, x, pos, rope_pos, cache, length_mask, shape: LayerShape
         slide_mask = length_mask * (s_ids > (pos[:, None] - shape.sliding_window))
     write_pos = pos.clamp(max=cache_max_seq(cache) - 1)
     caches = as_ranks(cache)
+    m = None
     for i, (lps, is_slide) in enumerate(zip(per_layer, flags)):
         mask = slide_mask if is_slide else length_mask
-        x = layer_decode(lps, x, cos, sin, [c.k[i] for c in caches], [c.v[i] for c in caches], write_pos, mask,
-                         shape)
-    return rms_norm(final_norm, x, shape.rms_eps)
+        x, m = layer_decode(lps, x, m, cos, sin, [c.k[i] for c in caches], [c.v[i] for c in caches], write_pos,
+                            mask, shape)
+    return add_rms_norm(x, m, final_norm, shape.rms_eps)[1]

@@ -24,7 +24,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "fq3t_torch"
-SOURCES = ("decode_attention.cu", "int8_gemv.cu", "int4_gemv.cu", "weight_stream.cu")
+SOURCES = ("decode_attention.cu", "int8_gemv.cu", "int4_gemv.cu", "weight_stream.cu", "glue.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -33,7 +33,7 @@ NVCC_FLAGS = (
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
-_vp, _int, _float = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+_vp, _int, _float, _ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
 _SIGNATURES = {
     "fq3t_decode_attention": (
         [_int, _vp, _vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _float, _int, _int, _vp], _int,
@@ -43,6 +43,9 @@ _SIGNATURES = {
     "fq3t_weight_stream": ([_vp, _vp, _vp, _vp, _int, _int, _int, _int, _int, _vp], _int),
     "fq3t_weight_stream_block_cols": ([], _int),
     "fq3t_weight_stream_row_step": ([], _int),
+    "fq3t_add_rms_norm": ([_int, _vp, _ll, _vp, _vp, _vp, _vp, _int, _int, _int, _float, _vp], _int),
+    "fq3t_qk_norm_rope_kv": ([_int, _vp, _ll, _vp, _ll, _vp, _ll] + [_vp] * 8 + [_int] * 5 + [_float, _vp], _int),
+    "fq3t_silu_mul": ([_int, _vp, _ll, _vp, _ll, _vp, _int, _int, _vp], _int),
 }
 
 
@@ -138,9 +141,14 @@ def dtype_code(t: torch.Tensor) -> int:
     return DTYPE_CODES[t.dtype]
 
 
-def require_cuda(*tensors: torch.Tensor) -> None:
+def require_device(*tensors: torch.Tensor) -> None:
     for t in tensors:
         if t.device.type != "cuda":
             raise ValueError(f"kernel argument on {t.device}, expected a CUDA tensor")
+
+
+def require_cuda(*tensors: torch.Tensor) -> None:
+    require_device(*tensors)
+    for t in tensors:
         if not t.is_contiguous():
             raise ValueError("kernel argument must be contiguous")

@@ -288,10 +288,11 @@ def counters(params=None, reset: bool = False) -> Dict[str, int]:
     counts are zeroed after the read (`Workers.call` passes the worker's
     tree as `params`, unused)."""
     from ..engine import core, graphs
-    from ..ops import attention
+    from ..ops import attention, glue
     from ..ops import quant
 
-    wrappers = {"K1": attention.decode_attention, "K2": quant.int8_gemv, "K4": quant.int4_gemv}
+    wrappers = {"K1": attention.decode_attention, "K2": quant.int8_gemv, "K4": quant.int4_gemv,
+                "K5": glue.add_rms_norm, "K6": glue.qk_norm_rope_kv, "K7": glue.silu_mul}
     out = {k: fn.launches + graphs.replayed[k] for k, fn in wrappers.items()}
     out.update(frames=graphs.replayed["frames"], prefills=graphs.replayed["prefills"],
                eager_frames=core._decode_frame.eager_cuda, eager_prefills=core.start_state.eager_cuda)
