@@ -3,15 +3,17 @@ window served against the plain reference, and the result line.
 
 Set-up (all of it counted in `setup_s`, from process start): the imports,
 the kernel library (built into the checkout's `build/` on the first run of a
-checkout, loaded after), the weights drawn on the card from the seed by
-`maker.py` and quantized to Q8_0 by the port, the model, the voices, and a
-warm-up of exactly the graph keys the cell serves (its sampling, chunk 8,
-first chunk 4, its batch) plus one warm request through the cell's entry,
-with --trace 1 the profiler's first start, then on a card `SETTLE_S`
-seconds of rest (below). Then the window, `--seconds` long, under the
-cell's traffic driver. Then the memory peak is read, the program is freed,
-and the reference (built from the same seed's tree, drawn again) judges a
-sample of the requests the window finished, longest included.
+checkout, loaded after), the weights drawn on the card from the seed by the
+configuration's model module (`portbench/models`) and quantized by the port
+as the configuration serves them, the model, the voices of the mix's kind
+(`portbench/voices`), and a warm-up of exactly the graph keys the cell
+serves (its sampling, chunk 8, first chunk 4, its batch) plus one warm
+request through the cell's entry, with --trace 1 the profiler's first
+start, then on a card `SETTLE_S` seconds of rest (below). Then the window,
+`--seconds` long, under the cell's traffic driver. Then the memory peak is
+read, the program is freed, and the reference (built from the same seed's
+tree, drawn again) judges a sample of the requests the window finished,
+longest included.
 """
 from __future__ import annotations
 
@@ -22,6 +24,8 @@ import sys
 import time
 from pathlib import Path
 from typing import Any, Dict, List
+
+from . import models, voices as voice_kinds
 
 HERE = Path(__file__).resolve().parent
 ROOT = HERE.parent
@@ -73,12 +77,18 @@ def resolve(workload_name: str, bench_root: Path = ROOT) -> Dict[str, Any]:
 
 
 class Context:
-    """What a driver needs: the model, the cell, the seed, the voices, the taps."""
+    """What a driver needs: the model, the cell, the seed, the voices and
+    their kind (`portbench/voices`), the taps."""
 
     def __init__(self, model, cfg, workload, seed, voices, taps):
         self.model, self.cfg, self.workload, self.seed = model, cfg, workload, seed
         self.voices, self.taps = voices, taps
+        self.kind = voice_kinds.of(workload["traffic_params"])
         self.sampling = dict(workload["sampling"])
+
+    def voice_args(self, req: Dict[str, Any]) -> Dict[str, Any]:
+        """The program call's keyword arguments that carry `req`'s voice."""
+        return self.kind.program(self.voices, req)
 
 
 def _sync(device) -> None:
@@ -94,10 +104,9 @@ def setup(cfg, workload, seed: int, device, t_start: float, phases: Dict[str, fl
 
     from faster_qwen3_tts_tpu_torch.config import config_from_dict
     from faster_qwen3_tts_tpu_torch.model import FasterQwen3TTS
-    from faster_qwen3_tts_tpu_torch.ops import quant
     from faster_qwen3_tts_tpu_torch.utils.tokenizer import ByteTokenizer, PromptTokenizer
 
-    from . import maker, taps as taps_lib
+    from . import taps as taps_lib
 
     last = [time.perf_counter()]
 
@@ -113,15 +122,16 @@ def setup(cfg, workload, seed: int, device, t_start: float, phases: Dict[str, fl
 
         kernels.library()
     mark("library")
-    tree = maker.make_tree(cfg, seed, device)
+    mod = models.of(cfg)
+    tree = mod.make_tree(cfg, seed, device)
     mark("weights_draw")
-    params = quant.quantize_model_params(tree, "int8")
+    params = mod.quantize(tree)
     del tree
     mark("weights_quantize")
     model = FasterQwen3TTS(params, config_from_dict(cfg), PromptTokenizer(ByteTokenizer()),
                            max_seq_len=workload["entry"].get("max_seq_len", 2048))
     mark("model")
-    voices = [v for v in maker.voices(seed, workload["traffic_params"].get("voices", 1), "cpu").numpy()]
+    voices = voice_kinds.of(workload["traffic_params"]).draw(workload["traffic_params"], seed, cfg)
     mark("voices")
     e = workload["entry"]
     warm_kw = {k: v for k, v in workload["sampling"].items()}

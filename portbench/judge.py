@@ -1,5 +1,6 @@
 """Whether what the window served is correct: the served tokens and audio
-against the plain reference (`reference/model.py`).
+against the plain reference of the configuration's model module
+(`portbench/models`; Qwen3-TTS's is `reference/model.py`).
 
 Once the window has closed and the program is freed, a sample of the
 requests the window finished (the longest one, and others drawn from the
@@ -17,7 +18,9 @@ served frames. Per request:
   served token lies below the reference's k-th best logit, since a sampled
   token must come from the top k.
 - audio_err: the largest difference between a served sample and the
-  reference's, every chunk by the streaming window rule.
+  reference's, every chunk by the streaming window rule (for an ICL voice,
+  with the reference codes prepended until 24 frames exist, as the host
+  vocoder does).
 - audio_len_mismatch: chunks whose sample count differs from the rule's.
 
 The control (`--calibrate`) reads the same numbers for the reference in the
@@ -33,8 +36,8 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
-from . import maker
-from .reference import model as ref_lib
+from . import models, voices as voice_kinds
+from .reference.model import fp8_rows
 
 JUDGED = 16
 TOP_K = 50  # the code predictor's top-k when it samples (the port's default)
@@ -51,24 +54,6 @@ def sample(records: List[Dict[str, Any]], seed: int, n: int = JUDGED) -> List[Di
     return [longest] + [rest[i] for i in sorted(pick)]
 
 
-def _processed(logits: torch.Tensor, cb0: torch.Tensor, cfg, sampling) -> torch.Tensor:
-    """The talker's logits [T + 1, V] after the program's processing for the
-    greedy pick of each position (row t picks frame t's codebook-0 token)."""
-    V, eos = cfg["talker"]["vocab_size"], cfg["talker"]["codec_eos_token_id"]
-    rp, min_new = sampling.get("repetition_penalty", 1.05), sampling.get("min_new_tokens", 2)
-    n = logits.shape[0]
-    onehot = torch.nn.functional.one_hot(cb0.long(), V).bool()  # [T, V]
-    seen = torch.zeros(n, V, dtype=torch.bool, device=logits.device)
-    if cb0.numel():
-        seen[1:] = onehot.cumsum(0)[: n - 1].bool()
-    if rp != 1.0:
-        logits = torch.where(seen, torch.where(logits > 0, logits / rp, logits * rp), logits)
-    ids = torch.arange(V, device=logits.device)
-    logits = torch.where(((ids >= V - 1024) & (ids != eos))[None], ref_lib._NEG, logits)
-    early = (torch.arange(n, device=logits.device) < min_new)[:, None] & (ids == eos)[None]
-    return torch.where(early, ref_lib._NEG, logits)
-
-
 def _gap(ref: torch.Tensor, tokens: torch.Tensor) -> float:
     """Largest gap of `tokens` below the best of `ref` [..., V]."""
     if not tokens.numel():
@@ -76,14 +61,11 @@ def _gap(ref: torch.Tensor, tokens: torch.Tensor) -> float:
     return float((ref.max(-1).values - ref.gather(-1, tokens.long()[..., None])[..., 0]).max())
 
 
-def request_inputs(rec, voices) -> Dict[str, Any]:
+def request_inputs(rec, voices, kind) -> Dict[str, Any]:
+    """The reference's inputs for a served request: its text and language,
+    and its voice as the mix's kind of voice gives it."""
     req = rec["req"]
-    out = {"text": req["text"], "language": req["language"]}
-    if "speaker" in req:
-        out["speaker"] = req["speaker"]
-    else:
-        out["xvector"] = voices[req["voice"]]
-    return out
+    return {"text": req["text"], "language": req["language"], **kind.reference(voices, req)}
 
 
 def check(window, cfg, workload, seed: int, device, control: bool = False) -> Dict[str, Any]:
@@ -92,8 +74,10 @@ def check(window, cfg, workload, seed: int, device, control: bool = False) -> Di
     sampling = workload["sampling"]
     greedy_pred = sampling.get("subtalker_dosample") is False
     recs = sample(window["records"], seed)
-    ref = ref_lib.Reference(maker.make_tree(cfg, seed, device), cfg)
-    voices = [v for v in maker.voices(seed, workload["traffic_params"].get("voices", 1), "cpu").numpy()]
+    mod = models.of(cfg)
+    ref = mod.Reference(mod.make_tree(cfg, seed, device), cfg)
+    kind = voice_kinds.of(workload["traffic_params"])
+    voices = kind.draw(workload["traffic_params"], seed, cfg)
     eos = cfg["talker"]["codec_eos_token_id"]
     num = {"talker_gap": 0.0, "predictor_gap" if greedy_pred else "predictor_topk_excess": 0.0,
            "audio_err": 0.0, "audio_len_mismatch": 0.0}
@@ -103,10 +87,10 @@ def check(window, cfg, workload, seed: int, device, control: bool = False) -> Di
         for rec in recs:
             frames = torch.as_tensor(np.concatenate(rec["frames"]), device=ref.device)
             steps = [c[2] for c in rec["chunks"]]
-            inputs = request_inputs(rec, voices)
+            inputs = request_inputs(rec, voices, kind)
             tl, pl = ref.logits(inputs, frames)
             T = frames.shape[0]
-            proc = _processed(tl, frames[:, 0], cfg, sampling)
+            proc = mod.processed(tl, frames[:, 0], cfg, sampling)
             served0 = frames[:, 0]
             rows = T
             if rec["eos"]:
@@ -118,16 +102,16 @@ def check(window, cfg, workload, seed: int, device, control: bool = False) -> Di
                 kth = pl.topk(TOP_K, dim=-1).values[..., -1]
                 served = pl.gather(-1, frames[:, 1:].long()[..., None])[..., 0]
                 num["predictor_topk_excess"] = max(num["predictor_topk_excess"], float((kth - served).max()))
-            tokens += rows + 15 * T
-            want = ref.stream_audio(frames, steps)
+            tokens += rows + pl.shape[1] * T
+            want = ref.stream_audio(frames, steps, inputs=inputs)
             for got, exp in zip(rec["audio"], want):
                 if len(got) != exp.shape[0]:
                     num["audio_len_mismatch"] += 1
                 elif len(got):
                     num["audio_err"] = max(num["audio_err"], float(np.abs(got - exp.cpu().numpy()).max()))
             if control:
-                cl, cp = ref.logits(inputs, frames, act=ref_lib.fp8_rows)
-                cproc = _processed(cl, frames[:, 0], cfg, sampling)
+                cl, cp = ref.logits(inputs, frames, act=fp8_rows)
+                cproc = mod.processed(cl, frames[:, 0], cfg, sampling)
                 ctl["talker_gap"] = max(ctl["talker_gap"], _gap(proc[:T], cproc[:T].argmax(-1)))
                 ctl["predictor_gap"] = max(ctl["predictor_gap"], _gap(pl, cp.argmax(-1)))
                 if not greedy_pred:  # the worst token the control's top k could give
@@ -135,7 +119,7 @@ def check(window, cfg, workload, seed: int, device, control: bool = False) -> Di
                     kth = pl.topk(TOP_K, dim=-1).values[..., -1]
                     ctl["predictor_topk_excess"] = max(ctl.get("predictor_topk_excess", 0.0),
                                                        float((kth - worst).max()))
-                low = ref.stream_audio(frames, steps, tf32=True)
+                low = ref.stream_audio(frames, steps, tf32=True, inputs=inputs)
                 for exp, lo in zip(want, low):
                     if exp.numel():
                         ctl["audio_err"] = max(ctl["audio_err"], float((exp - lo).abs().max()))

@@ -13,7 +13,7 @@ import math
 import statistics
 from typing import List, Optional
 
-from . import shapes
+from . import models, shapes, voices as voice_kinds
 
 SAMPLE_RATE = 24000
 MISSING_MS = 1e9  # a request that failed, or never gave audio, misses every limit
@@ -117,18 +117,26 @@ def step_mfu(window) -> Optional[float]:
     """The operations of the frames and window vocodes the chunks served,
     over the program's `decode_ms` of those chunks and the bf16 peak, in %:
     the batcher's pool chunks, a solo stream's chunks after its first, run
-    before the traced window."""
+    before the traced window. Operations come from the configuration's model
+    module; a prompt's rows add the mix's kind of voice's own (an ICL
+    voice's reference block), and lanes of a kind that stays on its host
+    vocoder add no window vocode (the host's vocodes are outside
+    `decode_ms`)."""
     cfg = window["cfg"]
+    mod = models.of(cfg)
+    params = window["workload"]["traffic_params"]
+    kind = voice_kinds.of(params)
+    extra = kind.extra_prompt_rows(params)
     chunk = window["workload"]["entry"]["chunk_size"]
     flops = seconds = 0.0
     if "pool_chunks" in window:
         for c in window["pool_chunks"].values():
             if not _untraced(window, c["t"]):
                 continue
-            mature = [lane for lane in c["lanes"] if lane[1] >= 24]
+            mature = [] if kind.HOST_VOCODER else [lane for lane in c["lanes"] if lane[1] >= 24]
             for v, before, req in c["lanes"]:
-                flops += v * shapes.frame_flops(cfg, shapes.prompt_rows(req) + before + v // 2)
-            flops += len(mature) * shapes.window_flops(cfg, 24 + chunk)
+                flops += v * mod.frame_flops(cfg, mod.prompt_rows(req) + extra + before + v // 2)
+            flops += len(mature) * mod.window_flops(cfg, 24 + chunk)
             seconds += c["decode_ms"] / 1e3
     else:
         for r in window["records"]:
@@ -138,8 +146,8 @@ def step_mfu(window) -> Optional[float]:
             for tm in r.get("timings", []):
                 v = tm["chunk_steps"]
                 if tm["chunk_index"] >= 1:
-                    flops += v * shapes.frame_flops(cfg, shapes.prompt_rows(r["req"]) + before + v // 2)
-                    flops += shapes.window_flops(cfg, min(before, 24) + chunk)
+                    flops += v * mod.frame_flops(cfg, mod.prompt_rows(r["req"]) + extra + before + v // 2)
+                    flops += mod.window_flops(cfg, min(before, 24) + chunk)
                     seconds += tm["decode_ms"] / 1e3
                 before += v
     if seconds <= 0:

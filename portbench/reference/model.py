@@ -4,12 +4,14 @@ float32, with no kernels, no cache, no graphs and no batching of streams.
 It reads the parameter tree the benchmark made (`portbench.maker`) and the
 configuration file, and works out everything else itself: the Q8_0 weights
 (per output channel absmax / 127, round half to even, clipped to +-127), the
-prompt rows of a request, the logits at every served position (teacher
-forced: the served tokens are fed back), and the audio of every streamed
-chunk (the window rule of a streaming vocoder). It imports nothing of the
-program. Its math is a frozen copy of the port's plain float32 paths
-(`engine/parity.py`, `prompt.py`'s host layout, `models/codec.py`), written
-over whole sequences instead of step by step.
+prompt rows of a request (x-vector, preset speaker or ICL voice), the
+logits at every served position (teacher forced: the served tokens are fed
+back), and the audio of every streamed chunk (the window rule of a streaming
+vocoder, and for an ICL voice the host vocoder's regime before it). It
+imports nothing of the program. Its math is a frozen copy of the port's
+plain float32 paths (`engine/parity.py`, `prompt.py`'s host layout,
+`model._StreamVocoder`, `models/codec.py`), written over whole sequences
+instead of step by step.
 
 `act` rounds the input of every projection; the identity gives the
 reference, `fp8_rows` the control (activations in float8 e4m3 with a scale a
@@ -21,7 +23,7 @@ from __future__ import annotations
 
 import contextlib
 import math
-from typing import Any, Dict, List, Sequence
+from typing import Any, Dict, List, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
@@ -130,12 +132,31 @@ class Reference:
         x = self.text_embed[torch.as_tensor(list(ids), device=self.device)].float()
         return act(x) @ self.text_w + self.text_b
 
+    def frame_embeds(self, codes: torch.Tensor) -> torch.Tensor:
+        """Frames [T, 16] -> the talker's input for each [T, H]: the codebook-0
+        embedding plus the code predictor's embeddings of codebooks 1-15."""
+        idx = torch.arange(15, device=self.device)
+        return self.codec_embed[codes[:, 0]] + self.pred_embeds[idx[None, :], codes[:, 1:]].sum(dim=1)
+
+    def icl_block(self, req: Dict[str, Any], pad: torch.Tensor, act) -> torch.Tensor:
+        """An ICL voice's reference block [Tc + 1, H]: over codec_bos and the
+        Tc reference frames' embeddings, the reference text's rows (as many
+        as fit) and then tts_pad."""
+        codes = torch.as_tensor(req["ref_code"], device=self.device).long()
+        tc = codes.shape[0]
+        ref_text = self.text_hidden(list(req["ref_text"].encode("utf-8")), act)[: tc + 1]
+        lane = torch.cat([ref_text, pad.expand(tc + 1 - ref_text.shape[0], -1)])
+        bos = self.codec_embed[self.t_cfg["codec_bos_id"]][None]
+        return lane + torch.cat([bos, self.frame_embeds(codes)])
+
     def prompt(self, req: Dict[str, Any], act):
         """One request's prompt rows [P, H] and trailing text rows [T, H] (the
         text fed a frame at a time; after them the pad row) and the pad row.
         An x-vector request has the streaming layout (the first text token in
-        the prompt), a preset speaker's the whole-text one (the program's
-        defaults for voice clone and CustomVoice)."""
+        the prompt), an ICL request (`ref_code`, `ref_text` and its x-vector)
+        the streaming one with the reference block in place of the first
+        text token (the whole text fed), a preset speaker's the whole-text
+        one (the program's defaults for voice clone and CustomVoice)."""
         tc = self.t_cfg
         ids = assistant_ids(req["text"])
         full = self.text_hidden(ids, act)
@@ -162,7 +183,10 @@ class Reference:
         k = codec_block.shape[0]
         lane = torch.cat([pad.expand(k - 2, -1), bos[None]])
         parts = [full[:3], lane + codec_block[:-1]]
-        if req.get("xvector") is not None:  # streaming: the first text token sits in the prompt
+        if req.get("ref_code") is not None:  # ICL streaming: the reference block, the whole text fed
+            parts.append(self.icl_block(req, pad, act))
+            trailing = torch.cat([full[3:-5], eos[None]])
+        elif req.get("xvector") is not None:  # streaming: the first text token sits in the prompt
             parts.append(full[3:4] + codec_block[-1:])
             trailing = torch.cat([full[4:-5], eos[None]])
         else:  # the whole text in the prompt
@@ -184,8 +208,7 @@ class Reference:
         n = min(T, trailing.shape[0])
         text = torch.cat([trailing[:n], pad.expand(T - n, -1)])
         idx = torch.arange(15, device=self.device)
-        rest = self.pred_embeds[idx[None, :], frames[:, 1:]].sum(dim=1)  # [T, H]
-        fed = self.codec_embed[frames[:, 0]] + rest + text
+        fed = self.frame_embeds(frames) + text
         h = self.talker(torch.cat([prompt, fed])[None], act)[0, prompt.shape[0] - 1:]  # [T + 1, H]
         talker_logits = act(h) @ self.codec_head
         # the code predictor, one sequence a frame: [h_t, e(cb0)] then e(cb1..cb14)
@@ -202,16 +225,29 @@ class Reference:
         return _codec_decode(self.codec, self.c_cfg, codes.to(self.device).long()[None])[0, :]
 
     def stream_audio(self, frames: torch.Tensor, chunk_frames: Sequence[int], context: int = 24,
-                     tf32: bool = False) -> List[torch.Tensor]:
+                     tf32: bool = False, inputs: Optional[Dict[str, Any]] = None) -> List[torch.Tensor]:
         """The audio of each streamed chunk of `frames` by the window rule: a
         chunk of v frames after n earlier ones decodes the window of its
         last min(n, context) earlier frames and its own and emits the window's
         samples [ctx * up - D, ctx * up - D + v * up) (the first chunk: its
-        first v * up - D)."""
+        first v * up - D). For an ICL request (`inputs` with `ref_code`), a
+        chunk after fewer than `context` frames decodes the Tc reference
+        frames and every frame so far, cuts off the first int(Tc / (Tc + n
+        + v) * samples) samples, and emits what follows the samples emitted
+        before (the host vocoder's regime)."""
         up, D = codec_upsample(self.c_cfg), codec_deficit(self.c_cfg)
-        out, n = [], 0
+        rc = None if inputs is None or inputs.get("ref_code") is None else torch.as_tensor(inputs["ref_code"])
+        out, n, emitted = [], 0, 0
         with _tf32(tf32):
             for v in chunk_frames:
+                if rc is not None and n < context:
+                    codes = torch.cat([rc.to(self.device).long(), frames[:n + v].to(self.device).long()])
+                    wav = self.decode(codes)
+                    wav = wav[int(rc.shape[0] / codes.shape[0] * wav.shape[0]):]
+                    out.append(wav[emitted:])
+                    emitted = wav.shape[0]
+                    n += v
+                    continue
                 ctx = min(n, context)
                 wav = self.decode(frames[n - ctx:n + v])
                 start = ctx * up - D if n else 0

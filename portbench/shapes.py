@@ -15,7 +15,7 @@ are the codec decoder's products and convolutions over the window's frames.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Iterable, List, Tuple
+from typing import Any, Dict, List, Tuple
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA's data sheet
 BF16_DENSE_FLOPS = 989e12  # H100 SXM dense bf16 tensor rate, NVIDIA's data sheet
@@ -49,10 +49,6 @@ def prefill_launches(cfg: Dict[str, Any], B: int) -> List[Tuple[int, int, int]]:
 def k2_bytes(rows: int, i: int, o: int) -> int:
     """int8 weight, float32 scale row, bfloat16 input and output rows."""
     return i * o + 4 * o + 2 * rows * i + 2 * rows * o
-
-
-def k2_bound_s(launches: Iterable[Tuple[int, int, int]]) -> float:
-    return sum(k2_bytes(*x) for x in launches) / HBM_BYTES_PER_S
 
 
 def frame_flops(cfg: Dict[str, Any], context: int) -> float:

@@ -27,7 +27,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from . import shapes
+from . import models, shapes
 
 K2_NAME = "int8_gemv_kernel"
 
@@ -35,6 +35,7 @@ K2_NAME = "int8_gemv_kernel"
 class Taps:
     def __init__(self, cfg: Dict[str, Any]):
         self.cfg = cfg
+        self.mod = models.of(cfg)  # the configuration's yardstick: K2 launches from shapes
         self.current: Any = None  # the request whose B = 1 reads follow
         self.solo: Dict[Any, List[np.ndarray]] = defaultdict(list)
         self.last_batch: Optional[Tuple[np.ndarray, np.ndarray]] = None
@@ -70,7 +71,7 @@ class Taps:
                     out = orig(packed)
                 taps.solo[taps.current].append(out[0])
                 if taps.profiling:
-                    taps.k2 += shapes.frame_launches(taps.cfg, packed.shape[1]) * packed.shape[0]
+                    taps.k2 += taps.mod.frame_launches(taps.cfg, packed.shape[1]) * packed.shape[0]
                 return out
             return f
 
@@ -80,14 +81,14 @@ class Taps:
                     out = orig(packed)
                 taps.last_batch = (out[0], out[1])
                 if taps.profiling:
-                    taps.k2 += shapes.frame_launches(taps.cfg, packed.shape[1]) * packed.shape[0]
+                    taps.k2 += taps.mod.frame_launches(taps.cfg, packed.shape[1]) * packed.shape[0]
                 return out
             return f
 
         def prefill(orig):
             def f(gset, params, tie, *a, **k):
                 if taps.profiling:
-                    taps.k2 += shapes.prefill_launches(taps.cfg, tie.shape[0])
+                    taps.k2 += taps.mod.prefill_launches(taps.cfg, tie.shape[0])
                 return orig(gset, params, tie, *a, **k)
             return f
 
@@ -266,7 +267,7 @@ class Tracer:
         dev, host = _events(self.prof)
         self.result = reduce_trace(dev, host, self.t1 - self.t0)
         self.result["k2_predicted"] = len(self.taps.k2)
-        self.result["k2_bound_s"] = shapes.k2_bound_s(self.taps.k2)
+        self.result["k2_bound_s"] = sum(self.taps.mod.k2_bytes(*x) for x in self.taps.k2) / shapes.HBM_BYTES_PER_S
         self.result["reduce_s"] = time.perf_counter() - t
         self.result["start_s"], self.result["stop_s"] = self.start_s, self.stop_s
         self.result["t0"], self.result["t1"] = self.t0, self.t1

@@ -9,7 +9,7 @@ from pathlib import Path
 import numpy as np
 import pytest
 
-from portbench import readers, shapes, taps
+from portbench import models, readers, shapes, taps
 from portbench.traffic import mix
 
 ROOT = Path(__file__).resolve().parents[2]
@@ -84,7 +84,7 @@ def test_k2_launches_and_bytes_from_shapes():
     assert {r for r, _, _ in eight} == {8, 16}
     # a 1024 x 3072 int8 weight at one row: the weight, its scales, the row in and out
     assert shapes.k2_bytes(1, 1024, 3072) == 1024 * 3072 + 4 * 3072 + 2 * 1024 + 2 * 3072
-    assert shapes.k2_bound_s([(1, 1024, 3072)]) == pytest.approx(shapes.k2_bytes(1, 1024, 3072) / 3.35e12)
+    assert models.of(cfg).k2_bytes is shapes.k2_bytes and shapes.HBM_BYTES_PER_S == 3.35e12
 
 
 def test_frame_and_window_operations():

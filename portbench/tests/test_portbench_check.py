@@ -1,8 +1,10 @@
 """The check that decides `correct`, on the CPU at the tiny configuration:
 the reference agrees with the port through each cell's whole run, a token
-altered where the engine produces it makes `correct` false, the control
-(the reference in float8 activations) reads far above the program, and the
-runs load nothing of JAX."""
+altered where the engine produces it makes `correct` false, and so do an
+ICL voice's reference codes altered in the program's prompt or dropped from
+its host vocoder; the control (the reference in float8 activations) reads
+far above the program, and the runs load nothing of JAX. Each test runs on
+one torch thread (`conftest.py`)."""
 from __future__ import annotations
 
 import json
@@ -13,6 +15,7 @@ import textwrap
 import time
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -30,6 +33,18 @@ def _run(cell, seconds=5.0, control=False):
 @pytest.mark.parametrize("cell", ["tts06b.xvec.solo", "tts17b.customvoice.solo", "tts06b.xvec.open_cb8"])
 def test_each_cell_served_and_judged_correct(cell):
     out = _run(cell, seconds=6.0)
+    checks, w = out["checks"], out["window"]
+    assert checks["judged"] >= 1 and checks["tokens"] > 100, checks
+    assert checks["correct"], checks
+    assert harness.attempted_failed(w)[1] == 0 and w["captures_in_window"] == 0
+
+
+def _run_icl(seconds=6.0):
+    return harness.run_cell(tiny.tiny_icl_res(), SEED, seconds, False, "cpu", time.perf_counter())
+
+
+def test_an_icl_mix_is_served_and_judged_correct():
+    out = _run_icl()
     checks, w = out["checks"], out["window"]
     assert checks["judged"] >= 1 and checks["tokens"] > 100, checks
     assert checks["correct"], checks
@@ -56,6 +71,34 @@ def test_a_token_altered_where_it_is_produced_is_caught(monkeypatch):
     assert calls[0] > 0 and out["checks"]["judged"] >= 1
     assert not out["checks"]["correct"]
     assert out["checks"]["numbers"]["talker_gap"]["value"] > out["checks"]["numbers"]["talker_gap"]["limit"]
+
+
+@pytest.mark.parametrize("fault", ["prompt_codes_altered", "vocoder_codes_dropped"])
+def test_an_icl_voice_altered_in_the_program_is_caught(monkeypatch, fault):
+    """An ICL voice's reference codes, one added to every code where the
+    program builds the prompt's reference block, or left out of the host
+    vocoder's decodes before 24 frames: the check must see each."""
+    from faster_qwen3_tts_tpu_torch import model as model_lib, prompt
+
+    if fault == "prompt_codes_altered":
+        orig = prompt.PromptBuilder._icl_block_device
+
+        def altered(self, rid, ref_code):
+            return orig(self, rid, (np.asarray(ref_code) + 1) % 2048)
+
+        monkeypatch.setattr(prompt.PromptBuilder, "_icl_block_device", altered)
+        number = "talker_gap"
+    else:
+        orig = model_lib.FasterQwen3TTS._make_stream_vocoder
+
+        def dropped(self, ref_codes):
+            return orig(self, None)
+
+        monkeypatch.setattr(model_lib.FasterQwen3TTS, "_make_stream_vocoder", dropped)
+        number = "audio_len_mismatch"
+    c = _run_icl()["checks"]
+    assert c["judged"] >= 1 and not c["correct"], c
+    assert c["numbers"][number]["value"] > c["numbers"][number]["limit"], c["numbers"]
 
 
 def test_the_control_reads_far_above_the_program():

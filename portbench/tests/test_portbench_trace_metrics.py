@@ -1,7 +1,8 @@
 """The metrics that read the port's spans (`portbench/spans.py`): each
-reader's value on spans recorded at chosen times, admissions grouped by pool
-iteration, None on an empty or overwritten interval and without the
-recorder, and each resolves for the cells BENCHMARK.json gives it."""
+reader's value on spans recorded at chosen times, admissions and host
+vocodes grouped by pool iteration, None on an empty or overwritten interval
+and without the recorder, and each resolves for the cells BENCHMARK.json
+gives it."""
 from __future__ import annotations
 
 import builtins
@@ -15,7 +16,8 @@ from portbench import harness
 
 ROOT = Path(__file__).resolve().parents[2]
 BENCH = json.loads((ROOT / "BENCHMARK.json").read_text())
-NAMES = ("prefill_device_ms.solo", "admit_pause_p95_ms", "frame_queue_ms.solo", "frame_queue_ms.cb8")
+NAMES = ("prefill_device_ms.solo", "admit_pause_p95_ms", "frame_queue_ms.solo", "frame_queue_ms.cb8",
+         "host_vocode_p95_ms")
 MS = 1_000_000
 T0 = 1_000 * 10 ** 9  # the window opens at 1000 s on the recorder's clock
 
@@ -63,6 +65,24 @@ def test_admit_pause_groups_admissions_by_pool_iteration(rec):
     _at(rec, "cb.pool_chunk", 1820, 400, 6)  # iterations 45, 0, 70, 0: the p95 of four is the largest
     assert metric.read(_window()) == pytest.approx(70.0)
     assert metric.read(_window(trace_at_s=1.0)) == pytest.approx(45.0)  # up to the profiler's start: 45 and 0
+
+
+def test_host_vocode_groups_host_vocodes_by_pool_iteration(rec):
+    _at(rec, "voc.host", 10, 12, 4)  # before the first pool chunk: no previous one bounds it
+    _at(rec, "cb.pool_chunk", 50, 100, 8)
+    _at(rec, "voc.host", 151, 20, 8)  # iteration 2: two lanes' vocodes after the chunk's read, 20 + 25 ms,
+    _at(rec, "voc.host", 172, 25, 8)
+    _at(rec, "cb.admit", 200, 40, 0)
+    _at(rec, "voc.host", 230, 5, 4)  # and an admission's first chunk, 5 ms: 50 ms
+    _at(rec, "cb.pool_chunk", 245, 100, 8)
+    _at(rec, "cb.pool_chunk", 350, 100, 8)  # iteration 3: no host vocode
+    _at(rec, "voc.host", 451, 30, 8)  # iteration 4: 30 ms
+    _at(rec, "cb.pool_chunk", 490, 100, 8)
+    _at(rec, "voc.host", 591, 70, 8)  # no pool chunk after it inside the interval
+    metric = _metric("host_vocode_p95_ms")
+    assert metric.read(_window()) == pytest.approx(50.0)  # iterations 50, 0, 30: the p95 of three is the largest
+    assert metric.read(_window(trace_at_s=0.4)) == pytest.approx(50.0)  # up to the profiler's start: 50 alone
+    assert metric.read(_window(trace_at_s=0.3)) is None  # one whole pool chunk bounds no iteration
 
 
 def test_frame_queue_ms_reads_the_frames_of_its_batch(rec):

@@ -36,3 +36,15 @@ def tiny_res(cell: str, rate: float = 2.0) -> dict:
     if "rate" in w:
         w["rate"] = rate
     return res
+
+
+def tiny_icl_res(rate: float = 2.0) -> dict:
+    """Cell 1 at the tiny size with ICL voices (`voices/icl.py`): the ICL cell
+    measured on the card and left out of BENCHMARK.json (PERF.md). 12
+    reference frames and a 64-wide codec decoder: the host vocoder decodes
+    the reference frames with each young chunk's, which the full-width
+    decoder makes too slow for the CPU."""
+    res = tiny_res("tts06b.xvec.open_cb8", rate)
+    res["workload"]["traffic_params"].update(voice_kind="icl", ref_frames=12)
+    res["cfg"]["codec"]["decoder_dim"] = 64
+    return res

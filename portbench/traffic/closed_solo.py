@@ -2,12 +2,12 @@
 
 The client sends its next request as soon as the last one has streamed its
 final chunk, so each request is due when it is sent. The entry is the
-cell's public streaming method (`generate_voice_clone_streaming` with an
-x-vector voice prompt, or `generate_custom_voice_streaming` with a preset
-speaker). When the window closes the stream in flight is closed after its
-first audio. The traced window covers one whole request near the window's
-end, from before it is sent to after its last chunk, where no device work is
-in flight.
+cell's public streaming method (`generate_voice_clone_streaming` or
+`generate_custom_voice_streaming`), given the voice as the mix's kind of
+voice gives it (a voice clone prompt, a preset speaker). When the window
+closes the stream in flight is closed after its first audio. The traced
+window covers one whole request near the window's end, from before it is
+sent to after its last chunk, where no device work is in flight.
 """
 from __future__ import annotations
 
@@ -28,11 +28,7 @@ def _stream(ctx, req: Dict[str, Any]):
     e = ctx.workload["entry"]
     kw = dict(max_new_tokens=req["frames"], chunk_size=e["chunk_size"], first_chunk_size=e["first_chunk_size"],
               seed=ctx.seed % (2 ** 31), **ctx.sampling)
-    if e["method"] == "generate_custom_voice_streaming":
-        return ctx.model.generate_custom_voice_streaming(req["text"], req["speaker"], req["language"], **kw)
-    vcp = {"ref_spk_embedding": [ctx.voices[req["voice"]]], "x_vector_only_mode": [True], "icl_mode": [False],
-           "ref_code": [None]}
-    return ctx.model.generate_voice_clone_streaming(req["text"], req["language"], voice_clone_prompt=vcp, **kw)
+    return getattr(ctx.model, e["method"])(req["text"], language=req["language"], **ctx.voice_args(req), **kw)
 
 
 def warm(ctx) -> None:

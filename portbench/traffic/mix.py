@@ -7,7 +7,8 @@ clipped to [lo, hi], dealt in rounds that take one length from each of 8
 strata, so every prefix of 8k requests holds the same mix. Gaps are the
 quantiles of an exponential at the offered rate, shuffled. Texts are ASCII
 letters and spaces, ceil(frames / frames_per_token) bytes (one id each under
-the byte tokenizer). Voices are x-vector indices or preset speakers dealt
+the byte tokenizer). Voices are the labels of the mix's kind of voice
+(`portbench/voices`: x-vector or ICL voice indices, preset speakers) dealt
 evenly.
 """
 from __future__ import annotations
@@ -17,6 +18,8 @@ from statistics import NormalDist
 from typing import Any, Dict, List
 
 import numpy as np
+
+from portbench import voices as voice_kinds
 
 _STRATA = 8
 _LETTERS = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz     ", dtype=np.uint8)
@@ -50,11 +53,13 @@ def arrivals(rate: float, n: int, seconds: float, rng) -> np.ndarray:
 
 def make(mix: Dict[str, Any], seed: int, n: int) -> List[Dict[str, Any]]:
     """n requests: {index, frames (the max_new_tokens), text, language, and
-    voice (an x-vector index) or speaker (a preset name)}."""
+    the kind's key: voice (an index into the mix's voices) or speaker (a
+    preset name)}."""
     rng = np.random.default_rng(int(seed))
     lengths = frames(mix, n, rng)
     per = mix.get("frames_per_token", 3.2)
-    voices = mix.get("speakers") or list(range(mix["voices"]))
+    kind = voice_kinds.of(mix)
+    voices = kind.labels(mix)
     dealt = rng.permutation(np.arange(n) % len(voices))
     out = []
     for i in range(n):
@@ -62,7 +67,6 @@ def make(mix: Dict[str, Any], seed: int, n: int) -> List[Dict[str, Any]]:
         text = bytes(rng.choice(_LETTERS, nbytes)).decode("ascii")
         text = "A" + text[1:]  # never starts with a space
         req = {"index": i, "frames": int(lengths[i]), "text": text, "language": mix.get("language", "English")}
-        v = voices[dealt[i]]
-        req["speaker" if isinstance(v, str) else "voice"] = v
+        req[kind.KEY] = voices[dealt[i]]
         out.append(req)
     return out

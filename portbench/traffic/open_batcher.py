@@ -24,10 +24,9 @@ TRACE_LEAD_S = 3.0  # the traced window opens this long before the window closes
 
 
 def _request(ctx, req: Dict[str, Any]) -> Dict[str, Any]:
-    xv = ctx.voices[req["voice"]]
-    return {"text": req["text"], "language": req["language"],
-            "voice_clone_prompt": {"ref_spk_embedding": [xv], "x_vector_only_mode": [True],
-                                   "icl_mode": [False], "ref_code": [None]}}
+    """A submission: the text, its language and the voice's prompt as the
+    mix's kind of voice gives it (the batcher takes voice-clone prompts)."""
+    return {"text": req["text"], "language": req["language"], **ctx.voice_args(req)}
 
 
 def _batcher(ctx):
