@@ -5,13 +5,14 @@ A window record (`traffic/*.run`, completed by the harness) holds, per
 request sent in the window: when it was due, when its first audio and each
 chunk reached the client, each chunk's samples and frames, and the program's
 timing keys; for the batcher each pool chunk's `decode_ms` and lanes; and
-with --trace 1 the reduced profiler window (`taps.reduce_trace`).
+with --trace 1 the reduced profiler window (`taps.reduce_trace`), every
+kernel's launches and device seconds in it among them (`kernel_roofline`).
 """
 from __future__ import annotations
 
 import math
 import statistics
-from typing import List, Optional
+from typing import List, Optional, Tuple
 
 from . import models, shapes, voices as voice_kinds
 
@@ -97,6 +98,31 @@ def k2_roofline(window) -> Optional[float]:
     if not K2_KEPT <= kept <= 1.0:
         return None
     return 100.0 * tr["k2_bound_s"] * kept / tr["k2_s"]
+
+
+def traced_kernels(window, match: str) -> Optional[Tuple[int, float]]:
+    """(launches, device seconds) of the traced window's kernels whose short
+    name holds `match` (`taps.reduce_trace`'s `kernels`), or None when the
+    trace holds no such launch."""
+    tr = window.get("trace")
+    found = [k for name, k in ((tr or {}).get("kernels") or {}).items() if match in name]
+    launches = sum(k["launches"] for k in found)
+    if not launches:
+        return None
+    return launches, sum(k["s"] for k in found)
+
+
+def kernel_roofline(window, match: str, least_s: Optional[float]) -> Optional[float]:
+    """`least_s`, the least time of the traced window's launches of the
+    kernels `traced_kernels` matches (the larger of their bytes over the HBM
+    rate and their operations over the peak, which the metric counts from
+    the model module's shapes and the program's counters), over those
+    launches' device seconds, in %. None when the trace holds no such
+    launch or no least time was counted."""
+    got = traced_kernels(window, match)
+    if got is None or least_s is None or least_s <= 0 or got[1] <= 0:
+        return None
+    return 100.0 * least_s / got[1]
 
 
 def device_idle_pct(window) -> Optional[float]:

@@ -90,7 +90,8 @@ def main(argv=None) -> int:
            "ttfa_p50_p75_ms": [readers.percentile(readers.ttfa_ms(w), q) for q in (0.5, 0.75)],
            "frames_made": sum(c[2] for r in w["records"] for c in r["chunks"]),
            "frames_asked": sum(r["req"]["frames"] for r in w["records"]),
-           "trace": {k: v for k, v in (w["trace"] or {}).items() if k not in ("device_ops", "idle_gaps")}})
+           "trace": {k: len(v) if k == "kernels" else v for k, v in (w["trace"] or {}).items()
+                     if k not in ("device_ops", "idle_gaps")}})
     for r in w["records"]:
         if r["error"] is not None or r["first"] is None:
             print(f"failed request {r['index']}: error={r['error']!r} chunks={len(r['chunks'])} "

@@ -15,8 +15,10 @@ which label the device's idle gaps.
 
 `Tracer` runs one `torch.profiler` window and reduces it: the union of
 device activity (busy seconds), the device operations that took most time,
-the longest idle gaps by what the host was doing, and K2's launches and
-device seconds.
+the longest idle gaps by what the host was doing, K2's launches and device
+seconds, and every device kernel's launches and device seconds by its short
+name (`kernels`, which a new kernel's roofline metric reads through
+`readers.kernel_roofline`).
 """
 from __future__ import annotations
 
@@ -183,13 +185,17 @@ def reduce_trace(dev: list, host: list, window_s: float, top: int = 10) -> Dict[
     """Device busy seconds (the union of device activity), the device
     operations that took most time, the longest idle gaps between device
     activity labelled by the host range or operation that overlapped each
-    most (a `portbench.*` range first), and K2's launches and seconds."""
+    most (a `portbench.*` range first), K2's launches and seconds, and
+    `kernels`: every device operation's launches and seconds by its short
+    name."""
     busy = _union([(s, e) for _, s, e in dev])
     busy_s = sum(e - s for s, e in busy) / 1e6
-    by_name: Dict[str, float] = defaultdict(float)
+    kernels: Dict[str, Dict[str, Any]] = {}
     for name, s, e in dev:
-        by_name[short_name(name)] += (e - s) / 1e6
-    ops = sorted(by_name.items(), key=lambda kv: -kv[1])[:top]
+        k = kernels.setdefault(short_name(name), {"launches": 0, "s": 0.0})
+        k["launches"] += 1
+        k["s"] += (e - s) / 1e6
+    ops = sorted(((n, k["s"]) for n, k in kernels.items()), key=lambda kv: -kv[1])[:top]
     gaps = sorted(((busy[i + 1][0] - busy[i][1], busy[i][1], busy[i + 1][0]) for i in range(len(busy) - 1)),
                   reverse=True)[:top]
     host_sorted = sorted(host, key=lambda h: h[1])
@@ -206,7 +212,8 @@ def reduce_trace(dev: list, host: list, window_s: float, top: int = 10) -> Dict[
     k2 = [(s, e) for name, s, e in dev if K2_NAME in name]
     return {"busy_s": busy_s, "window_s": window_s, "device_ops": [[n, t] for n, t in ops],
             "idle_gaps": [[n, t] for n, t in sorted(labelled.items(), key=lambda kv: -kv[1])[:top]],
-            "k2_launches": len(k2), "k2_s": sum(e - s for s, e in k2) / 1e6, "device_events": len(dev)}
+            "k2_launches": len(k2), "k2_s": sum(e - s for s, e in k2) / 1e6, "device_events": len(dev),
+            "kernels": kernels}
 
 
 class Tracer:

@@ -136,6 +136,14 @@ def frame_launches(cfg: Dict[str, Any], B: int) -> List[Tuple[int, int, int]]:
     return out + dense[7 * L:]
 
 
+def expert_bytes(cfg: Dict[str, Any]) -> int:
+    """One routed expert's bytes as a layer's routed GEMV needs them once,
+    however many lanes chose it: its gate, up and down int8 weights and
+    float32 scale rows."""
+    _, H, _, _, Fe, _ = _sizes(cfg)
+    return 2 * (H * Fe + 4 * Fe) + Fe * H + 4 * H
+
+
 def frame_flops(cfg: Dict[str, Any], context: int) -> float:
     """Qwen3-TTS's frame with the dense talker MLP's operations replaced by
     the router's, k experts' and the shared expert's and its gate's."""

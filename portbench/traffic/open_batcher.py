@@ -24,9 +24,17 @@ TRACE_LEAD_S = 3.0  # the traced window opens this long before the window closes
 
 
 def _request(ctx, req: Dict[str, Any]) -> Dict[str, Any]:
-    """A submission: the text, its language and the voice's prompt as the
-    mix's kind of voice gives it (the batcher takes voice-clone prompts)."""
+    """A submission: the text, its language and the voice's arguments as the
+    mix's kind of voice gives them (a voice-clone prompt, a preset speaker)."""
     return {"text": req["text"], "language": req["language"], **ctx.voice_args(req)}
+
+
+def _warm_request(ctx) -> Dict[str, Any]:
+    """The warm request: a fixed text in the mix's language, with the first
+    voice of the mix's kind (x-vector voice 0, the first preset speaker)."""
+    params = ctx.workload["traffic_params"]
+    return {"text": "A warm request of some length", "language": params.get("language", "English"),
+            ctx.kind.KEY: ctx.kind.labels(params)[0]}
 
 
 def _batcher(ctx):
@@ -40,8 +48,7 @@ def warm(ctx) -> None:
     """One request through a batcher of the cell's shape: admission, the
     pool's chunks, the host vocoder and the device window."""
     cb = _batcher(ctx)
-    cb.submit(_request(ctx, {"text": "A warm request of some length", "language": "English", "voice": 0}),
-              max_new_tokens=ctx.workload["entry"].get("warm_frames", 40))
+    cb.submit(_request(ctx, _warm_request(ctx)), max_new_tokens=ctx.workload["entry"].get("warm_frames", 40))
     cb.close()
     for _ in cb.run():
         pass
