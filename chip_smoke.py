@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py                       # from the repository root, on a machine with a card
     python3 chip_smoke.py --report out.json     # also write every measurement to out.json
-    python3 chip_smoke.py --kernels-only        # phases 1-4 only (no ok line)
+    python3 chip_smoke.py --kernels-only        # phases 1-4 only, the chain with them (no ok line)
     python3 chip_smoke.py --restart-from DIR    # phase 10c's fresh process: restart from the bundle DIR
 
 Phases, each of which fails the run:
@@ -41,6 +41,12 @@ Phases, each of which fails the run:
    views, a lane clamped to the last slot, every other cache slot held
    unchanged; K7: 1 x 3072, 1 x 6144 and 8 x 3072, split and fused), normed
    rows within one bf16 ulp, K5's sums, K6's V rows and K7 bit for bit;
+   chain: the decode chain's programmatic dependent launches at the 0.6B
+   and 1.7B widths, B = 1: layers of their own weights (past the L2)
+   captured in one graph, 1,000 replays each bit for bit the same chain
+   run with a synchronise after every launch; the device ms of a layer
+   against its 12 launches timed alone, two chained K2 against the two
+   alone, the graph's programmatic edges, the CUDA runtime and driver;
 4. probe: K3 streams the stacked int8 weights of the Pallas probe it
    replaces (L=28, I=2048, O=12288, the 1.7B gate+up stack, and L=28,
    I=1024, O=6144), timed with CUDA events, then held against its plain
@@ -866,6 +872,207 @@ def glue_phase(g):
                        lambda i: glue.silu_mul(*gu[i]), lambda i: glue.silu_mul_plain(*gu[i]),
                        3 * rows * inter * 2, 6 * rows * inter)
     return k5, k6, k7
+
+
+# One decoder layer's chain at B = 1 (K5, K2 q / k / v, K6, K1, K2 o, K5, K2
+# gate / up, K7, K2 down) at the talkers' widths, (hidden, intermediate): 16
+# query / 8 kv heads of 128, a 2048-slot cache with 133 live slots
+CHAIN_WIDTHS = {"0.6B": (1024, 3072), "1.7B": (2048, 6144)}
+CHAIN_LIVE, CHAIN_SLOTS = 133, 2048
+CHAIN_REPLAYS = 1000
+CHAIN_INPUTS = 16  # distinct inputs the replays cycle through, so a read of a stale buffer shows
+CHAIN_LAUNCHES = 12  # kernel launches a layer
+
+
+def _chain_layer(H, F, g, dev):
+    """One decoder layer's parameters in the port's layout (Q8_0 projections,
+    bf16 norms), drawn from `g` on `dev`."""
+    import torch
+
+    from faster_qwen3_tts_tpu_torch.ops import quant
+
+    def lin(I, O):
+        return quant.quantize_linear_torch(torch.randn(I, O, generator=g, device=dev) * I ** -0.5)
+
+    def norm(W):
+        return (1 + 0.1 * torch.randn(W, generator=g, device=dev)).to(torch.bfloat16)
+
+    return {"ln1": norm(H), "ln2": norm(H), "wq": lin(H, 16 * 128), "wk": lin(H, 8 * 128), "wv": lin(H, 8 * 128),
+            "wo": lin(16 * 128, H), "w_gate": lin(H, F), "w_up": lin(H, F), "w_down": lin(F, H),
+            "q_norm": norm(128), "k_norm": norm(128)}
+
+
+def _chain(layer_params, x, m, cos, sin, caches, write_pos, mask):
+    """`models.layers.layer_decode` of each layer in turn -> every layer's
+    (x, m), flat."""
+    from faster_qwen3_tts_tpu_torch.models import layers
+    from faster_qwen3_tts_tpu_torch.parallel.mesh import as_ranks
+
+    shape = layers.LayerShape(16, 8, 128, GLUE_EPS)
+    outs = []
+    for lp, (kc, vc) in zip(layer_params, caches):
+        x, m = layers.layer_decode(as_ranks(lp), x, m, cos, sin, [kc], [vc], write_pos, mask, shape)
+        outs += [x, m]
+    return outs
+
+
+@contextlib.contextmanager
+def serialised(counter):
+    """For the block, every kernel launch of the port waits for the card
+    before it returns, so no two kernels can overlap; `counter[0]` counts the
+    launches."""
+    import torch
+
+    from faster_qwen3_tts_tpu_torch.ops import kernels
+
+    real = kernels.KernelLibrary.call
+
+    def call(self, name, *args):
+        real(self, name, *args)
+        torch.cuda.synchronize()
+        counter[0] += 1
+
+    kernels.KernelLibrary.call = call
+    try:
+        yield counter
+    finally:
+        kernels.KernelLibrary.call = real
+
+
+def _captured(fn):
+    """(graph, fn's outputs, whether the graph kept its cudaGraph_t): `fn`
+    run once on a side stream, then captured, as `device_ms` does; the graph
+    keeps its cudaGraph_t where the card's PyTorch can (`keep_graph`)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    try:
+        graph, kept = torch.cuda.CUDAGraph(keep_graph=True), True
+    except TypeError:
+        graph, kept = torch.cuda.CUDAGraph(), False
+    with torch.cuda.graph(graph):
+        outs = fn()
+    if kept:
+        graph.instantiate()
+    return graph, outs, kept
+
+
+def chain_phase(report):
+    """The decode chain's programmatic dependent launches (csrc/common.cuh
+    `launch_chain`) at the 0.6B and 1.7B widths, B = 1: enough layers of
+    their own weights to pass the 50 MB L2 (as a frame's layers do), each
+    `layer_decode`'s 12 launches, captured in one graph. Every one of
+    CHAIN_REPLAYS replays, the inputs cycling through CHAIN_INPUTS, must be
+    bit for bit the same chain run eagerly with a synchronise after every
+    launch (nothing overlaps there). Then the device ms of a layer in the
+    replay, against the sum of its 12 launches each timed alone as the
+    kernel phase times a kernel (`device_ms` over copies), and a two-K2
+    chain (gate then down on its output) against the two alone; the CUDA
+    runtime's and driver's versions and the graph's programmatic edges."""
+    import numpy as np
+    import torch
+
+    from faster_qwen3_tts_tpu_torch.models.layers import rope_cos_sin
+    from faster_qwen3_tts_tpu_torch.ops import attention, glue, kernels, quant
+
+    dev = torch.device("cuda")
+    lib = kernels.library()
+    # a library built before the chain was launched this way has neither query
+    queries = hasattr(lib, "cuda_versions")
+    versions = dict(lib.cuda_versions() if queries else {"runtime": None, "driver": None}, torch=torch.version.cuda)
+    log(f"chain: CUDA runtime {versions['runtime']}, driver {versions['driver']}, torch built for "
+        f"{versions['torch']} ({CARD})")
+    g = torch.Generator(device=dev).manual_seed(25)
+
+    def rand(*shape, scale=1.0):
+        return (torch.randn(*shape, generator=g, device=dev) * scale).to(torch.bfloat16)
+
+    rows = []
+    for what, (H, F) in CHAIN_WIDTHS.items():
+        weight_bytes = H * (16 + 8 + 8) * 128 + 16 * 128 * H + 3 * H * F
+        n = math.ceil(96e6 / weight_bytes)
+        params = [_chain_layer(H, F, g, dev) for _ in range(n)]
+        caches = [(rand(1, CHAIN_SLOTS, 8, 128), rand(1, CHAIN_SLOTS, 8, 128)) for _ in range(n)]
+        write_pos = torch.tensor([CHAIN_LIVE - 1], dtype=torch.int32, device=dev)
+        mask = (torch.arange(CHAIN_SLOTS, device=dev) < CHAIN_LIVE).to(torch.int32)[None]
+        cos, sin = rope_cos_sin(write_pos[:, None], 128, 1e6)
+        inputs = [(rand(1, 1, H, scale=3.0), rand(1, 1, H)) for _ in range(CHAIN_INPUTS)]
+        x_in, m_in = inputs[0][0].clone(), inputs[0][1].clone()
+
+        counter = [0]
+        with serialised(counter):
+            refs = [[o.clone() for o in _chain(params, x, m, cos, sin, caches, write_pos, mask)] for x, m in inputs]
+        per_layer = counter[0] / (CHAIN_INPUTS * n)
+        graph, outs, kept = _captured(lambda: _chain(params, x_in, m_in, cos, sin, caches, write_pos, mask))
+        edges = lib.graph_edges(graph.raw_cuda_graph()) if kept and queries else None
+        bad = []
+        for i in range(CHAIN_REPLAYS):
+            x, m = inputs[i % CHAIN_INPUTS]
+            x_in.copy_(x)
+            m_in.copy_(m)
+            graph.replay()
+            bad.append(torch.stack([torch.ne(o, r).any() for o, r in zip(outs, refs[i % CHAIN_INPUTS])]).any())
+        mismatched = int(torch.stack(bad).sum())
+        layer_ms = _events_ms(graph.replay, reps=51) / n
+
+        lp = params[0]
+        kc, vc = caches[0]
+        alone = {}
+        for key, I in (("wq", H), ("wk", H), ("wv", H), ("wo", 16 * 128), ("w_gate", H), ("w_up", H),
+                       ("w_down", F)):
+            w = lp[key]
+            qs = [w.q] + [w.q.clone() for _ in range(_copies(w.q.numel()) - 1)]
+            xk = rand(1, 1, I)
+            alone[f"K2 {key}"] = device_ms(lambda i: quant.int8_gemv(xk, qs[i], w.scale), len(qs))
+            del qs
+        xs, rs = [rand(1, 1, H, scale=3.0) for _ in range(GLUE_COPIES)], [rand(1, 1, H) for _ in range(GLUE_COPIES)]
+        alone["K5 ln1"] = alone["K5 ln2"] = device_ms(
+            lambda i: glue.add_rms_norm(xs[i], rs[i], lp["ln1"], GLUE_EPS), GLUE_COPIES)
+        qkv = [(rand(1, 1, 16, 128, scale=2.0), rand(1, 1, 8, 128, scale=2.0), rand(1, 1, 8, 128))
+               for _ in range(GLUE_COPIES)]
+        alone["K6"] = device_ms(lambda i: glue.qk_norm_rope_kv(*qkv[i], lp["q_norm"], lp["k_norm"], cos, sin, kc, vc,
+                                                               write_pos, GLUE_EPS), GLUE_COPIES)
+        copies = _copies(2 * kc.numel() * kc.element_size())
+        kcs, vcs = [kc] + [kc.clone() for _ in range(copies - 1)], [vc] + [vc.clone() for _ in range(copies - 1)]
+        q1 = rand(1, 1, 16, 128)
+        alone["K1"] = device_ms(lambda i: attention.decode_attention(q1, kcs[i], vcs[i], mask), copies)
+        gu = [(rand(1, 1, F, scale=4.0), rand(1, 1, F, scale=4.0)) for _ in range(GLUE_COPIES)]
+        alone["K7"] = device_ms(lambda i: glue.silu_mul(*gu[i]), GLUE_COPIES)
+        del xs, rs, qkv, kcs, vcs, gu
+        # two dependent K2 launches: the gate projection, then the down projection of its output
+        gate, down = lp["w_gate"], lp["w_down"]
+        copies = _copies(gate.q.numel() + down.q.numel())
+        gates = [gate.q] + [gate.q.clone() for _ in range(copies - 1)]
+        downs = [down.q] + [down.q.clone() for _ in range(copies - 1)]
+        h = rand(1, 1, H)
+        pair_ms = device_ms(lambda i: quant.int8_gemv(quant.int8_gemv(h, gates[i], gate.scale), downs[i], down.scale),
+                            copies)
+        del gates, downs
+        row = {"widths": what, "hidden": H, "intermediate": F, "layers": n, "launches_per_layer": per_layer,
+               "replays": CHAIN_REPLAYS, "mismatched_replays": mismatched,
+               "programmatic_edges": None if edges is None else edges[0], "edges": None if edges is None else edges[1],
+               "layer_ms": layer_ms, "alone_sum_ms": sum(alone.values()), "alone_ms": alone,
+               "pair_ms": pair_ms, "pair_alone_ms": alone["K2 w_gate"] + alone["K2 w_down"]}
+        rows.append(row)
+        log(f"chain {what} ({n} layers of {weight_bytes / 1e6:.1f} MB, {per_layer:g} launches a layer; "
+            f"graph edges {'not read' if edges is None else f'{edges[0]} programmatic of {edges[1]}'}): "
+            f"{CHAIN_REPLAYS - mismatched} of {CHAIN_REPLAYS} replays bit for bit the serialised chain; device ms "
+            f"a layer {layer_ms:.5f} replayed, {row['alone_sum_ms']:.5f} as its launches alone "
+            f"({', '.join(f'{k} {v:.5f}' for k, v in alone.items())}); two K2 (gate, down) "
+            f"{pair_ms:.5f} chained, {row['pair_alone_ms']:.5f} alone ({CARD})")
+        if per_layer != CHAIN_LAUNCHES:
+            fail(f"chain {what}: {per_layer} kernel launches a layer, expected {CHAIN_LAUNCHES}")
+        if mismatched:
+            fail(f"chain {what}: {mismatched} of {CHAIN_REPLAYS} replays differ from the serialised chain")
+        del params, caches, graph, outs, refs
+        gc.collect()
+        torch.cuda.empty_cache()
+    report["chain"] = {"versions": versions, "rows": rows}
+    return rows
 
 
 def _events_ms(fn, reps: int, warm: int = 2) -> float:
@@ -4234,7 +4441,7 @@ def main() -> None:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--report", type=Path, help="write every measurement to this JSON file")
     parser.add_argument("--kernels-only", action="store_true",
-                        help="stop after the build, kernel and probe phases (prints no ok line)")
+                        help="stop after the build, kernel, chain and probe phases (prints no ok line)")
     parser.add_argument("--restart-from", type=Path, metavar="BUNDLE",
                         help="the restart phase's fresh process: load BUNDLE, warm up, stream once, print "
                              "one RESTART line (no ok line)")
@@ -4272,6 +4479,8 @@ def main() -> None:
 
     phase("kernels")
     k1_cases, k2_cases, k4_cases, k5_cases, k6_cases, k7_cases = kernel_phase(report)
+    phase("chain")
+    chain_rows = chain_phase(report)
     phase("probe")
     k3_cases, k3_launches = probe_phase(report, k2_cases)
     if args.kernels_only:
@@ -4361,6 +4570,8 @@ def main() -> None:
         entry("silu_mul", "faster_qwen3_tts_tpu_torch/csrc/glue.cu", "none (XLA fused this glue)", k7_cases,
               total["K7"], 2),
     ]}
+    record["chain"] = [{k: r[k] for k in ("widths", "layer_ms", "alone_sum_ms", "pair_ms", "pair_alone_ms",
+                                          "mismatched_replays", "programmatic_edges")} for r in chain_rows]
     report["record"] = record
     write_report(args.report, report)
     log(json.dumps(record))

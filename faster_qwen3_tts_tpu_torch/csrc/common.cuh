@@ -116,30 +116,78 @@ __device__ __forceinline__ void cluster_wait() {
   asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
 }
 
-// Launch `Kernel` on a grid whose x extent is split into thread-block
-// clusters of `cluster_x` (at most 8) blocks (cudaLaunchKernelEx). The first
-// launch of each kernel lets it use all of an SM's shared memory.
+// Programmatic dependent launch (Hopper). The kernels of the decode chain
+// (K1, K2, K5, K6, K7) are launched by `launch_chain`, so each may begin
+// while the kernel before it on the stream is still running, and spend that
+// time on its prologue. The rule every chain kernel keeps: before
+// pdl_wait() it reads only constants (weights, scales, norm weights, tensor
+// maps: written before the kernel ahead of it began) and writes only its
+// own shared memory and barriers; pdl_wait() returns once the kernel before
+// it has completed and its stores are visible, and since every chain
+// kernel waits, so has every kernel before that; pdl_launch_dependents(),
+// right after the wait, lets the next kernel start its prologue, so at most
+// two grids overlap: one working, the next in its prologue. A kernel
+// launched without the attribute (PyTorch's, K3, K4) starts only after the
+// kernel before it has completed, as always; a chain kernel after one of
+// them starts when it has, and its wait returns at once. In a captured
+// graph the launch becomes a programmatic edge.
+__device__ __forceinline__ void pdl_wait() { asm volatile("griddepcontrol.wait;\n" ::: "memory"); }
+__device__ __forceinline__ void pdl_launch_dependents() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// Launch `Kernel` with cudaLaunchKernelEx: where cluster_x > 0, on a grid
+// whose x extent is split into thread-block clusters of cluster_x (at most 8)
+// blocks; where `chain`, as a programmatic dependent of the kernel before it
+// (above). The first launch of a kernel with dynamic shared memory lets it
+// use all of an SM's.
 template <auto Kernel, typename... Args>
-cudaError_t launch_cluster(dim3 grid, int threads, int smem, int cluster_x, cudaStream_t stream,
-                           Args&&... args) {
-  static const cudaError_t attr_err = cudaFuncSetAttribute(
-      Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxDynamicSmem);
-  if (attr_err != cudaSuccess) return attr_err;
+cudaError_t launch_ex(bool chain, dim3 grid, int threads, int smem, int cluster_x, cudaStream_t stream,
+                      Args&&... args) {
+  if (smem > 0) {
+    static const cudaError_t attr_err = cudaFuncSetAttribute(
+        Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxDynamicSmem);
+    if (attr_err != cudaSuccess) return attr_err;
+  }
   cudaLaunchConfig_t cfg = {};
   cfg.gridDim = grid;
   cfg.blockDim = dim3(threads);
   cfg.dynamicSmemBytes = static_cast<size_t>(smem);
   cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster_x;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
+  cudaLaunchAttribute attr[2];
+  unsigned n = 0;
+  if (cluster_x > 0) {
+    attr[n].id = cudaLaunchAttributeClusterDimension;
+    attr[n].val.clusterDim.x = cluster_x;
+    attr[n].val.clusterDim.y = 1;
+    attr[n].val.clusterDim.z = 1;
+    ++n;
+  }
+  if (chain) {
+    attr[n].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+    attr[n].val.programmaticStreamSerializationAllowed = 1;
+    ++n;
+  }
   cfg.attrs = attr;
-  cfg.numAttrs = 1;
+  cfg.numAttrs = n;
   cudaError_t err = cudaLaunchKernelEx(&cfg, Kernel, std::forward<Args>(args)...);
   if (err != cudaSuccess) return err;
   return cudaGetLastError();
+}
+
+// A kernel of the decode chain: it keeps the rule above. cluster_x 0: no
+// clusters.
+template <auto Kernel, typename... Args>
+cudaError_t launch_chain(dim3 grid, int threads, int smem, int cluster_x, cudaStream_t stream, Args&&... args) {
+  return launch_ex<Kernel>(true, grid, threads, smem, cluster_x, stream, std::forward<Args>(args)...);
+}
+
+// A cluster launch outside the chain (K4, which reads its input from its
+// first instruction): it starts once the kernel before it has completed.
+template <auto Kernel, typename... Args>
+cudaError_t launch_cluster(dim3 grid, int threads, int smem, int cluster_x, cudaStream_t stream,
+                           Args&&... args) {
+  return launch_ex<Kernel>(false, grid, threads, smem, cluster_x, stream, std::forward<Args>(args)...);
 }
 
 }  // namespace fq3t

@@ -50,6 +50,9 @@
 //   waited on before the first remote store, makes sure every CTA of the
 //   cluster is running. No global scratch, no second kernel: the call is
 //   capture-safe with no per-graph state.
+// - The launch. A programmatic dependent launch (common.cuh `launch_chain`):
+//   the grid starts while the kernel before it runs, and every CTA waits on
+//   the grid dependency before its first read of q, the mask or the cache.
 //
 // A mask with no live slot at all gives 0 here; the masked softmax of the
 // reference would average every slot. The engine never asks for that: the
@@ -139,16 +142,19 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(
   unsigned* bits_s = reinterpret_cast<unsigned*>(list_s + list_len);  // live slots of each tile
   int* count_s = reinterpret_cast<int*>(bits_s + list_len);
 
+  if (tid < kMaxG) {
+    m_s[tid] = -CUDART_INF_F;
+    l_s[tid] = 0.f;
+  }
+  // q, the mask and the cache are the chain's: written by the kernels before
+  pdl_wait();
+  pdl_launch_dependents();
   // q (scaled) is loaded to registers first, so its loads fly with the mask's
   float qv[kQPer];
 #pragma unroll
   for (int u = 0; u < kQPer; ++u) {
     const int e = u * kThreads + tid;
     qv[u] = e < GD ? to_float(q[head0 * D + e]) * scale : 0.f;
-  }
-  if (tid < kMaxG) {
-    m_s[tid] = -CUDART_INF_F;
-    l_s[tid] = 0.f;
   }
 
   // live tiles, compacted in order: one thread per tile (its 32 live bits),
@@ -330,7 +336,7 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(
 template <typename T, int G, int D>
 cudaError_t launch_gd(const void* q, const void* k, const void* v, const void* mask, void* out,
                       int B, int S, int Hkv, float scale, int cluster, int smem, cudaStream_t stream) {
-  return launch_cluster<decode_attn_kernel<T, G, D>>(
+  return launch_chain<decode_attn_kernel<T, G, D>>(
       dim3(cluster, Hkv, B), kThreads, smem, cluster, stream, static_cast<const T*>(q),
       static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const int*>(mask),
       static_cast<T*>(out), S, Hkv, scale);

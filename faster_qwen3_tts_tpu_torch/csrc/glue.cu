@@ -19,7 +19,14 @@
 // ~6 KB), far under a microsecond at 3.35 TB/s, and does a few flops a byte.
 // So each is one launch with every load of a thread issued before its first
 // use, no global scratch and no second pass over device memory: a row's
-// values stay in registers from the load to the store.
+// values stay in registers from the load to the store. Each is a
+// programmatic dependent launch (common.cuh `launch_chain`): its grid starts
+// while the kernel before it runs and waits on the grid dependency before
+// its first load. The norm weights are constant and could be read before
+// the wait, but a call lasts about as long as a dependent grid takes to
+// start, so that wait is seldom hidden, and splitting the loads cost K5 a
+// second round trip (one 1024 row with its residual: 1.51 us a call with
+// every load after the wait, 2.54 us with the weight before it; H100).
 //
 // Rounding, the plain code's: the residual sum rounds to the activation dtype
 // and the norm runs in f32 over the rounded values; the norm is
@@ -55,9 +62,11 @@ __global__ void __launch_bounds__(TPR < kThreads ? kThreads : TPR) add_rms_norm_
   const int t = threadIdx.x % TPR;
   const int r = blockIdx.x * (TPR < kThreads ? kThreads / TPR : 1) + threadIdx.x / TPR;
   if (TPR == 32 && r >= N) return;  // a whole warp leaves; a CTA-wide row always exists
-  const T* xr = x + (size_t)(r / heads) * ldx + (size_t)(r % heads) * W;
   const size_t o = (size_t)r * W;
 
+  pdl_wait();  // x and the residual are the kernel before's
+  pdl_launch_dependents();
+  const T* xr = x + (size_t)(r / heads) * ldx + (size_t)(r % heads) * W;
   float v[PER], wv[PER], rv[PER];
 #pragma unroll
   for (int i = 0; i < PER; ++i) {
@@ -118,8 +127,10 @@ __global__ void __launch_bounds__(kHeadWarps * 32) qk_norm_rope_kv_kernel(
   const bool is_q = hh < Hq;
   const int h = is_q ? hh : hh - Hq;
   const int half = D / 2;
-  const T* src = is_q ? q + (size_t)b * ldq + (size_t)h * D : k + (size_t)b * ldk + (size_t)h * D;
   const T* w = is_q ? qw : kw;
+  pdl_wait();  // q, k, v, cos / sin and the write positions are the chain's
+  pdl_launch_dependents();
+  const T* src = is_q ? q + (size_t)b * ldq + (size_t)h * D : k + (size_t)b * ldk + (size_t)h * D;
   const float* cr = cos + (size_t)b * D;
   const float* sr = sin + (size_t)b * D;
   size_t dst = 0;
@@ -184,6 +195,8 @@ __global__ void __launch_bounds__(kThreads) silu_mul_kernel(const T* __restrict_
                                                             T* __restrict__ out, int N, int I) {
   const int c = blockIdx.x * kThreads + threadIdx.x;
   if (c >= I) return;
+  pdl_wait();  // g and u are the kernel before's
+  pdl_launch_dependents();
   for (int r = blockIdx.y; r < N; r += gridDim.y) {
     const float x = to_float(g[(size_t)r * ldg + c]);
     const float s = to_float(from_float<T>(x / (1.f + expf(-x))));
@@ -196,10 +209,10 @@ cudaError_t norm_launch(const void* x, long long ldx, const void* res, void* sum
                         void* out, int N, int heads, int W, float eps, cudaStream_t stream) {
   const int rows_per_cta = TPR < kThreads ? kThreads / TPR : 1;
   const int threads = TPR < kThreads ? kThreads : TPR;
-  add_rms_norm_kernel<T, TPR, PER><<<(N + rows_per_cta - 1) / rows_per_cta, threads, 0, stream>>>(
-      static_cast<const T*>(x), ldx, static_cast<const T*>(res), static_cast<T*>(sum),
-      static_cast<const T*>(w), static_cast<T*>(out), N, heads, W, eps);
-  return cudaGetLastError();
+  return launch_chain<add_rms_norm_kernel<T, TPR, PER>>(
+      dim3((N + rows_per_cta - 1) / rows_per_cta), threads, 0, 0, stream, static_cast<const T*>(x), ldx,
+      static_cast<const T*>(res), static_cast<T*>(sum), static_cast<const T*>(w), static_cast<T*>(out), N,
+      heads, W, eps);
 }
 
 template <typename T>
@@ -251,20 +264,17 @@ extern "C" int fq3t_qk_norm_rope_kv(int dtype, const void* q, long long ldq, con
   auto s = static_cast<const float*>(sin);
   if (dtype == kBFloat16) {
     using T = __nv_bfloat16;
-    qk_norm_rope_kv_kernel<T><<<grid, kHeadWarps * 32, 0, st>>>(
-        static_cast<const T*>(q), ldq, static_cast<const T*>(k), ldk, static_cast<const T*>(v), ldv,
-        static_cast<const T*>(qw), static_cast<const T*>(kw), c, s, static_cast<T*>(kc),
-        static_cast<T*>(vc), pos, static_cast<T*>(q_out), Hq, Hkv, D, S, eps);
-  } else if (dtype == kFloat32) {
-    qk_norm_rope_kv_kernel<float><<<grid, kHeadWarps * 32, 0, st>>>(
-        static_cast<const float*>(q), ldq, static_cast<const float*>(k), ldk,
-        static_cast<const float*>(v), ldv, static_cast<const float*>(qw),
-        static_cast<const float*>(kw), c, s, static_cast<float*>(kc), static_cast<float*>(vc), pos,
-        static_cast<float*>(q_out), Hq, Hkv, D, S, eps);
-  } else {
-    return cudaErrorInvalidValue;
+    return launch_chain<qk_norm_rope_kv_kernel<T>>(
+        grid, kHeadWarps * 32, 0, 0, st, static_cast<const T*>(q), ldq, static_cast<const T*>(k), ldk,
+        static_cast<const T*>(v), ldv, static_cast<const T*>(qw), static_cast<const T*>(kw), c, s,
+        static_cast<T*>(kc), static_cast<T*>(vc), pos, static_cast<T*>(q_out), Hq, Hkv, D, S, eps);
   }
-  return cudaGetLastError();
+  if (dtype == kFloat32)
+    return launch_chain<qk_norm_rope_kv_kernel<float>>(
+        grid, kHeadWarps * 32, 0, 0, st, static_cast<const float*>(q), ldq, static_cast<const float*>(k), ldk,
+        static_cast<const float*>(v), ldv, static_cast<const float*>(qw), static_cast<const float*>(kw), c, s,
+        static_cast<float*>(kc), static_cast<float*>(vc), pos, static_cast<float*>(q_out), Hq, Hkv, D, S, eps);
+  return cudaErrorInvalidValue;
 }
 
 // K7: g / u [N, I] rows at ldg / ldu, out dense [N, I].
@@ -276,14 +286,11 @@ extern "C" int fq3t_silu_mul(int dtype, const void* g, long long ldg, const void
   auto st = static_cast<cudaStream_t>(stream);
   if (dtype == kBFloat16) {
     using T = __nv_bfloat16;
-    silu_mul_kernel<T><<<grid, kThreads, 0, st>>>(static_cast<const T*>(g), ldg,
-                                                  static_cast<const T*>(u), ldu, static_cast<T*>(out), N, I);
-  } else if (dtype == kFloat32) {
-    silu_mul_kernel<float><<<grid, kThreads, 0, st>>>(static_cast<const float*>(g), ldg,
-                                                      static_cast<const float*>(u), ldu,
-                                                      static_cast<float*>(out), N, I);
-  } else {
-    return cudaErrorInvalidValue;
+    return launch_chain<silu_mul_kernel<T>>(grid, kThreads, 0, 0, st, static_cast<const T*>(g), ldg,
+                                            static_cast<const T*>(u), ldu, static_cast<T*>(out), N, I);
   }
-  return cudaGetLastError();
+  if (dtype == kFloat32)
+    return launch_chain<silu_mul_kernel<float>>(grid, kThreads, 0, 0, st, static_cast<const float*>(g), ldg,
+                                                static_cast<const float*>(u), ldu, static_cast<float*>(out), N, I);
+  return cudaErrorInvalidValue;
 }

@@ -36,6 +36,15 @@
 // - Byte conversion. Bytes become floats by K3's permute into the mantissa of
 //   2^23 and one subtraction (common.cuh `bytes_to_floats`), not the
 //   quarter-rate int-to-float unit.
+// - The launch's fixed cost. A one-row call at 0.6B widths moves 1-3 MB
+//   (0.3-0.9 us at the HBM rate) and took 4.3-5.7 us, mostly its start: the
+//   grid, the barriers and the first TMA round trip, each after the kernel
+//   before it had drained. K2 is a programmatic dependent launch
+//   (common.cuh `launch_chain`): it may start while the kernel before it
+//   runs, sets up its barriers and issues its first min(stages, 8) TMA
+//   loads (the weight is constant), and only then waits on the grid
+//   dependency before it reads x, so the weight's first round trip overlaps
+//   the previous kernel (3.1-5.2 us a call then, in a chain of calls).
 // - Staging x. The CTA's slice of x (at most 4 rows) is copied to shared
 //   memory once, in its own dtype, while the first stages are in flight.
 // - The math. 256 threads: 8 across the 128 columns (16 bytes each) and 32
@@ -167,6 +176,11 @@ __global__ void __launch_bounds__(kThreads) int8_gemv_kernel(
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     for (int k = 0; k < min(nchunks, kStages); ++k) issue(k);
   }
+  // the first stages of the weight (at the main path's shapes, all of a slab
+  // but the 1.7B down projection's last 4) are on their way while the kernel
+  // before this one finishes; only x is its output
+  pdl_wait();
+  pdl_launch_dependents();
   // x's slice, zero past I and past M (the box rows past I arrive as zeros
   // too); kXLoads loads a thread in flight together
   constexpr int kXLoads = 8;
@@ -318,10 +332,10 @@ cudaError_t launch_mr(const CUtensorMap& map, const void* x, const void* scale, 
   if (smem < smem_bytes(MR, rows_per_cta, sizeof(T)) || smem > kMaxDynamicSmem)
     return cudaErrorInvalidValue;
   const dim3 grid(((O + kCols - 1) / kCols) * cluster, (M + MR - 1) / MR);
-  return launch_cluster<int8_gemv_kernel<T, MR>>(grid, kThreads, smem, cluster, stream, map,
-                                                 static_cast<const T*>(x),
-                                                 static_cast<const float*>(scale),
-                                                 static_cast<T*>(y), M, I, O, rows_per_cta);
+  return launch_chain<int8_gemv_kernel<T, MR>>(grid, kThreads, smem, cluster, stream, map,
+                                               static_cast<const T*>(x),
+                                               static_cast<const float*>(scale),
+                                               static_cast<T*>(y), M, I, O, rows_per_cta);
 }
 
 template <typename T>

@@ -18,13 +18,13 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build" / "fq3t_torch"
-SOURCES = ("decode_attention.cu", "int8_gemv.cu", "int4_gemv.cu", "weight_stream.cu", "glue.cu")
+SOURCES = ("decode_attention.cu", "int8_gemv.cu", "int4_gemv.cu", "weight_stream.cu", "glue.cu", "runtime.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -46,6 +46,8 @@ _SIGNATURES = {
     "fq3t_add_rms_norm": ([_int, _vp, _ll, _vp, _vp, _vp, _vp, _int, _int, _int, _float, _vp], _int),
     "fq3t_qk_norm_rope_kv": ([_int, _vp, _ll, _vp, _ll, _vp, _ll] + [_vp] * 8 + [_int] * 5 + [_float, _vp], _int),
     "fq3t_silu_mul": ([_int, _vp, _ll, _vp, _ll, _vp, _int, _int, _vp], _int),
+    "fq3t_cuda_versions": ([_vp, _vp], _int),
+    "fq3t_graph_edges": ([_vp, _vp, _vp], _int),
 }
 
 
@@ -69,6 +71,24 @@ class KernelLibrary:
         err = getattr(self.cdll, name)(*args)
         if err != 0:
             raise RuntimeError(f"{name} failed: CUDA error {err}")
+
+    def cuda_versions(self) -> dict:
+        """The CUDA runtime's and driver's versions (1000 * major + 10 * minor)."""
+        runtime, driver = ctypes.c_int(), ctypes.c_int()
+        self.call("fq3t_cuda_versions", ctypes.byref(runtime), ctypes.byref(driver))
+        return {"runtime": runtime.value, "driver": driver.value}
+
+    def graph_edges(self, graph: int) -> Optional[Tuple[int, int]]:
+        """(programmatic edges, all edges) of a cudaGraph_t (a captured
+        `torch.cuda.CUDAGraph(keep_graph=True)`'s `raw_cuda_graph()`), or
+        None where the library's runtime has no typed edges."""
+        prog, total = ctypes.c_longlong(), ctypes.c_longlong()
+        err = self.cdll.fq3t_graph_edges(ctypes.c_void_p(graph), ctypes.byref(prog), ctypes.byref(total))
+        if err == 801:  # cudaErrorNotSupported
+            return None
+        if err != 0:
+            raise RuntimeError(f"fq3t_graph_edges failed: CUDA error {err}")
+        return prog.value, total.value
 
 
 _LIB: Optional[KernelLibrary] = None

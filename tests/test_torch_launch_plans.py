@@ -50,6 +50,33 @@ def test_gemv_plan_fills_the_card_on_the_main_path(M, I, O):
     assert p.rows_per_cta <= 12 * 64
 
 
+# the stages of its slab a K2 CTA loads before it waits for the kernel ahead
+# of it (csrc/int8_gemv.cu: min(stages of the slab, the ring's 8)): all of
+# every 0.6B slab (q, gate / up and the heads 2, o 4, down 6) and of the 1.7B
+# ones but the down projection's, 8 of its 12
+PREFETCH = {(1024, 2048): 2, (1024, 1024): 2, (2048, 1024): 4, (1024, 3072): 2, (3072, 1024): 6,
+            (2048, 2048): 4, (2048, 6144): 7, (6144, 2048): 8, (2048, 3072): 4}
+
+
+@pytest.mark.parametrize("M", [1, 2])
+@pytest.mark.parametrize("I, O", MAIN_GEMV)
+def test_gemv_prefetches_its_slab_before_the_wait(M, I, O):
+    p = quant._gemv_plan(M, I, O, 2)
+    stages = p.rows_per_cta // 64
+    assert min(stages, 8) == PREFETCH[I, O]
+    assert (stages <= 8) == ((I, O) != (6144, 2048))
+
+
+@pytest.mark.parametrize("M", [1, 2])
+@pytest.mark.parametrize("I, O", MAIN_GEMV)
+def test_three_gemv_ctas_fit_an_sm(M, I, O):
+    """A launch's CTAs can sit beside the running one's while they load
+    their slabs: three fit one SM's shared memory, each with the 1 KB the
+    system keeps a CTA."""
+    p = quant._gemv_plan(M, I, O, 2)
+    assert 3 * (p.smem + 1024) <= SMEM_LIMIT
+
+
 @pytest.mark.parametrize("M, I, O", [(0, 64, 64), (17, 64, 64), (1, 64, 40), (1, 0, 64), (1, 64, 8)])
 def test_gemv_plan_refuses(M, I, O):
     with pytest.raises(ValueError):
